@@ -9,6 +9,8 @@ Phases, in order; any failure exits nonzero:
      the serve path's shapes and at odd sizes, in fp32 and bf16, with the
      tolerances stated below; time kernel, plain version, one library
      call doing the same work, and the least time the card could take.
+     3b. the same for the four Fig. 2 kernels (FMA32, STREAM, GEMM,
+     JACOBI2D) at the Fig. 2 path's shapes and at odd ones.
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
      against the same model on the CPU (plain versions).
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
@@ -16,8 +18,18 @@ Phases, in order; any failure exits nonzero:
      prefill, twice (the second run gives the spread); check every
      request's tokens, finite logits, and that every kernel's launch
      count grew; print tokens/s, stall p95 and the card's joules per
-     generated token (NVML); then a short run under the profiler.
-  6. print the ``{"kernels": [...]}`` line, then the final
+     generated token (NVML), measured through a PMT session whose every
+     request must have a resolved ``serve/req<N>`` record with
+     ``/prefill`` + ``/decode`` within 1% of its total; then a short run
+     under the profiler.
+  6. the paper's Fig. 2 (``repro_torch.launch.fig2``) at full size:
+     SLEEP, FMA32, STREAM, GEMM, JACOBI2D, each one region of a PMT
+     session stacking cpuutil and nvml, after a probe of which NVML
+     quantity follows the card; checks that every Fig. 2 kernel's launch
+     count grew, that every busy row's card watts exceed SLEEP's, and
+     that each row's session joules are within 10% of an independent
+     ``EnergyMeter`` reading of the same window.
+  7. print the ``{"kernels": [...]}`` line, then the final
      ``{"ok": true, "device": {...}}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -54,6 +66,14 @@ KERNEL_INFO = {
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:272"),
+    "fma32": ("src/repro_torch/kernels/csrc/fma32.cu",
+              "src/repro/kernels/fma32/fma32.py:28"),
+    "stream_triad": ("src/repro_torch/kernels/csrc/stream.cu",
+                     "src/repro/kernels/stream/stream.py:19"),
+    "gemm": ("src/repro_torch/kernels/csrc/gemm.cu",
+             "src/repro/kernels/gemm/gemm.py:33"),
+    "jacobi2d": ("src/repro_torch/kernels/csrc/jacobi2d.cu",
+                 "src/repro/kernels/jacobi2d/jacobi2d.py:45"),
 }
 
 
@@ -281,6 +301,141 @@ def check_prefill(kernel, ref, dev):
     return results
 
 
+# -- phase 3b: the Fig. 2 kernels against their plain versions ----------------
+# Shapes: the Fig. 2 path's (launch/fig2.py FULL), beyond the 50 MB L2,
+# and odd ones that leave ragged tiles.
+
+def _randn(dev, *shape, seed=5, dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def check_fma32(kernel, ref, dev):
+    """Tolerance |err| <= 1e-6 * (1 + |want|): both round once per step
+    (fused), so they should agree to the bit; a version rounding twice
+    per step misses 1e-6 after 1024 steps."""
+    results = {}
+    for name, shape, iters in (("main 8192x8192", (8192, 8192), 1024),
+                               ("odd 1027x771", (1027, 771), 1),
+                               ("odd 1027x771", (1027, 771), 64),
+                               ("odd 1027x771", (1027, 771), 1024)):
+        x = _randn(dev, *shape)
+        got = kernel.fma32_cuda(x, iters)
+        want = ref.fma32_ref(x, iters)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        rel = float(((got - want).abs() / (1 + want.abs())).max())
+        log(f"  fma32 {name} iters {iters}: max |err| {err:.3g}, "
+            f"max |err| / (1 + |want|) {rel:.3g} (tol 1e-6)")
+        if not rel <= 1e-6:
+            raise AssertionError("fma32 disagrees with its plain version")
+        if name.startswith("main"):
+            n = x.numel()
+            results = {
+                "ms": time_ms(lambda: kernel.fma32_cuda(x, iters)),
+                "plain_ms": time_ms(lambda: ref.fma32_ref(x, iters),
+                                    iters=2, warmup=1),
+                "library_ms": None, "max_abs_err": err}
+            results["bound_ms"], results["bound_by"] = bound(
+                8.0 * n, 2.0 * n * iters, torch.float32)
+    return results
+
+
+def check_stream(kernel, ref, dev):
+    """Exact: kernel and plain version round the same two operations."""
+    results = {}
+    for name, shape in (("main 16384x16384", (16384, 16384)),
+                        ("odd 1001x777", (1001, 777))):
+        for dt in (torch.float32, torch.bfloat16):
+            a = _randn(dev, *shape, seed=6, dtype=dt)
+            b = _randn(dev, *shape, seed=7, dtype=dt)
+            got = kernel.stream_triad_cuda(a, b, 2.5)
+            want = ref.stream_triad_ref(a, b, 2.5)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            log(f"  stream_triad {name} {str(dt)[6:]} s=2.5: max |err| "
+                f"{err} (must be 0)")
+            if err != 0.0:
+                raise AssertionError("stream_triad disagrees with its "
+                                     "plain version")
+            if name.startswith("main") and dt == torch.float32:
+                n = a.numel()
+                results = {
+                    "ms": time_ms(lambda: kernel.stream_triad_cuda(
+                        a, b, 2.0)),
+                    "plain_ms": time_ms(lambda: ref.stream_triad_ref(
+                        a, b, 2.0)),
+                    "library_ms": time_ms(lambda: torch.add(
+                        a, b, alpha=2.0)),
+                    "max_abs_err": err}
+                results["bound_ms"], results["bound_by"] = bound(
+                    12.0 * n, 2.0 * n, torch.float32)
+    return results
+
+
+def check_gemm(kernel, ref, dev):
+    """Tolerance 1e-5 of max |want|: both sum exact float32 products in
+    float32, in other orders (~1e-7 relative per sum at K = 8192)."""
+    results = {}
+    for name, (m, k, n) in (("main 8192^3", (8192, 8192, 8192)),
+                            ("odd 4097x1023x771", (4097, 1023, 771))):
+        for dt in (torch.float32, torch.bfloat16):
+            a = _randn(dev, m, k, seed=8, dtype=dt)
+            b = _randn(dev, k, n, seed=9, dtype=dt)
+            got = kernel.gemm_cuda(a, b)
+            want = ref.gemm_ref(a, b)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            scale = float(want.abs().max())
+            log(f"  gemm {name} {str(dt)[6:]}: max |err| {err:.3g} "
+                f"(tol {1e-5 * scale:.3g} = 1e-5 of max |want|)")
+            if not err <= 1e-5 * scale:
+                raise AssertionError("gemm disagrees with its plain version")
+            if name.startswith("main"):
+                el = a.element_size()
+                ms = time_ms(lambda: kernel.gemm_cuda(a, b), iters=5,
+                             warmup=1)
+                t_bound = bound(el * (m * k + k * n) + 4.0 * m * n,
+                                2.0 * m * k * n, dt)
+                log(f"  gemm {name} {str(dt)[6:]}: kernel {ms:.3f} ms, "
+                    f"bound {t_bound[0]:.3f} ms ({t_bound[1]})")
+                if dt == torch.float32:
+                    results = {
+                        "ms": ms,
+                        "plain_ms": time_ms(lambda: ref.gemm_ref(a, b),
+                                            iters=5, warmup=1),
+                        "library_ms": time_ms(lambda: torch.matmul(a, b),
+                                              iters=5, warmup=1),
+                        "max_abs_err": err}
+                    results["bound_ms"], results["bound_by"] = t_bound
+    return results
+
+
+def check_jacobi2d(kernel, ref, dev):
+    """Exact: the same sum in the same order, boundary cells copied."""
+    results = {}
+    for name, shape in (("main 16384x16384", (16384, 16384)),
+                        ("odd 1001x777", (1001, 777)),
+                        ("thin 2x9", (2, 9))):
+        x = _randn(dev, *shape, seed=10)
+        got = kernel.jacobi2d_cuda(x)
+        want = ref.jacobi2d_ref(x)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        log(f"  jacobi2d {name}: max |err| {err} (must be 0)")
+        if err != 0.0:
+            raise AssertionError("jacobi2d disagrees with its plain version")
+        if name.startswith("main"):
+            n = x.numel()
+            results = {
+                "ms": time_ms(lambda: kernel.jacobi2d_cuda(x)),
+                "plain_ms": time_ms(lambda: ref.jacobi2d_ref(x)),
+                "library_ms": None, "max_abs_err": err}
+            results["bound_ms"], results["bound_by"] = bound(
+                8.0 * n, 5.0 * n, torch.float32)
+    return results
+
+
 # -- phase 4: small reference ---------------------------------------------------
 
 def check_small_reference(configs, model_mod, ServeEngine, Request):
@@ -324,14 +479,19 @@ def check_small_reference(configs, model_mod, ServeEngine, Request):
 
 # -- phase 5: serve at full width --------------------------------------------------
 
-def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml):
-    """Serve the 16 requests twice on one engine: the first run is the
-    main path's (its launch counts go into the ``kernels`` line), the
-    second measures the spread of tokens/s and J/token on this card."""
+def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
+               pmt, serve_launch):
+    """Serve the 16 requests twice on one engine measured through one
+    PMT session (cpuutil + nvml): the first run is the main path's (its
+    launch counts go into the ``kernels`` line), the second measures the
+    spread of tokens/s and J/token on this card."""
     cfg = configs.get_config("smollm-135m")
     params = model_mod.init_params(cfg, seed=0, device="cuda")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
     eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
-                      prefill_chunk=32, cache_dtype=torch.bfloat16)
+                      prefill_chunk=32, cache_dtype=torch.bfloat16,
+                      session=session)
     rng = np.random.default_rng(0)
     warm = [Request(prompt=rng.integers(0, cfg.vocab_size, 40).tolist(),
                     max_new_tokens=4) for _ in range(2)]
@@ -347,18 +507,23 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml):
             f"{reader.power_limit_watts():.0f} W, now "
             f"{reader.power_watts():.0f} W")
         runs = [served_run(eng, Request, prompts, kernels,
-                           nvml.EnergyMeter(reader), i) for i in (1, 2)]
+                           nvml.EnergyMeter(reader), i, session, energy,
+                           serve_launch) for i in (1, 2)]
     finally:
         reader.close()
     trace_serve(eng, cfg, Request, rng)
+    session.close()
     return runs[0]
 
 
-def served_run(eng, Request, prompts, kernels, meter, index):
+def served_run(eng, Request, prompts, kernels, meter, index, session,
+               energy, serve_launch):
     """One timed, metered serve run with every launch count set to 0
-    just before it; checks its output and returns the counts read just
-    after it."""
+    just before it; checks its output and its PMT records, and returns
+    the counts read just after it."""
     reqs = [Request(prompt=p, max_new_tokens=64) for p in prompts]
+    session.flush()
+    n_before = len(energy.records)
     for mod in kernels.values():
         mod.launches = 0
     meter.start()
@@ -380,12 +545,33 @@ def served_run(eng, Request, prompts, kernels, meter, index):
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serve path")
     gen = sum(len(r.out) for r in done)
+    session.flush()
+    records = energy.records[n_before:]
+    by_req = serve_launch.request_energy(records)
+    for r in done:
+        d = by_req.get(f"serve/req{r.id}")
+        if d is None or d["joules"] <= 0:
+            raise AssertionError(f"request {r.id} has no resolved "
+                                 f"serve/req{r.id} record")
+        split = d["prefill"] + d["decode"]
+        if not abs(split - d["joules"]) <= 0.01 * d["joules"]:
+            raise AssertionError(
+                f"request {r.id}: prefill + decode {split:.4f} J against "
+                f"its span's {d['joules']:.4f} J (more than 1% apart)")
+    agg = sum(rec.joules for rec in records
+              if rec.path.startswith("serve/batch") and rec.sensor == "nvml")
     st = eng.stats()
     log(f"  run {index}: {len(done)} requests, {gen} generated tokens in "
         f"{wall:.3f} s: {gen / wall:.1f} tokens/s; stall p95 "
         f"{st['stall_p95_s'] * 1e3:.2f} ms over {st['stall_events']} "
         f"chunks; energy {joules:.1f} J ({meter.method}): "
-        f"{joules / gen:.4f} J per generated token")
+        f"{joules / gen:.4f} J per generated token; through the PMT "
+        f"session (nvml) {agg:.1f} J, {agg / gen:.4f} J/token")
+    log(f"  run {index}: every request's serve/req<N> span resolved, "
+        f"prefill + decode within 1% of its total")
+    for line in serve_launch.energy_report(records, gen,
+                                           ["cpuutil", "nvml"]):
+        log(f"  run {index}: {line}")
     log(f"  run {index}: kernel launches {launches}")
     return launches
 
@@ -430,6 +616,101 @@ def trace_serve(eng, cfg, Request, rng):
                 f"launch, {n} launches: {key[:70]}")
 
 
+# -- phase 6: the paper's Fig. 2 on the card -------------------------------------
+
+def probe_nvml(reader, fma32_cuda):
+    """Which NVML quantity follows the card: samples the total-energy
+    counter and the power reading every ~2 ms for 2 s, with FMA32 load
+    from 0.5 s to ~1.5 s; prints each one's update interval and the time
+    each takes to rise halfway from idle to loaded.  A measurement
+    only."""
+    x = torch.randn(8192, 8192, device="cuda")
+    fma32_cuda(x, 1024)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fma32_cuda(x, 1024)
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0
+    samples, load_at = [], None
+    start = time.perf_counter()
+    while (now := time.perf_counter() - start) < 2.0:
+        if load_at is None and now >= 0.5:
+            for _ in range(max(1, int(1.0 / per_call))):
+                fma32_cuda(x, 1024)
+            load_at = time.perf_counter() - start
+        samples.append((time.perf_counter() - start, reader.energy_joules(),
+                        reader.power_watts()))
+        time.sleep(0.002)
+    torch.cuda.synchronize()
+    t = np.array([s[0] for s in samples])
+    w = np.array([s[2] for s in samples])
+
+    def step_ms(v):
+        changed = t[1:][np.diff(v) != 0]
+        return float(np.median(np.diff(changed)) * 1e3) \
+            if changed.size > 1 else float("nan")
+
+    def half_rise_ms(tt, v):
+        idle = np.median(v[tt < load_at])
+        loaded = np.median(v[(tt > load_at + 0.5) & (tt < load_at + 0.9)])
+        above = tt[(tt >= load_at) & (v >= (idle + loaded) / 2)]
+        rise = (above[0] - load_at) * 1e3 if above.size else float("nan")
+        return float(rise), float(idle), float(loaded)
+
+    pw = half_rise_ms(t, w)
+    log(f"  NVML power reading: updates every {step_ms(w):.1f} ms "
+        f"(median), idle {pw[1]:.1f} W, loaded {pw[2]:.1f} W, half-rise "
+        f"{pw[0]:.0f} ms after the load starts")
+    if samples[0][1] is None:
+        log("  NVML total-energy counter: unsupported on this card")
+        return
+    e = np.array([s[1] for s in samples])
+    # the counter's power between consecutive updates of the counter
+    idx = np.flatnonzero(np.diff(e) != 0) + 1
+    cw = half_rise_ms(t[idx][1:], np.diff(e[idx]) / np.diff(t[idx]))
+    log(f"  NVML total-energy counter: updates every {step_ms(e):.1f} ms "
+        f"(median); its power between updates: idle {cw[1]:.1f} W, "
+        f"loaded {cw[2]:.1f} W, half-rise {cw[0]:.0f} ms after the load "
+        f"starts")
+
+
+def fig2_phase(fig2, nvml, kernels):
+    """Run ``launch/fig2.py`` at full size with every Fig. 2 launch count
+    set to 0 just before it; an independent ``EnergyMeter`` reads each
+    row's window.  Fails when a kernel was not launched, a busy row's
+    card watts are not above SLEEP's, or a row's session joules and the
+    meter's differ by more than 10%.  Returns the launch counts."""
+    for mod in kernels.values():
+        mod.launches = 0
+    reader = nvml.NvmlReader(0)
+    try:
+        rows = fig2.run("cuda", meter=nvml.EnergyMeter(reader))
+    finally:
+        reader.close()
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    log(f"  card joules from the nvml sensor's {rows[0].card_method}")
+    for line in fig2.format_rows(rows):
+        log(f"  {line}")
+    log(f"  kernel launches {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"Fig. 2 path")
+    sleep = rows[0]
+    for r in rows:
+        gap = abs(r.card_joules - r.meter_joules) / r.meter_joules
+        log(f"  {r.name}: {r.calls} calls in {r.seconds:.3f} s; card "
+            f"{r.card_joules:.2f} J through the session, {r.meter_joules:.2f} "
+            f"J by the meter ({100 * gap:.2f}% apart, tol 10%)")
+        if not gap <= 0.10:
+            raise AssertionError(f"{r.name}: session and meter joules "
+                                 f"differ by more than 10%")
+        if r is not sleep and not r.card_watts > sleep.card_watts:
+            raise AssertionError(f"{r.name}: card {r.card_watts:.1f} W is "
+                                 f"not above SLEEP's {sleep.card_watts:.1f} W")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on "
@@ -445,6 +726,17 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     from repro_torch.kernels.prefill_attention import kernel as pa_kernel
     from repro_torch.kernels.prefill_attention import ref as pa_ref
+    from repro_torch.kernels.fma32 import kernel as fma_kernel
+    from repro_torch.kernels.fma32 import ref as fma_ref
+    from repro_torch.kernels.gemm import kernel as gemm_kernel
+    from repro_torch.kernels.gemm import ref as gemm_ref
+    from repro_torch.kernels.jacobi2d import kernel as jac_kernel
+    from repro_torch.kernels.jacobi2d import ref as jac_ref
+    from repro_torch.kernels.stream import kernel as st_kernel
+    from repro_torch.kernels.stream import ref as st_ref
+    import repro_torch.core as pmt
+    from repro_torch.launch import fig2
+    from repro_torch.launch import serve as serve_launch
     from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -470,6 +762,13 @@ def main() -> int:
         "prefill_attention": check_prefill(pa_kernel, pa_ref, dev),
         "decode_attention": check_decode(da_kernel, da_ref, dev),
     }
+    log("[3b] Fig. 2 kernels against their plain versions")
+    timings.update({
+        "fma32": check_fma32(fma_kernel, fma_ref, dev),
+        "stream_triad": check_stream(st_kernel, st_ref, dev),
+        "gemm": check_gemm(gemm_kernel, gemm_ref, dev),
+        "jacobi2d": check_jacobi2d(jac_kernel, jac_ref, dev),
+    })
     for name, t in timings.items():
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -484,7 +783,27 @@ def main() -> int:
     kernels = {"cache_update": cu_kernel, "prefill_attention": pa_kernel,
                "decode_attention": da_kernel}
     launches = serve_full(configs, model_mod, ServeEngine, Request, kernels,
-                          nvml)
+                          nvml, pmt, serve_launch)
+
+    log("[6] the paper's Fig. 2 through launch/fig2.py, full size")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if clk.returncode == 0:
+        mhz = float(clk.stdout.split()[0])
+        log(f"  fp32 rate of this card outside the tensor cores: {sms} SMs "
+            f"x 128 lanes x 2 FLOP x {mhz:.0f} MHz = "
+            f"{sms * 128 * 2 * mhz * 1e6 / 1e12:.1f} TFLOP/s (the bounds "
+            f"use the data sheet's 67)")
+    reader = nvml.NvmlReader(0)
+    try:
+        probe_nvml(reader, fma_kernel.fma32_cuda)
+    finally:
+        reader.close()
+    fig2_kernels = {"fma32": fma_kernel, "stream_triad": st_kernel,
+                    "gemm": gemm_kernel, "jacobi2d": jac_kernel}
+    launches.update(fig2_phase(fig2, nvml, fig2_kernels))
 
     rows = []
     for name, t in timings.items():
@@ -495,7 +814,7 @@ def main() -> int:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
-    log("[6] results")
+    log("[7] results")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

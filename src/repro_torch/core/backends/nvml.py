@@ -12,8 +12,10 @@ reports that counter unsupported, the trapezoidal integral of power
 sampled every 10 ms on a background thread (NVML's sustainable rate) —
 and it says which one it used.
 
-It is not yet a PMT ``Sensor``: the port's copy of the PMT library and
-its backend registry come with the next slice.
+``NvmlSensor`` is the PMT ``Sensor`` over the same reader, registered as
+the ``"nvml"`` backend: it reports the card's total-energy counter as
+the cumulative joules where the card supports it, and instantaneous
+power (integrated by the ``Sensor`` base class) where it does not.
 """
 from __future__ import annotations
 
@@ -21,6 +23,9 @@ import ctypes
 import threading
 import time
 from typing import Callable, Optional
+
+from repro_torch.core.registry import register_backend
+from repro_torch.core.sensor import Sample, Sensor, SensorError
 
 NVML_SUCCESS = 0
 NVML_ERROR_NOT_SUPPORTED = 3
@@ -163,3 +168,54 @@ class EnergyMeter:
         if self._integrator is not None:
             return self._integrator.stop()
         return self._reader.energy_joules() - self._e0
+
+
+class NvmlSensor(Sensor):
+    """The card as a PMT sensor, read through ``NvmlReader``.
+
+    The total-energy counter is preferred on purpose: in recent NVML
+    releases the power reading on Hopper may be an average over about a
+    second rather than an instantaneous value, and integrating it over
+    a short region would lag the work.  Where the counter is
+    unsupported, ``_sample`` returns power only and the ``Sensor`` base
+    class integrates it between samples.  ``reader`` lets a test pass
+    a stand-in for the NVML library.
+    """
+
+    name = "nvml"
+    kind = "measured"
+    native_period_s = 0.010  # paper: "NVML is able to sustain up to 10 ms"
+
+    def __init__(self, device_index: int = 0,
+                 clock: Optional[Callable[[], float]] = None,
+                 reader=None):
+        super().__init__(clock=clock)
+        if reader is None:
+            try:
+                reader = NvmlReader(device_index)
+            except NvmlError as exc:
+                raise SensorError(f"NVML backend unavailable: {exc}") \
+                    from exc
+        self.reader = reader
+        # Which quantity the joules come from, fixed at construction.
+        self.method = ("energy-counter" if reader.energy_joules() is not None
+                       else "power-integral")
+
+    @classmethod
+    def is_available(cls) -> bool:
+        """True when the NVML library loads and card 0 is present."""
+        try:
+            NvmlReader(0).close()
+        except NvmlError:
+            return False
+        return True
+
+    def _sample(self) -> Sample:
+        power = self.reader.power_watts()
+        energy = self.reader.energy_joules()
+        if energy is None:
+            return Sample(watts=power)
+        return Sample(joules=energy, watts=power)
+
+
+register_backend("nvml", NvmlSensor)

@@ -39,6 +39,10 @@ SIGNATURES = {
                              _F, _I, _F, _I, _I, _P],
     "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _I, _F, _I, _I, _P],
+    "pmt_fma32": [_P, _P, _LL, _I, _P],
+    "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
+    "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "pmt_jacobi2d": [_P, _P, _I, _I, _P],
 }
 ERROR_STRING = "pmt_error_string"
 

@@ -8,8 +8,13 @@ Usage:
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are random
 token ids with lengths spread over [1, max_len / 2], made from
-``--seed``.  Prints the generated tokens per second and each request's
-token count.
+``--seed``.  Energy is measured through one PMT session,
+``Session(["cpuutil", "nvml"])`` (``["cpuutil"]`` with ``--device
+cpu``): the engine opens an aggregate region per ``generate()`` and a
+flat ``serve/req<N>`` span per request with ``/prefill`` and ``/decode``
+phase spans.  Prints the generated tokens per second, the aggregate
+joules per token, the costliest request's joules per token with its
+prefill/decode split, and each request's token count.
 """
 from __future__ import annotations
 
@@ -19,10 +24,54 @@ import time
 import numpy as np
 import torch
 
+import repro_torch.core as pmt
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Request, ServeEngine, stall_p95
+
+
+def request_energy(records) -> dict:
+    """Joules of each request span and its phases, from the session's
+    records: ``{"serve/req<N>": {"joules", "tokens", "prefill",
+    "decode"}}``, every backend summed."""
+    by_req = {}
+    for r in records:
+        if not r.path.startswith("serve/req"):
+            continue
+        path, _, phase = r.path.partition("serve/")[2].partition("/")
+        d = by_req.setdefault(f"serve/{path}",
+                              {"joules": 0.0, "tokens": 0,
+                               "prefill": 0.0, "decode": 0.0})
+        if phase:
+            d[phase] += r.joules
+        else:
+            d["joules"] += r.joules
+            d["tokens"] = r.tokens
+    return by_req
+
+
+def energy_report(records, n_tokens: int, backends) -> list:
+    """The JAX launcher's energy lines: aggregate J/token over the
+    ``generate()`` regions, and the costliest request's J/token with its
+    prefill/decode split.  Request spans overlap in time, so they are
+    views of the aggregate, not additions to it."""
+    agg = sum(r.joules for r in records
+              if not r.path.startswith("serve/req"))
+    lines = [f"energy ({'+'.join(backends)}): {agg:.2f} J aggregate, "
+             f"{agg / max(n_tokens, 1):.4f} J/token"]
+    by_req = request_energy(records)
+    if by_req:
+        worst = max(by_req.items(),
+                    key=lambda kv: kv[1]["joules"] / max(kv[1]["tokens"], 1))
+        lines.append(
+            f"per-request spans: {len(by_req)} (token sum "
+            f"{sum(d['tokens'] for d in by_req.values())}); costliest "
+            f"{worst[0]}: "
+            f"{worst[1]['joules'] / max(worst[1]['tokens'], 1):.4f} J/token "
+            f"({worst[1]['prefill']:.2f} J prefill / "
+            f"{worst[1]['decode']:.2f} J decode)")
+    return lines
 
 
 def main(argv=None):
@@ -52,14 +101,20 @@ def main(argv=None):
     requests = [Request(prompt=rng.integers(
         0, cfg.vocab_size, int(rng.integers(1, max_prompt + 1))).tolist(),
         max_new_tokens=args.max_new) for _ in range(args.requests)]
-    engine = ServeEngine(cfg, params, batch_size=args.batch,
-                         max_len=args.max_len,
-                         prefill_chunk=args.prefill_chunk, device=device)
-    t0 = time.perf_counter()
-    done = engine.generate(requests)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    backends = ["cpuutil", "nvml"] if device.type == "cuda" \
+        else ["cpuutil"]
+    with pmt.Session(backends) as session:
+        energy = session.add_exporter(pmt.MemoryExporter())
+        engine = ServeEngine(cfg, params, batch_size=args.batch,
+                             max_len=args.max_len,
+                             prefill_chunk=args.prefill_chunk,
+                             device=device, session=session)
+        t0 = time.perf_counter()
+        done = engine.generate(requests)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        session.flush()          # settle any spans still in flight
     n = sum(len(r.out) for r in done)
     where = torch.cuda.get_device_name(0) if device.type == "cuda" \
         else "cpu"
@@ -68,6 +123,8 @@ def main(argv=None):
           f"= {n / dt:.1f} tokens/s (wall clock, first call included)")
     print(f"stall p95 {stall_p95(engine.stall_events) * 1e3:.2f} ms over "
           f"{len(engine.stall_events)} chunks")
+    for line in energy_report(energy.records, n, backends):
+        print(line)
     for r in done:
         print(f"  req{r.id}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
               f"({r.finish_reason})")

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.cache_update.ops import cache_update
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.prefill_attention.ops import prefill_attention
@@ -76,10 +77,12 @@ def output_proj(p, o: torch.Tensor) -> torch.Tensor:
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   window: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16,
-                  device="cpu") -> Dict[str, torch.Tensor]:
+                  device=None) -> Dict[str, torch.Tensor]:
     """Cache for one attention layer: (B, size, KVH, hd) k and v, with
-    ``size = min(max_len, window)`` for sliding-window ring layers."""
+    ``size = min(max_len, window)`` for sliding-window ring layers; on
+    the card unless ``device="cpu"``."""
     _no_quant(cfg)
+    device = resolve_device(device)
     size = min(max_len, window) if window else max_len
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -63,7 +63,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig):
 
 def init_block_cache(cfg: ModelConfig, idx: int, batch: int, max_len: int,
                      dtype: torch.dtype = torch.bfloat16,
-                     device="cpu") -> Dict[str, torch.Tensor]:
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Layer ``idx``'s cache, on the card unless ``device="cpu"``."""
     return attn.init_kv_cache(cfg, batch, max_len,
                               window=layer_window(cfg, idx), dtype=dtype,
                               device=device)

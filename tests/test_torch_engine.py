@@ -151,6 +151,25 @@ def test_real_session_phase_joules_sum_to_request(setup):
         assert sess.stats()["pending"] == 0
 
 
+def test_port_session_phase_joules_sum_to_request(setup):
+    """The same accounting through the port's own PMT library
+    (``repro_torch.core``), which the port's launchers use."""
+    import repro_torch.core as port_pmt
+    reqs = mk(MIXED[:4])
+    with port_pmt.Session(["dummy"], pool=port_pmt.SensorPool()) as sess:
+        mem = sess.add_exporter(port_pmt.MemoryExporter())
+        port_engine(setup, 2, session=sess).generate(reqs)
+        sess.flush()
+        per_req = [r for r in mem.records if r.path.startswith("serve/req")
+                   and "/" not in r.path.replace("serve/", "")]
+        assert len(per_req) == len(reqs)
+        for r in per_req:
+            split = sum(p.joules for p in mem.records
+                        if p.path.startswith(r.path + "/"))
+            assert split == pytest.approx(r.joules, rel=0.05, abs=1e-3)
+        assert sess.stats()["pending"] == 0
+
+
 def test_deadline_retires_with_timeout(setup):
     reqs = mk([([1, 2, 3], 40)])
     reqs[0].deadline_s = 1e-9
@@ -176,3 +195,16 @@ def test_engine_needs_a_card_unless_cpu_is_asked(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(setup["cfg"], setup["params"], batch_size=1, max_len=8)
+
+
+def test_serve_launcher_reports_energy_through_pmt(capsys):
+    """``launch/serve.py`` measures through a ``repro_torch.core`` session
+    (``["cpuutil"]`` on the CPU) and prints the JAX launcher's report:
+    aggregate J/token and the costliest request's prefill/decode split."""
+    from repro_torch.launch import serve as serve_launch
+    serve_launch.main(["--reduced", "--device", "cpu", "--requests", "3",
+                       "--batch", "2", "--max-new", "3", "--max-len", "32"])
+    out = capsys.readouterr().out
+    assert "energy (cpuutil): " in out and " J/token" in out
+    assert "per-request spans: 3 (token sum 9); costliest serve/req" in out
+    assert " J prefill / " in out and " J decode)" in out

@@ -32,6 +32,14 @@ def _port_modules():
 def test_port_modules_import_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.serve.engine" in mods and len(mods) > 20
+    # the PMT library, the Fig. 2 launcher and its kernel families
+    assert {"repro_torch.core", "repro_torch.core.session",
+            "repro_torch.core.sampler", "repro_torch.core.resolver",
+            "repro_torch.core.monitor", "repro_torch.core.backends.nvml",
+            "repro_torch.launch.fig2"} <= set(mods)
+    for family in ("fma32", "stream", "gemm", "jacobi2d"):
+        assert {f"repro_torch.kernels.{family}.{part}"
+                for part in ("kernel", "ref", "ops")} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}:\n"

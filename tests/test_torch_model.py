@@ -183,6 +183,28 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         "k"].device.type == "cpu"
 
 
+def test_cache_helpers_need_a_card_unless_cpu_is_asked(monkeypatch):
+    """``init_kv_cache`` and ``init_block_cache`` resolve their device as
+    ``init_caches`` does: ``device=None`` means the card, and without one
+    they raise ``resolve_device``'s error rather than go on on the CPU."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import attention as PA
+    from repro_torch.models import blocks as PB
+    _, cfg_t = _configs("dense")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    for call in (lambda: PA.init_kv_cache(cfg_t, 1, 8),
+                 lambda: PB.init_block_cache(cfg_t, 0, 1, 8)):
+        with pytest.raises(RuntimeError) as got:
+            call()
+        assert str(got.value) == str(want.value)
+    assert PA.init_kv_cache(cfg_t, 1, 8, device="cpu")["k"].device.type \
+        == "cpu"
+    assert PB.init_block_cache(cfg_t, 0, 1, 8, device="cpu")["v"].device \
+        .type == "cpu"
+
+
 def test_unported_archs_and_features_raise():
     with pytest.raises(NotImplementedError, match="other-archs slice"):
         port_configs.get_config("gemma2-27b")
