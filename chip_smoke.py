@@ -9,8 +9,11 @@ Phases, in order; any failure exits nonzero:
      the serve path's shapes and at odd sizes, in fp32 and bf16, with the
      tolerances stated below; time kernel, plain version, one library
      call doing the same work, and the least time the card could take.
-     3b. the same for the four Fig. 2 kernels (FMA32, STREAM, GEMM,
-     JACOBI2D) at the Fig. 2 path's shapes and at odd ones.
+     3b. the same for the six Fig. 2 kernels (FMA32, STREAM, GRIDDER,
+     DEGRIDDER, GEMM, JACOBI2D) at the Fig. 2 path's shapes and at odd
+     ones, with the gridder pair's adjoint identity on the card and its
+     bound from the FP32 operations counted in the built loop
+     (``cuobjdump -sass``).
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
      against the same model on the CPU (plain versions).
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
@@ -23,11 +26,14 @@ Phases, in order; any failure exits nonzero:
      ``/prefill`` + ``/decode`` within 1% of its total; then a short run
      under the profiler.
   6. the paper's Fig. 2 (``repro_torch.launch.fig2``) at full size:
-     SLEEP, FMA32, STREAM, GEMM, JACOBI2D, each one region of a PMT
-     session stacking cpuutil and nvml, after a probe of which NVML
-     quantity follows the card; checks that every Fig. 2 kernel's launch
-     count grew, that every busy row's card watts exceed SLEEP's, and
-     that each row's session joules are within 10% of an independent
+     SLEEP, FMA32, STREAM, GRIDDER, DEGRIDDER, GEMM, JACOBI2D, each one
+     region of a PMT session stacking cpuutil and nvml, with the modeled
+     card watts beside the measured; before it, a probe of which NVML
+     quantity follows the card and a probe of the host sensors (``rapl``,
+     ``sysfs``: present, readable, and host watts idle and under load
+     where readable); checks that every Fig. 2 kernel's launch count
+     grew, that every busy row's card watts exceed SLEEP's, and that each
+     row's session joules are within 10% of an independent
      ``EnergyMeter`` reading of the same window.
   7. print the ``{"kernels": [...]}`` line, then the final
      ``{"ok": true, "device": {...}}`` line.
@@ -39,6 +45,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -74,7 +82,13 @@ KERNEL_INFO = {
              "src/repro/kernels/gemm/gemm.py:33"),
     "jacobi2d": ("src/repro_torch/kernels/csrc/jacobi2d.cu",
                  "src/repro/kernels/jacobi2d/jacobi2d.py:45"),
+    "gridder": ("src/repro_torch/kernels/csrc/gridder.cu",
+                "src/repro/kernels/gridder/gridder.py:56"),
+    "degridder": ("src/repro_torch/kernels/csrc/gridder.cu",
+                  "src/repro/kernels/gridder/gridder.py:93"),
 }
+# Launch counters: kernel name -> attribute of its wrapper module.
+COUNTER = {"gridder": "gridder_launches", "degridder": "degridder_launches"}
 
 
 def log(msg: str) -> None:
@@ -114,6 +128,16 @@ def library_time(fn):
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def zero_counts(kernels) -> None:
+    for name, mod in kernels.items():
+        setattr(mod, COUNTER.get(name, "launches"), 0)
+
+
+def read_counts(kernels) -> dict:
+    return {name: getattr(mod, COUNTER.get(name, "launches"))
+            for name, mod in kernels.items()}
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -436,6 +460,123 @@ def check_jacobi2d(kernel, ref, dev):
     return results
 
 
+_SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                   r"\s*([^;]*);")
+
+
+def sass_ops_per_term(library: Path, kernel: str) -> tuple:
+    """FP32 FLOP per (subgrid, pixel, visibility) term in ``kernel``'s
+    loop over staged elements, as ``cuobjdump -sass`` shows the built
+    library: FFMA counts 2, FMUL and FADD 1.  The loop is the widest
+    backward branch whose span holds no barrier; the path through it is
+    the one this run's data takes: every forward branch inside it skips
+    sincosf's slow path (argument reduction for |phase| >= 105615, which
+    reads its table from global memory, checked), and phases here stay
+    below 4 pi.  Returns (FLOP per term, counts of the opcodes on that
+    path, the unroll factor)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)
+             if re.match(rf"\S*{kernel}", f)]
+    if len(funcs) != 1:
+        raise AssertionError(f"{len(funcs)} SASS functions match {kernel!r}")
+    ins = [(int(a, 16), op, args.strip()) for a, op, args in
+           _SASS.findall(funcs[0])]
+    at = {a: i for i, (a, _, _) in enumerate(ins)}
+
+    def target(args):
+        m = re.match(r"`?\(?(0x[0-9a-f]+)", args)
+        return int(m.group(1), 16) if m else None
+
+    loops = [(target(x), a) for a, op, x in ins
+             if op == "BRA" and target(x) is not None and target(x) < a]
+    loops = [(lo, hi) for lo, hi in loops
+             if not any(op.startswith("BAR") for a, op, _ in ins
+                        if lo <= a <= hi)]
+    lo, hi = max(loops, key=lambda span: span[1] - span[0])
+    counts, i = {}, at[lo]
+    while ins[i][0] <= hi:
+        a, op, args = ins[i]
+        to = target(args) if op == "BRA" else None
+        if to is not None and to > a:
+            if not any(o.startswith("LDG") for b, o, _ in ins if a < b < to):
+                raise AssertionError(f"{kernel}: the branch at {a:#x} skips "
+                                     f"more than sincosf's slow path")
+            i = at[to]
+            continue
+        key = op.split(".")[0]
+        counts[key] = counts.get(key, 0) + 1
+        i += 1
+    unroll = counts.get("F2I", 0)       # one per sincosf's quadrant
+    if unroll < 1:
+        raise AssertionError(f"{kernel}: no sincosf in its loop")
+    flop = 2 * counts.get("FFMA", 0) + counts.get("FMUL", 0) \
+        + counts.get("FADD", 0)
+    return flop / unroll, counts, unroll
+
+
+def check_gridder(kernel, ref, dev, library: Path):
+    """Tolerance rtol 1e-4, atol 2e-3 (the JAX tests' own): sincosf and
+    torch's sin/cos round differently, and the complex sums (up to ~200
+    in magnitude at V = 2048) run in other orders.  The pair must be
+    adjoint on the card within 1e-3 relative.  Bound: bytes of each
+    array once, and the FP32 operations per term counted in the built
+    loop, over 67 TFLOP/s."""
+    results = {}
+    for name, (p, s, v) in (("main P1024 S1024 V2048", (1024, 1024, 2048)),
+                            ("odd P1000 S3 V1999", (1000, 3, 1999))):
+        g = torch.Generator(device=dev).manual_seed(11)
+        lm = torch.rand((p, 2), generator=g, device=dev) - 0.5
+        uv = 4.0 * torch.rand((s, v, 2), generator=g, device=dev) - 2.0
+        vis = torch.randn((s, v, 2), generator=g, device=dev)
+        sub = torch.randn((s, p, 2), generator=g, device=dev)
+        got = {"gridder": kernel.gridder_cuda(lm, uv, vis),
+               "degridder": kernel.degridder_cuda(lm, uv, sub)}
+        want = {"gridder": ref.gridder_ref(lm, uv, vis),
+                "degridder": ref.degridder_ref(lm, uv, sub)}
+        torch.cuda.synchronize()
+        errs = {}
+        for k in got:
+            err = max_err(got[k], want[k])
+            excess = float(((got[k] - want[k]).abs()
+                            - 1e-4 * want[k].abs()).max())
+            log(f"  {k} {name}: max |err| {err:.3g}, max |want| "
+                f"{float(want[k].abs().max()):.1f}; |err| - 1e-4 |want| at "
+                f"most {excess:.3g} (tol 2e-3)")
+            if not excess <= 2e-3:
+                raise AssertionError(f"{k} disagrees with its plain version")
+            errs[k] = err
+        lhs = float((got["gridder"].double() * sub.double()).sum())
+        rhs = float((vis.double() * got["degridder"].double()).sum())
+        rel = abs(lhs - rhs) / max(abs(lhs), 1e-3)
+        log(f"  adjoint {name}: <G vis, sub> {lhs:.6g}, <vis, G^T sub> "
+            f"{rhs:.6g}, {rel:.3g} apart (tol 1e-3 relative)")
+        if not rel < 1e-3:
+            raise AssertionError("the card's gridder pair is not adjoint")
+        if name.startswith("main"):
+            nbytes = 4.0 * (2 * p + 4 * s * v + 2 * s * p)
+            for k, fn, plain in (
+                    ("gridder", lambda: kernel.gridder_cuda(lm, uv, vis),
+                     lambda: ref.gridder_ref(lm, uv, vis)),
+                    ("degridder", lambda: kernel.degridder_cuda(lm, uv, sub),
+                     lambda: ref.degridder_ref(lm, uv, sub))):
+                per_term, counts, unroll = sass_ops_per_term(
+                    library, rf"{len(k) + 7}{k}_kernelILb1E")
+                log(f"  {k}: {per_term:g} FP32 FLOP per term in its built "
+                    f"loop (unrolled {unroll}x; per term: "
+                    f"{counts.get('FFMA', 0) / unroll:g} FFMA, "
+                    f"{counts.get('FMUL', 0) / unroll:g} FMUL, "
+                    f"{counts.get('FADD', 0) / unroll:g} FADD; "
+                    f"{sum(counts.values()) / unroll:g} instructions)")
+                results[k] = {"ms": time_ms(fn), "plain_ms": time_ms(
+                    plain, iters=2, warmup=1), "library_ms": None,
+                    "max_abs_err": errs[k], "ops_per_term": per_term}
+                results[k]["bound_ms"], results[k]["bound_by"] = bound(
+                    nbytes, per_term * s * v * p, torch.float32)
+    return results
+
+
 # -- phase 4: small reference ---------------------------------------------------
 
 def check_small_reference(configs, model_mod, ServeEngine, Request):
@@ -524,15 +665,14 @@ def served_run(eng, Request, prompts, kernels, meter, index, session,
     reqs = [Request(prompt=p, max_new_tokens=64) for p in prompts]
     session.flush()
     n_before = len(energy.records)
-    for mod in kernels.values():
-        mod.launches = 0
+    zero_counts(kernels)
     meter.start()
     t0 = time.perf_counter()
     done = eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     joules = meter.stop()
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = read_counts(kernels)
     bad = [(r.id, len(r.out), r.finish_reason) for r in done
            if len(r.out) != 64 or r.finish_reason != "length"]
     if bad:
@@ -674,20 +814,84 @@ def probe_nvml(reader, fma32_cuda):
         f"starts")
 
 
+def _host_tree(name, rapl, sysfs) -> tuple:
+    """(files the back end would read, the readable ones) on this
+    machine."""
+    if name == "rapl":
+        files = [d["path"] for d in rapl.RaplSensor._discover(
+            rapl.DEFAULT_ROOT)]
+    else:
+        files = sysfs._discover(sysfs.DEFAULT_HWMON_GLOBS)
+    readable = []
+    for f in files:
+        try:
+            with open(f) as fh:
+                float(fh.read().strip())
+            readable.append(f)
+        except (OSError, ValueError) as exc:
+            log(f"  {name}: {f} not readable ({type(exc).__name__}: {exc})")
+    return files, readable
+
+
+def probe_host_sensors(pmt, fma32_cuda):
+    """Which host sensors this machine offers: for ``rapl`` (powercap)
+    and ``sysfs`` (hwmon) whether the files are there, whether they can
+    be read, and where they can, the host's watts through the back end
+    over 2 s idle and 2 s of FMA32 on the card.  A machine without the
+    files fails nothing; a back end that has readable files but raises,
+    or whose joules do not increase, fails the run."""
+    from repro_torch.core.backends import rapl, sysfs
+    x = torch.randn(8192, 8192, device="cuda")
+    fma32_cuda(x, 1024)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fma32_cuda(x, 1024)
+    torch.cuda.synchronize()
+    per_call = time.perf_counter() - t0
+    for name in ("rapl", "sysfs"):
+        files, readable = _host_tree(name, rapl, sysfs)
+        where = rapl.DEFAULT_ROOT if name == "rapl" else "/sys/class/hwmon"
+        if not files:
+            log(f"  {name}: no files under {where}: not present here")
+            continue
+        log(f"  {name}: {len(files)} file(s) under {where}, "
+            f"{len(readable)} readable")
+        if not readable or (name == "rapl" and len(readable) < len(files)):
+            log(f"  {name}: present but not readable here: host watts not "
+                f"measured")
+            continue
+        sensor = pmt.create(name, root=rapl.DEFAULT_ROOT) \
+            if name == "rapl" else pmt.create(name, files=readable)
+        a = sensor.read()
+        time.sleep(2.0)
+        b = sensor.read()
+        end = time.perf_counter() + 2.0
+        while time.perf_counter() < end:
+            for _ in range(max(1, int(0.25 / per_call))):
+                fma32_cuda(x, 1024)
+            torch.cuda.synchronize()
+        c = sensor.read()
+        log(f"  {name} ({sensor.kind}): host {pmt.watts(a, b):.1f} W idle "
+            f"over {pmt.seconds(a, b):.2f} s, {pmt.watts(b, c):.1f} W under "
+            f"FMA32 on the card over {pmt.seconds(b, c):.2f} s")
+        if not (b.joules > a.joules and c.joules > b.joules):
+            raise AssertionError(f"{name}: joules did not increase "
+                                 f"({a.joules}, {b.joules}, {c.joules})")
+
+
 def fig2_phase(fig2, nvml, kernels):
     """Run ``launch/fig2.py`` at full size with every Fig. 2 launch count
     set to 0 just before it; an independent ``EnergyMeter`` reads each
     row's window.  Fails when a kernel was not launched, a busy row's
     card watts are not above SLEEP's, or a row's session joules and the
     meter's differ by more than 10%.  Returns the launch counts."""
-    for mod in kernels.values():
-        mod.launches = 0
+    zero_counts(kernels)
     reader = nvml.NvmlReader(0)
     try:
         rows = fig2.run("cuda", meter=nvml.EnergyMeter(reader))
     finally:
         reader.close()
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = read_counts(kernels)
     log(f"  card joules from the nvml sensor's {rows[0].card_method}")
     for line in fig2.format_rows(rows):
         log(f"  {line}")
@@ -730,6 +934,8 @@ def main() -> int:
     from repro_torch.kernels.fma32 import ref as fma_ref
     from repro_torch.kernels.gemm import kernel as gemm_kernel
     from repro_torch.kernels.gemm import ref as gemm_ref
+    from repro_torch.kernels.gridder import kernel as grid_kernel
+    from repro_torch.kernels.gridder import ref as grid_ref
     from repro_torch.kernels.jacobi2d import kernel as jac_kernel
     from repro_torch.kernels.jacobi2d import ref as jac_ref
     from repro_torch.kernels.stream import kernel as st_kernel
@@ -769,8 +975,10 @@ def main() -> int:
         "gemm": check_gemm(gemm_kernel, gemm_ref, dev),
         "jacobi2d": check_jacobi2d(jac_kernel, jac_ref, dev),
     })
+    timings.update(check_gridder(grid_kernel, grid_ref, dev,
+                                 build.library_path()))
     for name, t in timings.items():
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
             f"ms, library {lib} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
@@ -801,7 +1009,15 @@ def main() -> int:
         probe_nvml(reader, fma_kernel.fma32_cuda)
     finally:
         reader.close()
+    probe_host_sensors(pmt, fma_kernel.fma32_cuda)
+    for name in ("gridder", "degridder"):
+        counted = timings[name]["ops_per_term"]
+        if counted != fig2.GRIDDER_OPS_PER_TERM:
+            log(f"  note: {name}'s built loop does {counted:g} FP32 FLOP per "
+                f"term; launch/fig2.py bounds its row with "
+                f"{fig2.GRIDDER_OPS_PER_TERM}")
     fig2_kernels = {"fma32": fma_kernel, "stream_triad": st_kernel,
+                    "gridder": grid_kernel, "degridder": grid_kernel,
                     "gemm": gemm_kernel, "jacobi2d": jac_kernel}
     launches.update(fig2_phase(fig2, nvml, fig2_kernels))
 

@@ -44,14 +44,16 @@ default session for quick scripts.  Classic surfaces (paper Listings
     ``pmt.PowerMonitor(["x"])``             ``pmt.PowerMonitor(["x"], session=s)``
     ======================================  =================================
 
-Backends: cpuutil, nvml (the card's energy counter or power, measured),
-dummy.  The JAX package's ``faults``, ``energy_model``, ``rapl``,
-``sysfs`` and ``tpu`` modules are not in the port yet.
+Backends: rapl, sysfs, cpuutil, nvml (the card's energy counter or
+power, measured), h100 (analytical cost-model sensor of the card,
+modeled), dummy.  Every reading carries its sensor's measured, hybrid or
+modeled label.
 """
 from repro_torch.core.decorators import (Measurement, Measurements, Region, dump,
                                    measure)
 from repro_torch.core.dumpfile import (DumpHeader, DumpRecord, average_watts, read_dump,
                              total_joules)
+from repro_torch.core.energy_model import H100_SXM, EnergyModel, HardwareSpec
 from repro_torch.core.export import (CsvExporter, Exporter, JsonlExporter,
                                MemoryExporter, RegionRecord, read_jsonl)
 from repro_torch.core.metrics import (EfficiencyReport, ed2p, edp, gflops_per_watt,
@@ -60,6 +62,7 @@ from repro_torch.core.monitor import (PowerMonitor, StepEnergy, StragglerVerdict
                                 detect_stragglers)
 from repro_torch.core.registry import (available_backend_names, backend_names,
                                  create, get_backend, register_backend)
+from repro_torch.core.faults import FAULT_KINDS, Fault, FaultInjectingSensor
 from repro_torch.core.resolver import SpanResolver, batch_joules_at
 from repro_torch.core.sampler import (DumpThread, LegacyRingSampler, RingSampler,
                                 SamplerCoverageGap, SamplerReadError,
@@ -91,8 +94,10 @@ __all__ = [
     "SpanResolver", "batch_joules_at",
     # fault tolerance
     "SensorSupervisor", "OK", "DEGRADED", "FAILED",
+    "Fault", "FaultInjectingSensor", "FAULT_KINDS",
     "DumpHeader", "DumpRecord", "read_dump", "total_joules", "average_watts",
-    # metrics
+    # energy model & metrics
+    "EnergyModel", "HardwareSpec", "H100_SXM",
     "EfficiencyReport", "edp", "ed2p", "gflops_per_watt",
     "joules_per_token", "tokens_per_joule",
     # framework integration

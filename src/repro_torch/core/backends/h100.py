@@ -1,0 +1,91 @@
+"""H100 cost-model backend — PMT's analytical sensor, for the card.
+
+The counterpart of the JAX package's ``tpu`` cost-model sensor, rebuilt
+on :data:`repro_torch.core.energy_model.H100_SXM`.  The card has a
+measured sensor (``nvml``); this one models its energy from the work the
+caller *accounts* as it executes (FLOPs, HBM bytes, link bytes and the
+step's wall duration), so a modeled column can stand beside the measured
+one:
+
+  * between accounted steps the card draws ``idle_w``;
+  * an accounted step spreads its dynamic energy over its wall duration.
+
+``read()`` therefore behaves exactly like any other PMT backend — a
+cumulative joules counter — and all of measurement-mode, dump-mode, the
+decorators and the PowerMonitor work unmodified on top of it.
+
+kind = "modeled", and every report downstream carries that label.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Callable, Optional
+
+from repro_torch.core.energy_model import EnergyModel
+from repro_torch.core.registry import register_backend
+from repro_torch.core.sensor import Sample, Sensor
+
+
+class H100CostModelSensor(Sensor):
+    name = "h100"
+    kind = "modeled"
+    native_period_s = 0.001  # the model can be sampled arbitrarily fast
+
+    def __init__(self, model: Optional[EnergyModel] = None, chips: int = 1,
+                 clock: Optional[Callable[[], float]] = None):
+        super().__init__(clock=clock)
+        self._model = model or EnergyModel()
+        self._chips = int(chips)
+        self._acc_lock = threading.Lock()
+        self._dynamic_joules = 0.0      # total accounted dynamic energy
+        self._active_until: float = -1.0  # end of current accounted burst
+        self._active_watts: float = 0.0   # dynamic watts during the burst
+        self._t_origin: Optional[float] = None
+
+    @classmethod
+    def is_available(cls) -> bool:
+        return True  # purely analytical
+
+    @property
+    def model(self) -> EnergyModel:
+        return self._model
+
+    # -- framework-facing accounting API ---------------------------------
+    def account(self, flops: float, hbm_bytes: float, ici_bytes: float,
+                seconds: float) -> float:
+        """Account one executed step.
+
+        ``flops``/``hbm_bytes``/``ici_bytes`` are per-card quantities (the
+        work the step's kernels do, counted from their shapes);
+        ``seconds`` is the measured wall duration of the step.  Returns the
+        modeled dynamic joules added (all chips).
+        """
+        dyn = self._model.step_joules(flops, hbm_bytes, ici_bytes, seconds,
+                                      self._chips) \
+            - self._model.static_joules(seconds, self._chips)
+        dyn = max(0.0, dyn)
+        with self._acc_lock:
+            self._dynamic_joules += dyn
+            now = self._clock()
+            self._active_until = now
+            self._active_watts = dyn / seconds if seconds > 0 else 0.0
+        return dyn
+
+    # -- Sensor hook -------------------------------------------------------
+    def _sample(self) -> Sample:
+        now = self._clock()
+        with self._acc_lock:
+            if self._t_origin is None:
+                self._t_origin = now
+            elapsed = now - self._t_origin
+            static = self._model.static_joules(elapsed, self._chips)
+            joules = static + self._dynamic_joules
+            # Instantaneous watts: idle floor, plus the dynamic rate if a
+            # burst was accounted within the last native period.
+            watts = self._model.hw.idle_w * self._chips
+            if now - self._active_until <= self.native_period_s * 2:
+                watts += self._active_watts
+        return Sample(joules=joules, watts=watts)
+
+
+register_backend("h100", H100CostModelSensor)

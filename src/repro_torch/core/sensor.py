@@ -53,7 +53,7 @@ class Sensor(abc.ABC):
     """Abstract power sensor with PMT semantics.
 
     Class attributes (overridden per backend):
-      name: registry name ("nvml", "cpuutil", "dummy", ...).
+      name: registry name ("rapl", "nvml", "h100", ...).
       kind: "measured" for physical counters, "modeled" for analytical
         models, "hybrid" for measured-activity x modeled-coefficients.
       native_period_s: fastest sampling period the backend sustains

@@ -43,6 +43,8 @@ SIGNATURES = {
     "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
     "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pmt_jacobi2d": [_P, _P, _I, _I, _P],
+    "pmt_gridder": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "pmt_degridder": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 ERROR_STRING = "pmt_error_string"
 
@@ -98,12 +100,17 @@ def _build(out: Path) -> None:
         os.replace(lib_tmp, out)        # atomic: readers see all or none
 
 
+def library_path() -> Path:
+    """Where this tree's sources build to (built or not)."""
+    return BUILD_ROOT / _digest() / "libkernels.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this tree's sources have
     not been built yet."""
     global _lib, build_seconds
     if _lib is None:
-        out = BUILD_ROOT / _digest() / "libkernels.so"
+        out = library_path()
         if not out.exists():
             t0 = time.perf_counter()
             _build(out)

@@ -126,9 +126,12 @@ def test_script_covers_every_kind_of_region(runs):
 
 
 def test_port_backends_and_facade():
-    assert torch_pmt.backend_names() == ["cpuutil", "dummy", "nvml"]
+    assert torch_pmt.backend_names() == ["cpuutil", "dummy", "h100", "nvml",
+                                         "rapl", "sysfs"]
     assert torch_pmt.get_backend("nvml").kind == "measured"
     assert torch_pmt.get_backend("nvml").native_period_s == 0.010
-    skipped = {"Fault", "FaultInjectingSensor", "FAULT_KINDS",
-               "EnergyModel", "HardwareSpec", "TPU_V5E"}
-    assert set(torch_pmt.__all__) == set(jax_pmt.__all__) - skipped
+    # every name of the JAX facade, the card's spec in place of the TPU's
+    assert set(torch_pmt.__all__) == (set(jax_pmt.__all__) - {"TPU_V5E"}
+                                      | {"H100_SXM"})
+    for name in torch_pmt.__all__:
+        assert hasattr(torch_pmt, name), name

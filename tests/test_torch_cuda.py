@@ -6,7 +6,9 @@ the card run them with
 Tolerances as in chip_smoke.py: 2e-5 in fp32 (summation order), one
 bf16 rounding step of outputs below 4 (2^-6) in bf16; the scatter is
 exact.  The Fig. 2 kernels: STREAM and JACOBI2D exact, FMA32 within
-1e-6 relative, GEMM within 1e-5 of max |out|.
+1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
+within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
+within 1e-3 relative.
 """
 import pytest
 
@@ -23,6 +25,9 @@ from repro_torch.kernels.fma32 import ops as fma_ops  # noqa: E402
 from repro_torch.kernels.fma32 import ref as fma_ref  # noqa: E402
 from repro_torch.kernels.gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
+from repro_torch.kernels.gridder import kernel as grid_kernel  # noqa: E402
+from repro_torch.kernels.gridder import ops as grid_ops  # noqa: E402
+from repro_torch.kernels.gridder import ref as grid_ref  # noqa: E402
 from repro_torch.kernels.jacobi2d import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jacobi2d import ref as jac_ref  # noqa: E402
 from repro_torch.kernels.stream import ops as st_ops  # noqa: E402
@@ -137,3 +142,27 @@ def test_jacobi2d_kernel_is_exact(card, shape):
     got = jac_ops.jacobi2d(x)
     assert torch.equal(got, jac_ref.jacobi2d_ref(x))
     assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("psv", [(256, 4, 512), (1000, 3, 1999), (97, 5, 33),
+                                 (1, 1, 1)])
+def test_gridder_kernels_match_plain_and_are_adjoint(card, psv):
+    """Accurate sincosf against torch's sin and cos, sums in other
+    orders: the JAX tests' rtol 1e-4, atol 2e-3."""
+    p, s, v = psv
+    lm = _randn(card, torch.float32, p, 2).clamp(-0.5, 0.5)
+    uv = 2.0 * _randn(card, torch.float32, s, v, 2, seed=1).clamp(-1, 1)
+    vis = _randn(card, torch.float32, s, v, 2, seed=2)
+    sub = _randn(card, torch.float32, s, p, 2, seed=3)
+    before = (grid_kernel.gridder_launches, grid_kernel.degridder_launches)
+    g = grid_ops.gridder(lm, uv, vis)
+    gt = grid_ops.degridder(lm, uv, sub)
+    assert (grid_kernel.gridder_launches,
+            grid_kernel.degridder_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(g, grid_ref.gridder_ref(lm, uv, vis),
+                               rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(gt, grid_ref.degridder_ref(lm, uv, sub),
+                               rtol=1e-4, atol=2e-3)
+    lhs = float((g.double() * sub.double()).sum())
+    rhs = float((vis.double() * gt.double()).sum())
+    assert abs(lhs - rhs) / max(abs(lhs), 1e-3) < 1e-3

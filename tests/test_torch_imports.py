@@ -37,7 +37,11 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.core.sampler", "repro_torch.core.resolver",
             "repro_torch.core.monitor", "repro_torch.core.backends.nvml",
             "repro_torch.launch.fig2"} <= set(mods)
-    for family in ("fma32", "stream", "gemm", "jacobi2d"):
+    # the rest of the PMT library
+    assert {"repro_torch.core.faults", "repro_torch.core.energy_model",
+            "repro_torch.core.backends.rapl", "repro_torch.core.backends.sysfs",
+            "repro_torch.core.backends.h100"} <= set(mods)
+    for family in ("fma32", "stream", "gemm", "jacobi2d", "gridder"):
         assert {f"repro_torch.kernels.{family}.{part}"
                 for part in ("kernel", "ref", "ops")} <= set(mods)
     code = (
