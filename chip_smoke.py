@@ -14,8 +14,15 @@ Phases, in order; any failure exits nonzero:
      ones, with the gridder pair's adjoint identity on the card and its
      bound from the FP32 operations counted in the built loop
      (``cuobjdump -sass``).
+     The three paged kernels (paged cache_update, decode and prefill
+     attention) the same way, at the paged serve path's shapes and at
+     odd ones (page sizes 8 and 24, shuffled pages, a window, softcap,
+     masked rows, dead rows past their table); the scatter exact outside
+     the scratch page 0, real pages untouched where rows are masked.
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
-     against the same model on the CPU (plain versions).
+     against the same model on the CPU (plain versions), contiguous and
+     paged; the paged engine's greedy tokens on the card equal the
+     contiguous engine's and the CPU's.
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
      16 requests through the continuous-batching engine with chunked
      prefill, twice (the second run gives the spread); check every
@@ -25,6 +32,13 @@ Phases, in order; any failure exits nonzero:
      request must have a resolved ``serve/req<N>`` record with
      ``/prefill`` + ``/decode`` within 1% of its total; then a short run
      under the profiler.
+     5b. the same model through the paged engine (page 16, the default
+     pool of 512 usable pages), 16 requests sharing a 256-token system
+     prompt, served cold then warm with the same checks, plus: the
+     paged kernels launched and the contiguous ones not, pool gauges
+     that add up, the pages held after a run equal to the prefix tree's,
+     prefix hits in both runs and priced saved prefill joules in the
+     warm one; then a short run under the profiler.
   6. the paper's Fig. 2 (``repro_torch.launch.fig2``) at full size:
      SLEEP, FMA32, STREAM, GRIDDER, DEGRIDDER, GEMM, JACOBI2D, each one
      region of a PMT session stacking cpuutil and nvml, with the modeled
@@ -74,6 +88,14 @@ KERNEL_INFO = {
     "decode_attention": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:272"),
+    "paged_cache_update": ("src/repro_torch/kernels/csrc/cache_update.cu",
+                           "src/repro/kernels/cache_update/cache_update.py:48"),
+    "decode_attention_paged": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:187"),
+    "prefill_attention_paged": (
+        "src/repro_torch/kernels/csrc/prefill_attention.cu",
+        "src/repro/kernels/prefill_attention/prefill_attention.py:231"),
     "fma32": ("src/repro_torch/kernels/csrc/fma32.cu",
               "src/repro/kernels/fma32/fma32.py:28"),
     "stream_triad": ("src/repro_torch/kernels/csrc/stream.cu",
@@ -88,7 +110,10 @@ KERNEL_INFO = {
                   "src/repro/kernels/gridder/gridder.py:93"),
 }
 # Launch counters: kernel name -> attribute of its wrapper module.
-COUNTER = {"gridder": "gridder_launches", "degridder": "degridder_launches"}
+COUNTER = {"gridder": "gridder_launches", "degridder": "degridder_launches",
+           "paged_cache_update": "paged_launches",
+           "decode_attention_paged": "paged_launches",
+           "prefill_attention_paged": "paged_launches"}
 
 
 def log(msg: str) -> None:
@@ -321,6 +346,264 @@ def check_prefill(kernel, ref, dev):
                             enable_gqa=True)),
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                results = dict(tm, max_abs_err=err)
+    return results
+
+
+# -- phase 3, paged: the paged kernels against their plain versions ---------
+# Shapes: the paged serve path's (phase 5b: 512 usable pages of 16
+# tokens plus the scratch page, 8 slots of 64 pages, smollm-135m's 3 kv
+# heads of 64), and odd ones: page sizes 8 and 24, shuffled
+# non-contiguous page ids, a window, softcap, masked rows, dead rows
+# whose position runs past the end of their table.
+
+def _page_table(dev, b, nb, num_pages, seed, masked=()):
+    """(b, nb) int32 table of distinct shuffled pages 1..num_pages-1;
+    rows in ``masked`` map every block to the scratch page 0."""
+    ids = np.random.default_rng(seed).permutation(
+        np.arange(1, num_pages))[:b * nb].reshape(b, nb)
+    ids[list(masked)] = 0
+    return torch.tensor(ids, dtype=torch.int32, device=dev)
+
+
+def check_paged_cache_update(kernel, ref, dev):
+    """Exact outside page 0 (a copy); every row of a real page that no
+    valid row targets keeps its bits."""
+    cases = {
+        # decode: T = 1; row 6 masked (valids 0), row 7 a dead row whose
+        # table is masked to page 0 and whose position is past the table
+        "decode P513 ps16 F192 B8 NB64 T1": dict(
+            p=513, ps=16, f=192, b=8, nb=64, t=1, masked=(7,),
+            starts=[0, 1, 15, 16, 511, 1023, 700, 1500],
+            valids=[1, 1, 1, 1, 1, 1, 0, 1]),
+        # a prefill chunk: T = 32, passengers with valids 0
+        "prefill P513 ps16 F192 B8 NB64 T32": dict(
+            p=513, ps=16, f=192, b=8, nb=64, t=32, masked=(),
+            starts=[0, 16, 512, 992, 5, 100, 0, 17],
+            valids=[32, 32, 17, 32, 0, 1, 0, 31]),
+        "odd P40 ps24 F51 B3 NB5 T7": dict(
+            p=40, ps=24, f=51, b=3, nb=5, t=7, masked=(),
+            starts=[0, 23, 110], valids=[7, 3, 0]),
+        "odd P40 ps8 F51 B4 NB9 T1 past the table": dict(
+            p=40, ps=8, f=51, b=4, nb=9, t=1, masked=(),
+            starts=[71, 72, 500, 3], valids=[1, 1, 1, 0]),
+    }
+    results = {}
+    for name, cs in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            p, ps, f, b, nb, t = (cs[x] for x in ("p", "ps", "f", "b", "nb",
+                                                  "t"))
+            g = torch.Generator(device=dev).manual_seed(12)
+            pool = torch.randn((p, ps, f), generator=g, device=dev).to(dt)
+            new = torch.randn((b, t, f), generator=g, device=dev).to(dt)
+            table = _page_table(dev, b, nb, p, 13, cs["masked"])
+            starts = torch.tensor(cs["starts"], dtype=torch.int32,
+                                  device=dev)
+            valids = torch.tensor(cs["valids"], dtype=torch.int32,
+                                  device=dev)
+            want = ref.paged_cache_update_ref(pool.clone(), new, table,
+                                              starts, valids)
+            got = kernel.paged_cache_update_cuda(pool.clone(), new, table,
+                                                 starts, valids)
+            torch.cuda.synchronize()
+            err = max_err(got[1:], want[1:])
+            # physical rows the valid rows target
+            pos = torch.clamp(starts.long()[:, None]
+                              + torch.arange(t, device=dev), max=nb * ps - 1)
+            ok = torch.arange(t, device=dev)[None] < valids.long()[:, None]
+            hit = (torch.gather(table.long(), 1, pos // ps) * ps
+                   + pos % ps)[ok]
+            kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
+            kept[hit] = False
+            kept[:ps] = False                       # page 0: undefined
+            untouched = bool(torch.equal(got.view(p * ps, f)[kept],
+                                         pool.view(p * ps, f)[kept]))
+            log(f"  paged_cache_update {name} {str(dt)[6:]}: max |err| "
+                f"{err} outside page 0 (must be 0: a copy); "
+                f"{int(kept.sum())} rows of real pages no valid row "
+                f"targets {'unchanged' if untouched else 'CHANGED'}")
+            if err != 0.0 or not untouched:
+                raise AssertionError("paged_cache_update disagrees with its "
+                                     "plain version")
+            if name.startswith(("decode", "prefill")) \
+                    and dt == torch.bfloat16:
+                n = int(ok.sum())
+                el = pool.element_size()
+                flat, rows = pool.view(p * ps, f), new[ok]
+                tm = {
+                    "ms": time_ms(lambda: kernel.paged_cache_update_cuda(
+                        pool, new, table, starts, valids), iters=200),
+                    "plain_ms": time_ms(lambda: ref.paged_cache_update_ref(
+                        pool, new, table, starts, valids), iters=200),
+                    "library_ms": time_ms(lambda: flat.index_copy_(
+                        0, hit, rows), iters=200),
+                }
+                tm["bound_ms"], tm["bound_by"] = bound(
+                    2 * n * f * el + 4 * n + 8 * b, 0.0, dt)
+                log(f"  paged_cache_update {name}: kernel {tm['ms']:.5f} "
+                    f"ms, plain {tm['plain_ms']:.5f}, index_copy_ "
+                    f"{tm['library_ms']:.5f}, bound {tm['bound_ms']:.7f}")
+                if name.startswith("decode"):
+                    results = dict(tm, max_abs_err=err)
+    return results
+
+
+def check_paged_decode(kernel, ref, dev):
+    """Tolerance TOL.  A row with no attendable key (a windowed dead row
+    past its table) must give 0, the TPU kernel's value; the plain
+    version, which folds every page, gives the mean of the values
+    there."""
+    cases = {
+        # row 7: a dead row, table masked to page 0, position past it
+        "main P513 ps16 B8 NB64 KVH3 G3 hd64": dict(
+            p=513, ps=16, b=8, nb=64, kvh=3, g=3, hd=64, masked=(7,),
+            lens=[0, 1, 15, 16, 511, 1023, 700, 1500], window=None,
+            softcap=None),
+        "softcap 30 ps8": dict(
+            p=513, ps=8, b=8, nb=64, kvh=3, g=3, hd=64, masked=(),
+            lens=[0, 7, 8, 9, 100, 300, 511, 900], window=None,
+            softcap=30.0),
+        "window 100 ps24 KVH2 G4 hd48": dict(
+            p=60, ps=24, b=8, nb=6, kvh=2, g=4, hd=48, masked=(),
+            lens=[0, 5, 23, 24, 25, 143, 200, 400], window=100,
+            softcap=None),
+        "window 33 softcap 20 ps8 B3 NB7 hd40": dict(
+            p=25, ps=8, b=3, nb=7, kvh=2, g=5, hd=40, masked=(2,),
+            lens=[40, 55, 60], window=33, softcap=20.0),
+    }
+    results = {}
+    for name, cs in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            p, ps, b, nb, kvh, g, hd = (cs[x] for x in ("p", "ps", "b", "nb",
+                                                        "kvh", "g", "hd"))
+            gen = torch.Generator(device=dev).manual_seed(14)
+            mk = lambda *sh: torch.randn(sh, generator=gen,
+                                         device=dev).to(dt)
+            q, kp, vp = mk(b, kvh, g, hd), mk(p, ps, kvh, hd), \
+                mk(p, ps, kvh, hd)
+            table = _page_table(dev, b, nb, p, 15, cs["masked"])
+            lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
+            scale = 1.0 / math.sqrt(hd)
+            kw = dict(window=cs["window"], softcap=cs["softcap"],
+                      scale=scale)
+            got = kernel.decode_attention_paged_cuda(q, kp, vp, table, lens,
+                                                     **kw)
+            want = ref.decode_attention_paged_ref(q, kp, vp, table, lens,
+                                                  **kw)
+            torch.cuda.synchronize()
+            c = nb * ps
+            first = [max(n - cs["window"] + 1, 0) if cs["window"] else 0
+                     for n in cs["lens"]]
+            none = [i for i, (n, f) in enumerate(zip(cs["lens"], first))
+                    if f > min(n, c - 1)]
+            some = [i for i in range(b) if i not in none]
+            err = max_err(got[some], want[some])
+            zero = max_err(got[none], torch.zeros_like(got[none])) \
+                if none else 0.0
+            log(f"  decode_attention_paged {name} {str(dt)[6:]}: max |err| "
+                f"{err:.3g} (tol {TOL[dt]:.3g})"
+                + (f"; rows {none} attend no key: max |out| {zero} (must "
+                   f"be 0)" if none else ""))
+            if not err <= TOL[dt] or zero != 0.0:
+                raise AssertionError("decode_attention_paged disagrees with "
+                                     "its plain version")
+            if name.startswith("main") and dt == torch.bfloat16:
+                el = kp.element_size()
+                keys = sum(min(n, c - 1) + 1 - f
+                           for n, f in zip(cs["lens"], first))
+                # bytes once: each physical pool row and each table entry
+                # the attendable ranges reach, counted once (a masked row
+                # reads page 0's rows over and over)
+                tab = table.cpu().numpy()
+                rows, entries = set(), set()
+                for i, (n, f) in enumerate(zip(cs["lens"], first)):
+                    pos = np.arange(f, min(n, c - 1) + 1)
+                    entries.update((i, j) for j in np.unique(pos // ps))
+                    rows.update((tab[i, pos // ps] * ps + pos % ps).tolist())
+                nbytes = len(rows) * kvh * 2 * hd * el \
+                    + 2 * q.numel() * el + 4 * (b + len(entries))
+                flops = keys * kvh * g * 4 * hd
+                tm = {
+                    "ms": time_ms(lambda: kernel.decode_attention_paged_cuda(
+                        q, kp, vp, table, lens, **kw)),
+                    "plain_ms": time_ms(
+                        lambda: ref.decode_attention_paged_ref(
+                            q, kp, vp, table, lens, **kw), iters=5),
+                    "library_ms": None,
+                }
+                tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                log("  decode_attention_paged: library none (no single "
+                    "PyTorch call reads a paged cache)")
+                results = dict(tm, max_abs_err=err)
+    return results
+
+
+def check_paged_prefill(kernel, ref, dev):
+    """Tolerance TOL.  Offsets at, just before and just past a page
+    boundary, and 0 (no cache page read)."""
+    cases = {
+        "main P513 ps16 B8 T32 NB64 KVH3 G3 hd64": dict(
+            p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
+            offs=[0, 1, 15, 16, 17, 512, 992, 300], window=None,
+            softcap=None),
+        "serve path: 2 prefilling rows, 6 passengers": dict(
+            p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
+            offs=[256, 0, 0, 0, 480, 0, 0, 0], window=None, softcap=None),
+        "softcap 30 ps8 T16": dict(
+            p=513, ps=8, b=8, t=16, nb=64, kvh=3, g=3, hd=64,
+            offs=[0, 7, 8, 9, 100, 256, 497, 300], window=None,
+            softcap=30.0),
+        "window 50 ps24 B3 T17 KVH2 G5 hd40": dict(
+            p=40, ps=24, b=3, t=17, nb=5, kvh=2, g=5, hd=40,
+            offs=[0, 24, 97], window=50, softcap=None),
+        "window 20 softcap 10 ps8 T16": dict(
+            p=70, ps=8, b=4, t=16, nb=16, kvh=3, g=3, hd=64,
+            offs=[0, 8, 9, 100], window=20, softcap=10.0),
+    }
+    results = {}
+    for name, cs in cases.items():
+        for dt in (torch.float32, torch.bfloat16):
+            p, ps, b, t, nb, kvh, g, hd = (cs[x] for x in (
+                "p", "ps", "b", "t", "nb", "kvh", "g", "hd"))
+            gen = torch.Generator(device=dev).manual_seed(16)
+            mk = lambda *sh: torch.randn(sh, generator=gen,
+                                         device=dev).to(dt)
+            q, kx, vx = mk(b, kvh, t, g, hd), mk(b, t, kvh, hd), \
+                mk(b, t, kvh, hd)
+            kp, vp = mk(p, ps, kvh, hd), mk(p, ps, kvh, hd)
+            table = _page_table(dev, b, nb, p, 17)
+            offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
+            scale = 1.0 / math.sqrt(hd)
+            kw = dict(window=cs["window"], softcap=cs["softcap"],
+                      scale=scale)
+            args = (q, kx, vx, kp, vp, table, offs)
+            got = kernel.prefill_attention_paged_cuda(*args, **kw)
+            want = ref.prefill_attention_paged_ref(*args, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            log(f"  prefill_attention_paged {name} {str(dt)[6:]}: max "
+                f"|err| {err:.3g} (tol {TOL[dt]:.3g})")
+            if not err <= TOL[dt]:
+                raise AssertionError("prefill_attention_paged disagrees "
+                                     "with its plain version")
+            if name.startswith("serve path") and dt == torch.bfloat16:
+                el = kp.element_size()
+                prefix = sum(min(o, nb * ps) for o in cs["offs"])
+                nbytes = (prefix + b * t) * kvh * 2 * hd * el \
+                    + 2 * q.numel() * el + 4 * (b + prefix // ps)
+                pairs = t * prefix + b * t * (t + 1) // 2
+                flops = pairs * kvh * g * 4 * hd
+                tm = {
+                    "ms": time_ms(lambda: kernel.prefill_attention_paged_cuda(
+                        *args, **kw)),
+                    "plain_ms": time_ms(
+                        lambda: ref.prefill_attention_paged_ref(*args, **kw),
+                        iters=5),
+                    "library_ms": None,
+                }
+                tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                log("  prefill_attention_paged: library none (no single "
+                    "PyTorch call reads a paged cache)")
                 results = dict(tm, max_abs_err=err)
     return results
 
@@ -603,18 +886,44 @@ def check_small_reference(configs, model_mod, ServeEngine, Request):
         f"max |err| {err:.3g} (tol 1e-4: fp32 sums in other orders)")
     if not err <= 1e-4:
         raise AssertionError("serve steps on the card disagree with the CPU")
+    # the paged steps: a shuffled page table, per-row offsets, a
+    # passenger row (last_idx -1), then a decode step
+    pfns = model_mod.make_paged_serve_fns(cfg)
+    table = torch.tensor([[5, 2, 9, 7], [3, 8, 1, 6]], dtype=torch.int32)
+    offs, last = torch.tensor([0, 5]), torch.tensor([7, -1])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = model_mod.serving_params(cfg, params, dev)
+        pools = model_mod.init_paged_caches(cfg, 10, 8, torch.float32, dev)
+        lp = pfns.prefill_chunk(p, pools, toks[:, :8].to(dev), offs.to(dev),
+                                last.to(dev), table.to(dev))
+        ld = pfns.decode(p, pools, toks[:, -1:].to(dev),
+                         torch.tensor([8, 9], device=dev), table.to(dev))
+        out[dev] = [lp[:1].cpu(), ld.cpu()] + [
+            t[:, 1:].cpu() for t in (pools["units"]["r0"]["k"],
+                                     pools["units"]["r0"]["v"])]
+    err = max(max_err(a, b) for a, b in zip(out["cpu"], out["cuda"]))
+    log(f"  reduced fp32 paged prefill_chunk + decode logits and pools "
+        f"(outside page 0), card vs CPU: max |err| {err:.3g} (tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError("paged serve steps on the card disagree with "
+                             "the CPU")
     mix = [([1, 2, 3], 8), ([4, 5], 3), ([6], 1),
            ([7, 8, 9, 10, 11, 12, 13, 14, 15], 5), ([2], 12)]
     runs = {}
-    for dev in ("cpu", "cuda"):
+    for dev, layout in (("cpu", "contiguous"), ("cuda", "contiguous"),
+                        ("cpu", "paged"), ("cuda", "paged")):
+        kw = dict(kv_layout="paged", kv_page_size=8) \
+            if layout == "paged" else {}
         eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
                           prefill_chunk=4, cache_dtype=torch.float32,
-                          device=dev)
-        runs[dev] = [r.out for r in eng.generate(
+                          device=dev, **kw)
+        runs[dev, layout] = [r.out for r in eng.generate(
             [Request(prompt=p, max_new_tokens=n) for p, n in mix])]
-    log(f"  reduced fp32 engine greedy tokens, card vs CPU: "
-        f"{'equal' if runs['cpu'] == runs['cuda'] else 'DIFFERENT'}")
-    if runs["cpu"] != runs["cuda"]:
+    same = {k: v == runs["cuda", "paged"] for k, v in runs.items()}
+    log(f"  reduced fp32 engine greedy tokens, paged engine on the card "
+        f"equal to: {same}")
+    if not all(same.values()):
         raise AssertionError(f"engine tokens differ: {runs}")
 
 
@@ -654,14 +963,14 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
         reader.close()
     trace_serve(eng, cfg, Request, rng)
     session.close()
-    return runs[0]
+    return runs[0][0]
 
 
 def served_run(eng, Request, prompts, kernels, meter, index, session,
                energy, serve_launch):
     """One timed, metered serve run with every launch count set to 0
     just before it; checks its output and its PMT records, and returns
-    the counts read just after it."""
+    the counts read just after it and each request's tokens."""
     reqs = [Request(prompt=p, max_new_tokens=64) for p in prompts]
     session.flush()
     n_before = len(energy.records)
@@ -713,6 +1022,92 @@ def served_run(eng, Request, prompts, kernels, meter, index, session,
                                            ["cpuutil", "nvml"]):
         log(f"  run {index}: {line}")
     log(f"  run {index}: kernel launches {launches}")
+    return launches, [r.out for r in done]
+
+
+def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
+                pmt, serve_launch, serve_kernels):
+    """Phase 5b: the paged engine at full width, 16 requests sharing a
+    256-token system prompt, served twice on one engine (cold, then
+    warm) through one PMT session (cpuutil + nvml).  Between the runs
+    the engine learns the card's joules per prefill token from the
+    resolved ``serve/req<N>/prefill`` records (``on_record``), so the
+    warm run prices its prefix hits.  Checks every request's tokens and
+    record, that the three paged kernels ran and the three contiguous
+    ones did not, the pool gauges, and the prefix hits.  Returns the
+    cold run's launch counts."""
+    cfg = configs.get_config("smollm-135m")
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
+                      prefill_chunk=32, cache_dtype=torch.bfloat16,
+                      kv_layout="paged", kv_page_size=16, session=session)
+    kc = eng.stats()["kv_cache"]
+    # bytes_per_token counts every pool leaf over the usable positions
+    pool_bytes = kc["bytes_per_token"] * kc["pages_total"] * kc["page_size"]
+    log(f"  pool: {kc['pages_total']} usable pages of {kc['page_size']} "
+        f"tokens + the scratch page, {pool_bytes / 1e6:.1f} MB over "
+        f"{cfg.num_layers} layers")
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab_size, 256).tolist()
+    lengths = rng.permutation(np.linspace(64, 444, 16).astype(int))
+    prompts = [system + rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in lengths]
+    log(f"  prompts: a 256-token system prompt + {int(lengths.min())}-"
+        f"{int(lengths.max())} unique tokens, 64 new tokens each")
+    warm = [Request(prompt=rng.integers(0, cfg.vocab_size, 40).tolist(),
+                    max_new_tokens=4) for _ in range(2)]
+    eng.generate(warm)
+    torch.cuda.synchronize()
+    reader = nvml.NvmlReader(0)
+    outs, launches = [], None
+    try:
+        for index, name in ((1, "cold"), (2, "warm")):
+            hit0 = eng.prefix_hit_tokens
+            saved0 = eng.saved_prefill_joules
+            zero_counts(serve_kernels)
+            counts, out = served_run(eng, Request, prompts, kernels,
+                                     nvml.EnergyMeter(reader), index,
+                                     session, energy, serve_launch)
+            contiguous = read_counts(serve_kernels)
+            log(f"  run {index}: contiguous kernel launches {contiguous} "
+                f"(must be 0: the path is paged)")
+            if any(contiguous.values()):
+                raise AssertionError("the paged path launched a contiguous "
+                                     "kernel")
+            kc = eng.stats()["kv_cache"]
+            hits = eng.prefix_hit_tokens - hit0
+            saved = eng.saved_prefill_joules - saved0
+            log(f"  run {index} ({name}): "
+                f"{serve_launch.kv_pool_line(kc)}; this run: {hits} prompt "
+                f"tokens off the tree, ~{saved:.3f} J prefill saved")
+            if kc["pages_used"] + kc["pages_free"] != kc["pages_total"]:
+                raise AssertionError(f"pool gauges do not add up: {kc}")
+            if kc["pages_used"] != kc["prefix_nodes"]:
+                raise AssertionError(
+                    f"{kc['pages_used']} pages held after the run, but the "
+                    f"prefix tree holds {kc['prefix_nodes']}")
+            if hits <= 0:
+                raise AssertionError(f"run {index}: no prefix hits")
+            if name == "warm" and not saved > 0:
+                raise AssertionError("the warm run priced no saved prefill "
+                                     "joules")
+            outs.append(out)
+            if launches is None:
+                launches = counts
+            # the card's J per prefill token, from this run's records
+            session.flush()
+            for rec in energy.records:
+                if rec.sensor == "nvml":
+                    eng.on_record(rec)
+    finally:
+        reader.close()
+    agree = sum(a == b for a, b in zip(*outs))
+    log(f"  warm vs cold tokens: {agree} of {len(outs[0])} requests equal "
+        f"(not gated in bf16: an off-grid resume reorders sums)")
+    trace_serve(eng, cfg, Request, rng)
+    session.close()
     return launches
 
 
@@ -750,6 +1145,7 @@ def trace_serve(eng, cfg, Request, rng):
         log(f"    {t / 1e3:9.2f} ms  {n:6d} calls  {key[:90]}")
     for key, t, n in rows:
         if any(name in key for name in ("scatter_rows_kernel",
+                                        "paged_scatter_kernel",
                                         "decode_attention_kernel",
                                         "prefill_attention_kernel")):
             log(f"  trace: {t / max(n, 1):.2f} us of device time per "
@@ -967,6 +1363,12 @@ def main() -> int:
         "cache_update": check_cache_update(cu_kernel, cu_ref, dev),
         "prefill_attention": check_prefill(pa_kernel, pa_ref, dev),
         "decode_attention": check_decode(da_kernel, da_ref, dev),
+        "paged_cache_update": check_paged_cache_update(cu_kernel, cu_ref,
+                                                       dev),
+        "prefill_attention_paged": check_paged_prefill(pa_kernel, pa_ref,
+                                                       dev),
+        "decode_attention_paged": check_paged_decode(da_kernel, da_ref,
+                                                     dev),
     }
     log("[3b] Fig. 2 kernels against their plain versions")
     timings.update({
@@ -992,6 +1394,16 @@ def main() -> int:
                "decode_attention": da_kernel}
     launches = serve_full(configs, model_mod, ServeEngine, Request, kernels,
                           nvml, pmt, serve_launch)
+
+    log("[5b] serve full-width smollm-135m paged: 16 requests sharing a "
+        "256-token system prompt, 8 slots, max_len 1024, chunk 32, page 16, "
+        "bf16, cold then warm")
+    paged_kernels = {"paged_cache_update": cu_kernel,
+                     "prefill_attention_paged": pa_kernel,
+                     "decode_attention_paged": da_kernel}
+    launches.update(serve_paged(configs, model_mod, ServeEngine, Request,
+                                paged_kernels, nvml, pmt, serve_launch,
+                                kernels))
 
     log("[6] the paper's Fig. 2 through launch/fig2.py, full size")
     sms = torch.cuda.get_device_properties(0).multi_processor_count

@@ -22,3 +22,14 @@ def on_card(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"tensors must all lie on the card or all on the "
                      f"CPU, got {sorted(kinds)}")
+
+
+def refuse_later_slices(v_width, k_scale, v_scale) -> None:
+    """Raise for the attention options of later slices of the port:
+    ``v_width`` (MLA's aliased latent cache) and ``k_scale``/``v_scale``
+    (quantized caches)."""
+    if v_width is not None:
+        raise NotImplementedError("v_width comes with the MLA slice")
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "k_scale/v_scale come with the quantized-cache slice")

@@ -35,10 +35,17 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 # C entry points of csrc/*.cu and their argument types.
 SIGNATURES = {
     "pmt_cache_update": [_P, _P, _P, _I, _I, _LL, _P],
+    "pmt_paged_cache_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
+                               _P],
     "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _F, _I, _I, _P],
+    "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _I, _F, _I, _I, _P],
     "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _F, _I, _I, _F, _I, _I, _P],
+    "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
+                                    _I, _P],
     "pmt_fma32": [_P, _P, _LL, _I, _P],
     "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
     "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,19 +1,22 @@
-"""The per-row cache scatter the decode step calls.
+"""The cache scatters the serve steps call.
 
 ``cache_update`` takes caches with any trailing dims — (B, C, KVH, hd)
 attention K/V — flattens them to the kernel's (B, C, F) layout and
 writes in place: the CUDA kernel for tensors on the card, the plain
-version for tensors on the CPU.  The JAX package returned a new buffer
-(the Pallas call aliased its input); here the caller's cache itself is
-updated, and also returned.
+version for tensors on the CPU.  ``paged_cache_update`` does the same
+for (P, page_size, *rest) page pools addressed through a page table.
+The JAX package returned a new buffer (the Pallas call aliased its
+input); here the caller's cache itself is updated, and also returned.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import on_card
-from repro_torch.kernels.cache_update.kernel import cache_update_cuda
-from repro_torch.kernels.cache_update.ref import cache_update_ref
+from repro_torch.kernels.cache_update.kernel import (
+    cache_update_cuda, paged_cache_update_cuda)
+from repro_torch.kernels.cache_update.ref import (cache_update_ref,
+                                                  paged_cache_update_ref)
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
@@ -29,3 +32,27 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
                       new.to(cache.dtype).reshape(b, 1, -1).contiguous(),
                       slots.to(torch.int32).contiguous())
     return cache
+
+
+def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
+                       page_table: torch.Tensor, starts: torch.Tensor,
+                       valids: torch.Tensor) -> torch.Tensor:
+    """Write ``new[b, t]`` at logical position ``starts[b] + t`` of row
+    ``b``'s paged cache, for ``t < valids[b]``.
+
+    pool: (P, page_size, *rest) physical pages shared by all rows.
+    new: (B, T, *rest)   page_table: (B, NB) int   starts/valids: (B,).
+    One call covers both paged write paths: decode (T == 1) and chunked
+    prefill (T == chunk).  Masked rows never touch a real page: the
+    plain version routes them to the scratch page 0, the kernel skips
+    them (page 0's content is undefined by contract).
+    """
+    if not on_card(pool, new, page_table, starts, valids):
+        return paged_cache_update_ref(pool, new, page_table, starts, valids)
+    p, ps = pool.shape[:2]
+    b, t = new.shape[:2]
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    rows = new.to(pool.dtype).reshape(b, t, -1).contiguous()
+    paged_cache_update_cuda(pool.view(p, ps, -1), rows, i32(page_table),
+                            i32(starts), i32(valids))
+    return pool

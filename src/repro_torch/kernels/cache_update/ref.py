@@ -1,9 +1,13 @@
-"""Plain PyTorch version of the per-row cache scatter.
+"""Plain PyTorch versions of the cache scatters.
 
-The same function as the JAX package's ``cache_update_ref`` (one
-``dynamic_update_slice`` per batch row), written as one indexed
-assignment that updates ``cache`` in place.  Out-of-range slots clamp to
-the nearest row, as ``dynamic_update_slice`` clamps its start.
+``cache_update_ref``: the same function as the JAX package's
+``cache_update_ref`` (one ``dynamic_update_slice`` per batch row),
+written as one indexed assignment that updates ``cache`` in place.
+Out-of-range slots clamp to the nearest row, as
+``dynamic_update_slice`` clamps its start.
+
+``paged_cache_update_ref``: the JAX package's ``paged_cache_update_ref``,
+the scatter through a page table into a shared page pool.
 """
 from __future__ import annotations
 
@@ -18,3 +22,34 @@ def cache_update_ref(cache: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(b, device=cache.device)
     cache[rows, slots.long().clamp(0, c - 1)] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def paged_cache_update_ref(pool: torch.Tensor, new: torch.Tensor,
+                           page_table: torch.Tensor, starts: torch.Tensor,
+                           valids: torch.Tensor) -> torch.Tensor:
+    """pool: (P, page_size, *rest)  new: (B, T, *rest)
+    page_table: (B, NB) int   starts/valids: (B,) int.
+
+    Row ``t`` of ``new[b]`` lands at physical row
+    ``page_table[b, pos // ps] * ps + pos % ps`` of the flattened pool,
+    ``pos = min(starts[b] + t, NB * ps - 1)``, when ``t < valids[b]``;
+    masked rows go to row 0 of the scratch page 0, whose content is
+    undefined by contract.  One indexed assignment, in place, as the
+    JAX package's ``paged_cache_update_ref`` is one flat scatter.
+    Returns ``pool``.
+    """
+    p, ps = pool.shape[:2]
+    b, t = new.shape[:2]
+    nb = page_table.shape[1]
+    dev = pool.device
+    steps = torch.arange(t, device=dev)
+    pos = torch.clamp(starts.to(dev).long()[:, None] + steps,
+                      max=nb * ps - 1)                          # (B, T)
+    ok = steps[None, :] < valids.to(dev).long()[:, None]
+    page = torch.where(ok, torch.gather(page_table.to(dev).long(), 1,
+                                        pos // ps), 0)
+    row = torch.where(ok, pos % ps, 0)
+    flat = pool.view(p * ps, -1)
+    flat[(page * ps + row).reshape(-1)] = \
+        new.reshape(b * t, -1).to(pool.dtype)
+    return pool

@@ -83,20 +83,22 @@ __device__ __forceinline__ void pv_fold(const float* ps, const float* vs,
   }
 }
 
-// Copy a tile of `n` key rows (row stride `stride` elements, `width`
-// wide) from device memory into fp32 shared memory with row pitch
-// `pitch`.  Where rows allow it, each thread moves 16 bytes per load and
+// Copy a tile of `n` key rows, each `width` elements starting at
+// `row(r)`, from device memory into fp32 shared memory with row pitch
+// `pitch`.  With `vec_ok` (every row start 16-byte aligned, `width` a
+// whole number of 16-byte units) each thread moves 16 bytes per load and
 // puts up to four loads in flight before it converts and stores any of
 // them, so a tile costs about one memory round trip rather than one per
 // element; otherwise neighbouring threads read neighbouring elements.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int n,
-                                          int width, size_t stride,
+// `row` maps a tile row to its address: a fixed stride for a contiguous
+// cache, a page-table lookup for a paged one.
+template <typename T, typename RowFn>
+__device__ __forceinline__ void load_rows(float* dst, RowFn row, int n,
+                                          int width, bool vec_ok,
                                           int pitch) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kInFlight = 4;
-  if (width % kVec == 0 && stride % kVec == 0 &&
-      reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+  if (vec_ok) {
     const int per_row = width / kVec;
     const int total = n * per_row;
     for (int base = threadIdx.x; base < total; base += kInFlight * blockDim.x) {
@@ -106,7 +108,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int n,
         const int i = base + u * blockDim.x;
         if (i < total) {
           const int r = i / per_row, c = i - r * per_row;
-          buf[u] = *(reinterpret_cast<const int4*>(src + (size_t)r * stride) + c);
+          buf[u] = *(reinterpret_cast<const int4*>(row(r)) + c);
         }
       }
 #pragma unroll
@@ -125,8 +127,27 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int n,
   }
   for (int i = threadIdx.x; i < n * width; i += blockDim.x) {
     const int r = i / width, d = i - r * width;
-    dst[r * pitch + d] = to_f(src[(size_t)r * stride + d]);
+    dst[r * pitch + d] = to_f(row(r)[d]);
   }
+}
+
+// Whether rows `base + k * stride` (k >= 0) of `width` elements can be
+// moved in 16-byte units.
+template <typename T>
+__device__ __forceinline__ bool rows_vec_ok(const T* base, int width,
+                                            size_t stride) {
+  constexpr int kVec = 16 / sizeof(T);
+  return width % kVec == 0 && stride % kVec == 0 &&
+         reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+// load_rows over `n` rows at a fixed stride of `stride` elements.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int n,
+                                          int width, size_t stride,
+                                          int pitch) {
+  load_rows<T>(dst, [=](int r) { return src + (size_t)r * stride; }, n,
+               width, rows_vec_ok(src, width, stride), pitch);
 }
 
 }  // namespace pmt

@@ -1,28 +1,43 @@
 // Length-aware flash-decode: one new query token per row against its
-// KV cache, all G query heads of one kv head together.
+// KV cache, all G query heads of one kv head together.  Two layouts of
+// the cache share one kernel, templated on how a logical key position
+// becomes an address: a contiguous (B, C, KVH, hd) cache, and physical
+// page pools (P, ps, KVH, hd) addressed through a (B, NB) page table.
 //
-// Replaces the TPU kernel decode_attention_pallas
+// Replaces the TPU kernels decode_attention_pallas and
+// decode_attention_paged_pallas
 // (src/repro/kernels/decode_attention/decode_attention.py).  Same
-// function: q (B, KVH, G, hd) against k/v (B, C, KVH, hd) with the new
-// token already at its slot, valid slots `col <= lens[b]` (a ring cache
-// of size C: `(lens[b] - col) mod C <= lens[b]`), optional logit
+// function: q (B, KVH, G, hd) against the cache with the new token
+// already at its slot, valid positions `col <= lens[b]` (a ring cache of
+// size C: `(lens[b] - col) mod C <= lens[b]`; a paged cache, which is
+// never wrapped, optionally `lens[b] - col < window`), optional logit
 // softcap, one online softmax in fp32, output in q's dtype.  The TPU
-// kernel walked a sequential grid axis over key blocks with the running
-// max, sum and accumulator in VMEM scratch; here one block per (row,
-// kv head) walks the key tiles in a loop and keeps them in shared
-// memory.
+// kernels walked a sequential grid axis over key blocks (one page per
+// block in the paged one) with the running max, sum and accumulator in
+// VMEM scratch; here one block per (row, kv head) walks 64-key tiles in
+// a loop and keeps them in shared memory.  A paged tile gathers its 64
+// keys from as many pages as they span: the block first turns each
+// position into its physical row (page_table[b, pos / ps] * ps +
+// pos % ps) in shared memory, then loads the rows.
 //
 // What bounds it on the H100: bytes.  Each key and value is read once
 // and used for G (3 for smollm-135m) query heads, about 2 * G flops per
 // byte in bf16, far below the ~295 the tensor cores need; the least
 // time is the valid cache prefix over 3.35 TB/s.  The design keeps the
-// TPU kernel's length-aware property: a row's loop stops at its last
-// valid slot, min(lens[b], C - 1), so slots past a row's fill are never
-// read (a wrapped ring reads all C).  It is simple, not fast: B * KVH
-// blocks (24 at B=8) leave most of the 132 SMs idle, and the tile loop
-// does not overlap its loads with its arithmetic.  Splitting the key
-// range over several blocks with a combine pass (split-KV) and
-// double-buffered asynchronous tile loads are the levers for later.
+// TPU kernels' length-aware property: a row's loop runs from its first
+// attendable position (0, or lens[b] - window + 1) to its last,
+// min(lens[b], C - 1), so keys outside are never read (a wrapped ring
+// reads all C).  It is simple, not fast: B * KVH blocks (24 at B=8)
+// leave most of the 132 SMs idle, and the tile loop does not overlap its
+// loads with its arithmetic.  Splitting the key range (the pages) over
+// several blocks with a combine pass (split-KV) and double-buffered
+// asynchronous tile loads are the levers for later.
+//
+// A row with no attendable key (only a paged row with a window whose
+// position lies past the end of its table by more than the window: a
+// dead row of a decode burst) returns 0, as the TPU kernel does; the
+// plain blockwise version, which folds every block, returns the mean of
+// its values there.
 #include "common.cuh"
 
 namespace {
@@ -37,25 +52,33 @@ __host__ __device__ inline size_t smem_floats(int G, int hd, int hdv) {
          (size_t)G * kTile + (size_t)G * hdv + 3 * (size_t)G;
 }
 
-template <typename TQ, typename TKV>
+// kPaged: k, v are pools (P, ps, KVH, hd) and page_table is (B, NB),
+// C = NB * ps; otherwise k, v are (B, C, KVH, hd) and page_table unused.
+template <typename TQ, typename TKV, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                         const TKV* __restrict__ v, const int* __restrict__ lens,
-                        TQ* __restrict__ out, int C, int KVH, int G, int hd,
-                        int hdv, float scale, int ring, float softcap) {
+                        const int* __restrict__ page_table, TQ* __restrict__ out,
+                        int C, int NB, int ps, int KVH, int G, int hd, int hdv,
+                        float scale, int ring, int window, float softcap) {
   extern __shared__ float smem[];
+  __shared__ int rows[kTile];  // physical rows of a paged tile's keys
   const int b = blockIdx.x, h = blockIdx.y;
   float* qs = smem;
   float* ks = qs + G * hd;
   float* vs = ks + kTile * (hd + 1);
-  float* ps = vs + kTile * hdv;
-  float* acc = ps + G * kTile;
+  float* ps_ = vs + kTile * hdv;
+  float* acc = ps_ + G * kTile;
   float* m = acc + G * hdv;
   float* l = m + G;
   float* alpha = l + G;
 
   const int cur = lens[b];
-  const int last = min(cur, C - 1);  // last slot that can hold a valid key
+  // Slots that can hold a valid key: [first, last].  Past `last` every
+  // slot is masked (a ring below its size holds positions <= lens[b]).
+  const int last = min(cur, C - 1);
+  const int first = (!ring && window > 0) ? max(cur - (window - 1), 0) : 0;
+  const int end = last + 1;
   const size_t head = (size_t)b * KVH + h;
   for (int i = threadIdx.x; i < G * hd; i += kThreads)
     qs[i] = pmt::to_f(q[head * G * hd + i]) * scale;
@@ -65,13 +88,32 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     l[i] = 0.f;
   }
 
-  const TKV* kb = k + (size_t)b * C * KVH * hd + (size_t)h * hd;
-  const TKV* vb = v + (size_t)b * C * KVH * hdv + (size_t)h * hdv;
-  for (int lo = 0; lo <= last; lo += kTile) {
-    const int n = min(kTile, C - lo);
-    __syncthreads();  // previous tile's readers are done with ks/vs/ps
-    pmt::load_tile(ks, kb + (size_t)lo * KVH * hd, n, hd, (size_t)KVH * hd, hd + 1);
-    pmt::load_tile(vs, vb + (size_t)lo * KVH * hdv, n, hdv, (size_t)KVH * hdv, hdv);
+  // Row r of the tile at `lo` is physical row phys(r) of k and v, counted
+  // in (KVH * hd)-element rows from the head's first element.
+  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * hdv;
+  const TKV* kh = k + (size_t)h * hd;
+  const TKV* vh = v + (size_t)h * hdv;
+  const int* pt = kPaged ? page_table + (size_t)b * NB : nullptr;
+  const bool kvec = pmt::rows_vec_ok(kh, hd, kstride);
+  const bool vvec = pmt::rows_vec_ok(vh, hdv, vstride);
+  for (int lo = first; lo < end; lo += kTile) {
+    const int n = min(kTile, end - lo);
+    __syncthreads();  // previous tile's readers are done with ks/vs/ps/rows
+    if constexpr (kPaged) {
+      for (int r = threadIdx.x; r < n; r += kThreads) {
+        const int pos = lo + r;  // < end <= C, so pos / ps < NB
+        rows[r] = pt[pos / ps] * ps + pos % ps;
+      }
+      __syncthreads();
+    }
+    auto phys = [&](int r) -> size_t {
+      if constexpr (kPaged) return (size_t)rows[r];
+      else return (size_t)b * C + lo + r;
+    };
+    pmt::load_rows<TKV>(ks, [&](int r) { return kh + phys(r) * kstride; }, n, hd, kvec,
+                        hd + 1);
+    pmt::load_rows<TKV>(vs, [&](int r) { return vh + phys(r) * vstride; }, n, hdv, vvec,
+                        hdv);
     __syncthreads();
     for (int i = threadIdx.x; i < G * kTile; i += kThreads) {
       const int g = i / kTile, c = i - g * kTile;
@@ -83,15 +125,16 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
         for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
         if (softcap > 0.f) dot = tanhf(dot / softcap) * softcap;
         const int col = lo + c;
-        const bool valid = ring ? (((cur - col) % C + C) % C) <= cur : col <= cur;
+        const bool valid = ring ? (((cur - col) % C + C) % C) <= cur
+                                : col <= cur && (window <= 0 || cur - col < window);
         s = valid ? dot : PMT_NEG_INF;
       }
-      ps[i] = s;
+      ps_[i] = s;
     }
     __syncthreads();
-    pmt::softmax_fold(ps, m, l, alpha, G, kTile, n);
+    pmt::softmax_fold(ps_, m, l, alpha, G, kTile, n);
     __syncthreads();
-    pmt::pv_fold(ps, vs, acc, alpha, G, kTile, n, hdv);
+    pmt::pv_fold(ps_, vs, acc, alpha, G, kTile, n, hdv);
   }
   __syncthreads();
   TQ* ob = out + head * G * hdv;
@@ -99,22 +142,42 @@ decode_attention_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     ob[i] = pmt::from_f<TQ>(acc[i] / fmaxf(l[i / hdv], 1e-30f));
 }
 
-template <typename TQ, typename TKV>
-int launch(const void* q, const void* k, const void* v, const void* lens, void* out,
-           int B, int C, int KVH, int G, int hd, int hdv, float scale, int ring,
-           float softcap, cudaStream_t stream) {
-  const size_t bytes = smem_floats(G, hd, hdv) * sizeof(float);
-  auto kernel = decode_attention_kernel<TQ, TKV>;
+struct Args {
+  const void *q, *k, *v, *lens, *page_table;
+  void* out;
+  int B, C, NB, ps, KVH, G, hd, hdv;
+  float scale;
+  int ring, window;
+  float softcap;
+};
+
+template <typename TQ, typename TKV, bool kPaged>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t bytes = smem_floats(a.G, a.hd, a.hdv) * sizeof(float);
+  auto kernel = decode_attention_kernel<TQ, TKV, kPaged>;
   if (bytes > 48 * 1024) {  // above the default, opt in first
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(B, KVH), kThreads, bytes, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
-      static_cast<const int*>(lens), static_cast<TQ*>(out), C, KVH, G, hd, hdv, scale, ring,
-      softcap);
+  kernel<<<dim3(a.B, a.KVH), kThreads, bytes, stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k),
+      static_cast<const TKV*>(a.v), static_cast<const int*>(a.lens),
+      static_cast<const int*>(a.page_table), static_cast<TQ*>(a.out), a.C, a.NB, a.ps,
+      a.KVH, a.G, a.hd, a.hdv, a.scale, a.ring, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPaged>
+int dispatch(const Args& a, int q_dtype, int kv_dtype, void* stream) {
+  if (a.B == 0 || a.KVH == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, kPaged>(a, s);
+  if (q_dtype == 0 && kv_dtype == 1) return launch<float, __nv_bfloat16, kPaged>(a, s);
+  if (q_dtype == 1 && kv_dtype == 0) return launch<__nv_bfloat16, float, kPaged>(a, s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kPaged>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -127,18 +190,22 @@ extern "C" int pmt_decode_attention(const void* q, const void* k, const void* v,
                                     int G, int hd, int hdv, float scale, int ring,
                                     float softcap, int q_dtype, int kv_dtype,
                                     void* stream) {
-  if (B == 0 || KVH == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k, v, lens, out, B, C, KVH, G, hd, hdv, scale, ring, softcap, s);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, k, v, lens, out, B, C, KVH, G, hd, hdv, scale, ring,
-                                        softcap, s);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k, v, lens, out, B, C, KVH, G, hd, hdv, scale, ring,
-                                        softcap, s);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, lens, out, B, C, KVH, G, hd, hdv,
-                                                scale, ring, softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, lens, nullptr, out, B, C, 1, C, KVH, G, hd, hdv,
+               scale, ring, 0, softcap};
+  return dispatch<false>(a, q_dtype, kv_dtype, stream);
+}
+
+// q, out as above; k_pool, v_pool: (P, ps, KVH, hd/hdv) of kv_dtype;
+// page_table: (B, NB) int32, every entry a page of the pools; lens: (B,)
+// int32.  window <= 0 and softcap <= 0 mean none.  Returns
+// cudaGetLastError().
+extern "C" int pmt_decode_attention_paged(const void* q, const void* k_pool,
+                                          const void* v_pool, const void* page_table,
+                                          const void* lens, void* out, int B, int NB, int ps,
+                                          int KVH, int G, int hd, int hdv, float scale,
+                                          int window, float softcap, int q_dtype,
+                                          int kv_dtype, void* stream) {
+  const Args a{q, k_pool, v_pool, lens, page_table, out, B, NB * ps, NB, ps, KVH, G, hd, hdv,
+               scale, 0, window, softcap};
+  return dispatch<true>(a, q_dtype, kv_dtype, stream);
 }

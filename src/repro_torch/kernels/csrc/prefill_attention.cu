@@ -1,32 +1,42 @@
 // Chunked-prefill attention: T chunk queries at positions offs[b] + t
 // attend the cache prefix (positions < offs[b]) and their own causal
-// keys in one online softmax.
+// keys in one online softmax.  Two layouts of the cache share one
+// kernel, templated on how a logical key position becomes an address: a
+// contiguous (B, C, KVH, hd) cache, and physical page pools
+// (P, ps, KVH, hd) addressed through a (B, NB) page table.
 //
-// Replaces the TPU kernel prefill_attention_pallas
+// Replaces the TPU kernels prefill_attention_pallas and
+// prefill_attention_paged_pallas
 // (src/repro/kernels/prefill_attention/prefill_attention.py).  Same
 // function: q packed (B, KVH, T, G, hd) so that the G query heads of a
-// kv head share each key; phase 1 folds the cache k/v (B, C, KVH, hd)
-// slots below min(offs[b], C) (a ring cache of size C maps slot s to
-// position (offs-1) - ((offs-1-s) mod C) and masks positions outside
-// the window), phase 2 the chunk's own k/v (B, T, KVH, hd) with
-// `t >= col` (and `t - col < window`); softcap optional; fp32 softmax;
-// output in q's dtype.  The TPU kernel walked one sequential grid axis
-// over both phases with the running state in VMEM; here one block per
-// (row, kv head, tile of 16 packed query rows) loops over the key
-// tiles of both phases and keeps the state in shared memory.
+// kv head share each key; phase 1 folds the cache's positions below
+// min(offs[b], C) (a ring cache of size C maps slot s to position
+// (offs-1) - ((offs-1-s) mod C) and masks positions outside the window;
+// an unwrapped cache, contiguous or paged, masks q_pos - col >= window
+// when a window is given), phase 2 the chunk's own k/v (B, T, KVH, hd)
+// with `t >= col` (and `t - col < window`); softcap optional; fp32
+// softmax; output in q's dtype.  The TPU kernels walked one sequential
+// grid axis over both phases (one page per cache step in the paged one)
+// with the running state in VMEM; here one block per (row, kv head, tile
+// of 16 packed query rows) loops over the 64-key tiles of both phases
+// and keeps the state in shared memory.  A paged tile gathers its keys
+// from as many pages as they span: the block first turns each position
+// into its physical row (page_table[b, pos / ps] * ps + pos % ps) in
+// shared memory, then loads the rows.
 //
 // What bounds it on the H100: at the serve path's shapes (a 32-token
 // chunk, 3 query heads per kv head, prefixes up to ~1k) each key tile
 // is used by 96 query rows, ~0.1k flops per byte, still below the
 // ~295 flops per byte the bf16 tensor cores need, so bytes bound it in
 // principle; but this first kernel computes its dot products on the
-// CUDA cores in fp32, which caps it near 67 TFLOP/s, and at batch 1 it
-// has only KVH * ceil(T * G / 16) blocks (18 for smollm-135m), so in
-// practice it is latency-bound.  The design keeps the TPU kernel's
-// property that cache tiles past a row's prefix are never read, and
-// skips chunk tiles that lie wholly above the block's last query.
-// Tensor-core (wgmma/mma) tiles and splitting the prefix over more
-// blocks are the levers for later.
+// CUDA cores in fp32, which caps it near 67 TFLOP/s, and it has only
+// B * KVH * ceil(T * G / 16) blocks (18 per batch row for smollm-135m),
+// so in practice it is latency-bound.  The design keeps the TPU kernels'
+// property that cache positions outside a row's attendable range
+// (at or past offs[b]; with a window on an unwrapped cache, below
+// offs[b] - window + 1) are never read, and skips chunk tiles that lie
+// wholly above the block's last query.  Tensor-core (wgmma/mma) tiles
+// and splitting the prefix over more blocks are the levers for later.
 #include "common.cuh"
 
 namespace {
@@ -43,14 +53,18 @@ __host__ __device__ inline size_t smem_floats(int hd, int hdv) {
          (size_t)kRows * kTile + (size_t)kRows * hdv + 3 * (size_t)kRows;
 }
 
-template <typename TQ, typename TC>
+// kPaged: kc, vc are pools (P, ps, KVH, hd) and page_table is (B, NB),
+// C = NB * ps; otherwise kc, vc are (B, C, KVH, hd) and page_table unused.
+template <typename TQ, typename TC, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
                          const TQ* __restrict__ vx, const TC* __restrict__ kc,
                          const TC* __restrict__ vc, const int* __restrict__ offs,
-                         TQ* __restrict__ out, int T, int C, int KVH, int G, int hd,
-                         int hdv, float scale, int ring, int window, float softcap) {
+                         const int* __restrict__ page_table, TQ* __restrict__ out, int T,
+                         int C, int NB, int ps, int KVH, int G, int hd, int hdv,
+                         float scale, int ring, int window, float softcap) {
   extern __shared__ float smem[];
+  __shared__ int rows_[kTile];  // physical rows of a paged tile's keys
   const int b = blockIdx.x, h = blockIdx.y;
   const int row0 = blockIdx.z * kRows;
   const int rows_total = T * G;
@@ -58,8 +72,8 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
   float* qs = smem;
   float* ks = qs + kRows * hd;
   float* vs = ks + kTile * (hd + 1);
-  float* ps = vs + kTile * hdv;
-  float* acc = ps + kRows * kTile;
+  float* ps_ = vs + kTile * hdv;
+  float* acc = ps_ + kRows * kTile;
   float* m = acc + kRows * hdv;
   float* l = m + kRows;
   float* alpha = l + kRows;
@@ -76,7 +90,7 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
   }
 
   // Scores of this block's rows against one loaded key tile, masked.
-  // phase 1: cache slots lo + c; phase 2: chunk keys lo + c.
+  // phase 1: cache positions lo + c; phase 2: chunk keys lo + c.
   auto scores = [&](int lo, int n, bool cache_phase) {
     for (int i = threadIdx.x; i < kRows * kTile; i += kThreads) {
       const int r = i / kTile, c = i - r * kTile;
@@ -105,26 +119,46 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
         }
         s = valid ? dot : PMT_NEG_INF;
       }
-      ps[i] = s;
+      ps_[i] = s;
     }
   };
 
   auto fold = [&](int n) {
     __syncthreads();
-    pmt::softmax_fold(ps, m, l, alpha, kRows, kTile, n);
+    pmt::softmax_fold(ps_, m, l, alpha, kRows, kTile, n);
     __syncthreads();
-    pmt::pv_fold(ps, vs, acc, alpha, kRows, kTile, n, hdv);
+    pmt::pv_fold(ps_, vs, acc, alpha, kRows, kTile, n, hdv);
   };
 
-  // Phase 1: cache tiles below min(off, C); tiles past it are never read.
+  // Phase 1: cache positions in [start, min(off, C)); none outside is
+  // read.  Without a ring, positions below off - window + 1 are masked
+  // for every query of the chunk (queries sit at off + t, t >= 0).
   const int limit = min(off, C);
-  const TC* kcb = kc + (size_t)b * C * KVH * hd + (size_t)h * hd;
-  const TC* vcb = vc + (size_t)b * C * KVH * hdv + (size_t)h * hdv;
-  for (int lo = 0; lo < limit; lo += kTile) {
-    const int n = min(kTile, C - lo);
-    __syncthreads();
-    pmt::load_tile(ks, kcb + (size_t)lo * KVH * hd, n, hd, (size_t)KVH * hd, hd + 1);
-    pmt::load_tile(vs, vcb + (size_t)lo * KVH * hdv, n, hdv, (size_t)KVH * hdv, hdv);
+  const int start = (!ring && window > 0) ? max(off - (window - 1), 0) : 0;
+  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * hdv;
+  const TC* kch = kc + (size_t)h * hd;
+  const TC* vch = vc + (size_t)h * hdv;
+  const int* pt = kPaged ? page_table + (size_t)b * NB : nullptr;
+  const bool kvec = pmt::rows_vec_ok(kch, hd, kstride);
+  const bool vvec = pmt::rows_vec_ok(vch, hdv, vstride);
+  for (int lo = start; lo < limit; lo += kTile) {
+    const int n = min(kTile, limit - lo);
+    __syncthreads();  // previous tile's readers are done with ks/vs/ps/rows
+    if constexpr (kPaged) {
+      for (int r = threadIdx.x; r < n; r += kThreads) {
+        const int pos = lo + r;  // < limit <= C, so pos / ps < NB
+        rows_[r] = pt[pos / ps] * ps + pos % ps;
+      }
+      __syncthreads();
+    }
+    auto phys = [&](int r) -> size_t {
+      if constexpr (kPaged) return (size_t)rows_[r];
+      else return (size_t)b * C + lo + r;
+    };
+    pmt::load_rows<TC>(ks, [&](int r) { return kch + phys(r) * kstride; }, n, hd, kvec,
+                       hd + 1);
+    pmt::load_rows<TC>(vs, [&](int r) { return vch + phys(r) * vstride; }, n, hdv, vvec,
+                       hdv);
     __syncthreads();
     scores(lo, n, true);
     fold(n);
@@ -151,23 +185,44 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
     ob[i] = pmt::from_f<TQ>(acc[i] / fmaxf(l[i / hdv], 1e-30f));
 }
 
-template <typename TQ, typename TC>
-int launch(const void* q, const void* kx, const void* vx, const void* kc, const void* vc,
-           const void* offs, void* out, int B, int T, int C, int KVH, int G, int hd, int hdv,
-           float scale, int ring, int window, float softcap, cudaStream_t stream) {
-  const size_t bytes = smem_floats(hd, hdv) * sizeof(float);
-  auto kernel = prefill_attention_kernel<TQ, TC>;
+struct Args {
+  const void *q, *kx, *vx, *kc, *vc, *offs, *page_table;
+  void* out;
+  int B, T, C, NB, ps, KVH, G, hd, hdv;
+  float scale;
+  int ring, window;
+  float softcap;
+};
+
+template <typename TQ, typename TC, bool kPaged>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t bytes = smem_floats(a.hd, a.hdv) * sizeof(float);
+  auto kernel = prefill_attention_kernel<TQ, TC, kPaged>;
   if (bytes > 48 * 1024) {  // above the default, opt in first
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(B, KVH, (T * G + kRows - 1) / kRows);
+  const dim3 grid(a.B, a.KVH, (a.T * a.G + kRows - 1) / kRows);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(kx), static_cast<const TQ*>(vx),
-      static_cast<const TC*>(kc), static_cast<const TC*>(vc), static_cast<const int*>(offs),
-      static_cast<TQ*>(out), T, C, KVH, G, hd, hdv, scale, ring, window, softcap);
+      static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.kx), static_cast<const TQ*>(a.vx),
+      static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+      static_cast<const int*>(a.offs), static_cast<const int*>(a.page_table),
+      static_cast<TQ*>(a.out), a.T, a.C, a.NB, a.ps, a.KVH, a.G, a.hd, a.hdv, a.scale,
+      a.ring, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPaged>
+int dispatch(const Args& a, int q_dtype, int cache_dtype, void* stream) {
+  if (a.B == 0 || a.T == 0 || a.KVH == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 0 && cache_dtype == 0) return launch<float, float, kPaged>(a, s);
+  if (q_dtype == 0 && cache_dtype == 1) return launch<float, __nv_bfloat16, kPaged>(a, s);
+  if (q_dtype == 1 && cache_dtype == 0) return launch<__nv_bfloat16, float, kPaged>(a, s);
+  if (q_dtype == 1 && cache_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kPaged>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -182,19 +237,23 @@ extern "C" int pmt_prefill_attention(const void* q, const void* kx, const void* 
                                      int hdv, float scale, int ring, int window,
                                      float softcap, int q_dtype, int cache_dtype,
                                      void* stream) {
-  if (B == 0 || T == 0 || KVH == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && cache_dtype == 0)
-    return launch<float, float>(q, kx, vx, kc, vc, offs, out, B, T, C, KVH, G, hd, hdv, scale,
-                                ring, window, softcap, s);
-  if (q_dtype == 0 && cache_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, kx, vx, kc, vc, offs, out, B, T, C, KVH, G, hd, hdv,
-                                        scale, ring, window, softcap, s);
-  if (q_dtype == 1 && cache_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, kx, vx, kc, vc, offs, out, B, T, C, KVH, G, hd, hdv,
-                                        scale, ring, window, softcap, s);
-  if (q_dtype == 1 && cache_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, kx, vx, kc, vc, offs, out, B, T, C, KVH, G,
-                                                hd, hdv, scale, ring, window, softcap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, kx, vx, kc, vc, offs, nullptr, out, B, T, C, 1, C, KVH, G, hd, hdv,
+               scale, ring, window, softcap};
+  return dispatch<false>(a, q_dtype, cache_dtype, stream);
+}
+
+// q, out, kx, vx, offs as above; k_pool, v_pool: (P, ps, KVH, hd/hdv) of
+// cache_dtype; page_table: (B, NB) int32, every entry a page of the
+// pools.  window <= 0 and softcap <= 0 mean none.  Returns
+// cudaGetLastError().
+extern "C" int pmt_prefill_attention_paged(const void* q, const void* kx, const void* vx,
+                                           const void* k_pool, const void* v_pool,
+                                           const void* page_table, const void* offs,
+                                           void* out, int B, int T, int NB, int ps, int KVH,
+                                           int G, int hd, int hdv, float scale, int window,
+                                           float softcap, int q_dtype, int cache_dtype,
+                                           void* stream) {
+  const Args a{q, kx, vx, k_pool, v_pool, offs, page_table, out, B, T, NB * ps, NB, ps, KVH,
+               G, hd, hdv, scale, 0, window, softcap};
+  return dispatch<true>(a, q_dtype, cache_dtype, stream);
 }

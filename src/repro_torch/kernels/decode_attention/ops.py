@@ -1,9 +1,10 @@
-"""The decode-attention op the model's decode step calls.
+"""The decode-attention ops the model's decode steps call.
 
 ``decode_attention`` takes the model's layouts — q (B, 1, H, hd) and the
 (B, C, KVH, hd) caches — packs the G = H / KVH query heads of each kv
 head together, and runs the CUDA kernel for tensors on the card or the
-plain version for tensors on the CPU.
+plain version for tensors on the CPU.  ``decode_attention_paged`` does
+the same over (P, page_size, KVH, hd) page pools and a page table.
 """
 from __future__ import annotations
 
@@ -11,10 +12,25 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card
+from repro_torch.kernels import on_card, refuse_later_slices
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention_cuda, decode_attention_paged_cuda)
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_paged_ref, decode_attention_ref)
+
+
+def _pack(q: torch.Tensor, kvh: int, cur_len, name: str):
+    """q (B, 1, H, hdq) -> (B, KVH, G, hdq), and cur_len as a (B,) int32
+    tensor on q's device."""
+    b, sq, h, hdq = q.shape
+    if sq != 1:
+        raise ValueError(f"{name} takes one query token, got Sq={sq}")
+    if h % kvh:
+        raise ValueError(f"H={h} not divisible by KVH={kvh}")
+    lens = torch.as_tensor(cur_len, dtype=torch.int32, device=q.device)
+    lens = lens.expand(b).contiguous() if lens.dim() == 0 else lens
+    return q.reshape(b, kvh, h // kvh, hdq), lens
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,22 +51,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``v_width`` (MLA's aliased latent cache) and ``k_scale``/``v_scale``
     (quantized caches) come with later slices of the port and raise.
     """
-    if v_width is not None:
-        raise NotImplementedError("v_width comes with the MLA slice")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "k_scale/v_scale come with the quantized-cache slice")
-    b, sq, h, hdq = q.shape
-    if sq != 1:
-        raise ValueError(f"decode_attention takes one query token, got "
-                         f"Sq={sq}")
-    kvh = k.shape[2]
-    if h % kvh:
-        raise ValueError(f"H={h} not divisible by KVH={kvh}")
-    g = h // kvh
-    qg = q.reshape(b, kvh, g, hdq)
-    lens = torch.as_tensor(cur_len, dtype=torch.int32, device=q.device)
-    lens = lens.expand(b).contiguous() if lens.dim() == 0 else lens
+    refuse_later_slices(v_width, k_scale, v_scale)
+    qg, lens = _pack(q, k.shape[2], cur_len, "decode_attention")
+    b, _, h, _ = q.shape
     if on_card(q, k, v, lens):
         out = decode_attention_cuda(qg.contiguous(), k, v, lens,
                                     ring=ring, softcap=softcap, scale=scale)
@@ -58,4 +61,38 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = decode_attention_ref(qg, k, v, lens, ring=ring,
                                    softcap=softcap, scale=scale,
                                    block_k=block_k)
+    return out.reshape(b, 1, h, out.shape[-1])
+
+
+def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           cur_len: Union[int, torch.Tensor], *,
+                           window: Optional[int] = None,
+                           softcap: Optional[float] = None,
+                           scale: float = 1.0, v_width=None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """One-token decode attention over a *paged* cache.
+
+    q: (B, 1, H, hdq) new-token queries.  k_pool/v_pool:
+    (P, page_size, KVH, hdq/hdv) physical pages shared by all rows,
+    *after* the new token's k/v landed (``paged_cache_update``).
+    page_table: (B, NB) int logical block -> physical page.  cur_len:
+    int or (B,) int tensor.  Paged caches store sliding-window layers
+    unwrapped, so ``window`` is an explicit mask here (no ``ring``).
+    Returns (B, 1, H, hdv) in q.dtype.
+
+    ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized pools) come
+    with later slices of the port and raise.
+    """
+    refuse_later_slices(v_width, k_scale, v_scale)
+    qg, lens = _pack(q, k_pool.shape[2], cur_len, "decode_attention_paged")
+    b, _, h, _ = q.shape
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if on_card(q, k_pool, v_pool, page_table, lens):
+        out = decode_attention_paged_cuda(
+            qg.contiguous(), k_pool, v_pool,
+            page_table.to(torch.int32).contiguous(), lens, **kw)
+    else:
+        out = decode_attention_paged_ref(qg, k_pool, v_pool, page_table,
+                                         lens, **kw)
     return out.reshape(b, 1, h, out.shape[-1])

@@ -1,10 +1,11 @@
-"""Plain PyTorch version of flash-decode.
+"""Plain PyTorch versions of flash-decode, contiguous and paged.
 
-The blockwise twin of the JAX package's ``decode_attention_ref``: it
-sweeps the cache in ``block_k`` blocks and folds each into the same
-(m, l, acc) online-softmax accumulator with the same operations in the
-same order.  It processes every block; the kernel skips blocks past a
-row's fill, which are bit-neutral folds (masked scores are ``NEG_INF``).
+The blockwise twins of the JAX package's ``decode_attention_ref`` and
+``decode_attention_paged_ref``: each sweeps the cache in blocks
+(``block_k`` keys, or one page) and folds each into the same (m, l, acc)
+online-softmax accumulator with the same operations in the same order.
+They process every block; the kernels skip blocks past a row's fill,
+which are bit-neutral folds (masked scores are ``NEG_INF``).
 
 Semantics (matching ``models.attention.decode_self_attention``):
 
@@ -73,6 +74,47 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else:
             valid = cols <= cur
         m, l, acc = fold_block(qs, k[:, lo:lo + bk], v[:, lo:lo + bk],
+                               valid, m, l, acc, softcap,
+                               "bhgd,bkhd->bhgk")
+    return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, page_table: torch.Tensor,
+                               lens: torch.Tensor, *,
+                               window: Optional[int] = None,
+                               softcap: Optional[float] = None,
+                               scale: float = 1.0) -> torch.Tensor:
+    """Blockwise twin of the paged flash-decode, as the JAX package's
+    ``decode_attention_paged_ref``.
+
+    q: (B, KVH, G, hdq); k_pool/v_pool: (P, page_size, KVH, hdq/hdv)
+    physical pages; page_table: (B, NB) int; lens: (B,) int.  Gathers
+    the logical (B, NB * page_size, KVH, *) view through the page table
+    and folds it one page per block.  Paged caches are never wrapped:
+    slot == position, and a sliding window is the explicit mask
+    ``lens[b] - col < window``.  Returns (B, KVH, G, hdv) in q.dtype.
+    """
+    b, kvh, g, _ = q.shape
+    ps = k_pool.shape[1]
+    nb = page_table.shape[1]
+    c = nb * ps
+    pt = page_table.to(device=q.device, dtype=torch.int64)
+    k = k_pool[pt].reshape(b, c, kvh, k_pool.shape[-1])
+    v = v_pool[pt].reshape(b, c, kvh, v_pool.shape[-1])
+    hdv = v.shape[-1]
+    qs = q.float() * scale
+    cur = lens.to(device=q.device, dtype=torch.int64).view(b, 1, 1, 1)
+    m = torch.full((b, kvh, g, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, kvh, g, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kvh, g, hdv), dtype=torch.float32, device=q.device)
+    for lo in range(0, c, ps):
+        cols = torch.arange(lo, lo + ps, device=q.device)
+        valid = cols <= cur
+        if window is not None:
+            valid = valid & (cur - cols < window)
+        m, l, acc = fold_block(qs, k[:, lo:lo + ps], v[:, lo:lo + ps],
                                valid, m, l, acc, softcap,
                                "bhgd,bkhd->bhgk")
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

@@ -1,5 +1,6 @@
-"""Wrapper of the CUDA chunked-prefill kernel
-(``csrc/prefill_attention.cu``)."""
+"""Wrappers of the CUDA chunked-prefill kernel
+(``csrc/prefill_attention.cu``) over a contiguous cache and over page
+pools."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,15 +10,17 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention.kernel import SMEM_LIMIT
 
-# Launches of the kernel since the count was last set to 0.
-launches = 0
+# Launches of each kernel since its count was last set to 0.
+launches = 0            # prefill_attention_cuda
+paged_launches = 0      # prefill_attention_paged_cuda
 
 _ROWS, _TILE = 16, 64     # packed query rows per block, keys per tile
 
 
 def smem_bytes(hd: int, hdv: int) -> int:
+    """Dynamic shared memory of one block, plus its static row table."""
     return 4 * (_ROWS * hd + _TILE * (hd + 1) + _TILE * hdv
-                + _ROWS * _TILE + _ROWS * hdv + 3 * _ROWS)
+                + _ROWS * _TILE + _ROWS * hdv + 3 * _ROWS + _TILE)
 
 
 def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
@@ -74,4 +77,66 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         torch.cuda.current_stream().cuda_stream)
     build.check(err, "prefill_attention")
     launches += 1
+    return out
+
+
+def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
+                                 v_chunk: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 page_table: torch.Tensor, offs: torch.Tensor,
+                                 *, window: Optional[int] = None,
+                                 softcap: Optional[float] = None,
+                                 scale: float = 1.0) -> torch.Tensor:
+    """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv) of
+    q's dtype; k_pool/v_pool: (P, page_size, KVH, hdq/hdv); page_table:
+    (B, NB) int32 with every entry a page of the pools; offs: (B,) int32;
+    all on the card and contiguous.  Returns (B, KVH, T, G, hdv) in
+    q.dtype."""
+    global paged_launches
+    ts = (q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("prefill_attention_paged_cuda takes tensors on the "
+                         "card")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("inputs must be contiguous")
+    if q.dim() != 5 or k_pool.dim() != 4 or v_pool.dim() != 4:
+        raise ValueError("q must be (B, KVH, T, G, hd), the pools "
+                         "(P, page_size, KVH, hd)")
+    b, kvh, t, g, hd = q.shape
+    p, ps = k_pool.shape[:2]
+    hdv = v_pool.shape[-1]
+    if k_chunk.shape != (b, t, kvh, hd) or v_chunk.shape != (b, t, kvh, hdv):
+        raise ValueError(f"chunk k/v {tuple(k_chunk.shape)}/"
+                         f"{tuple(v_chunk.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if k_pool.shape != (p, ps, kvh, hd) or v_pool.shape != (p, ps, kvh, hdv):
+        raise ValueError(f"pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    if not k_chunk.dtype == v_chunk.dtype == q.dtype:
+        raise ValueError("chunk k/v must have q's dtype")
+    if k_pool.dtype != v_pool.dtype:
+        raise ValueError("k_pool and v_pool must share a dtype")
+    if page_table.dtype != torch.int32 or page_table.dim() != 2 \
+            or page_table.shape[0] != b or page_table.shape[1] < 1:
+        raise ValueError(f"page_table must be a ({b}, NB >= 1) int32 tensor")
+    if offs.dtype != torch.int32 or offs.shape != (b,):
+        raise ValueError("offs must be a (B,) int32 tensor")
+    if window is not None and window <= 0:
+        raise ValueError("window must be > 0")
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be > 0")
+    if smem_bytes(hd, hdv) > SMEM_LIMIT:
+        raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
+                         f"a block has")
+    qd, cd = build.dtype_code(q.dtype), build.dtype_code(k_pool.dtype)
+    out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=q.device)
+    err = build.library().pmt_prefill_attention_paged(
+        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        offs.data_ptr(), out.data_ptr(), b, t, page_table.shape[1], ps, kvh,
+        g, hd, hdv, float(scale), int(window or 0), float(softcap or 0.0),
+        qd, cd, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "prefill_attention_paged")
+    paged_launches += 1
     return out

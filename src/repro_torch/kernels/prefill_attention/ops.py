@@ -1,10 +1,11 @@
-"""The chunked-prefill attention op the model's prefill step calls.
+"""The chunked-prefill attention ops the model's prefill steps call.
 
 ``prefill_attention`` takes the model's layouts — q (B, T, H, hd), the
 chunk's own k/v (B, T, KVH, hd) and the (B, C, KVH, hd) caches — packs
 q as (B, KVH, T, G, hd) so each kv head's G query heads share its keys,
 and runs the CUDA kernel for tensors on the card or the plain version
-for tensors on the CPU.
+for tensors on the CPU.  ``prefill_attention_paged`` does the same over
+(P, page_size, KVH, hd) page pools and a page table.
 """
 from __future__ import annotations
 
@@ -12,11 +13,27 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card
+from repro_torch.kernels import on_card, refuse_later_slices
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
-from repro_torch.kernels.prefill_attention.kernel import \
-    prefill_attention_cuda
-from repro_torch.kernels.prefill_attention.ref import prefill_attention_ref
+from repro_torch.kernels.prefill_attention.kernel import (
+    prefill_attention_cuda, prefill_attention_paged_cuda)
+from repro_torch.kernels.prefill_attention.ref import (
+    prefill_attention_paged_ref, prefill_attention_ref)
+
+
+def _pack(q: torch.Tensor, k_chunk: torch.Tensor, kvh: int, offset):
+    """q (B, T, H, hdq) -> (B, KVH, T, G, hdq), and offset as a (B,)
+    int32 tensor on q's device."""
+    b, t, h, hdq = q.shape
+    if k_chunk.shape[1] != t:
+        raise ValueError(f"chunk keys cover {k_chunk.shape[1]} tokens but "
+                         f"the query chunk has {t}")
+    if h % kvh:
+        raise ValueError(f"H={h} not divisible by KVH={kvh}")
+    qg = q.reshape(b, t, kvh, h // kvh, hdq).permute(0, 2, 1, 3, 4)
+    offs = torch.as_tensor(offset, dtype=torch.int32, device=q.device)
+    offs = offs.expand(b).contiguous() if offs.dim() == 0 else offs
+    return qg, offs
 
 
 def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
@@ -38,27 +55,14 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
     ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized caches)
     come with later slices of the port and raise.
     """
-    if v_width is not None:
-        raise NotImplementedError("v_width comes with the MLA slice")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "k_scale/v_scale come with the quantized-cache slice")
-    b, t, h, hdq = q.shape
-    if k_chunk.shape[1] != t:
-        raise ValueError(f"chunk keys cover {k_chunk.shape[1]} tokens but "
-                         f"the query chunk has {t}")
-    kvh = k_cache.shape[2]
-    if h % kvh:
-        raise ValueError(f"H={h} not divisible by KVH={kvh}")
+    refuse_later_slices(v_width, k_scale, v_scale)
     if ring and window is None:
         raise ValueError("ring caches need an explicit window")
     if window is not None and not ring:
         raise ValueError("window only applies to ring caches here "
                          "(full-cache layers carry no window)")
-    g = h // kvh
-    qg = q.reshape(b, t, kvh, g, hdq).permute(0, 2, 1, 3, 4)
-    offs = torch.as_tensor(offset, dtype=torch.int32, device=q.device)
-    offs = offs.expand(b).contiguous() if offs.dim() == 0 else offs
+    qg, offs = _pack(q, k_chunk, k_cache.shape[2], offset)
+    b, t, h, _ = q.shape
     kw = dict(ring=ring, window=window, softcap=softcap, scale=scale)
     if on_card(q, k_chunk, v_chunk, k_cache, v_cache, offs):
         out = prefill_attention_cuda(qg.contiguous(), k_chunk.contiguous(),
@@ -67,4 +71,39 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
     else:
         out = prefill_attention_ref(qg, k_chunk, v_chunk, k_cache, v_cache,
                                     offs, block_k=block_k, **kw)
+    return out.permute(0, 2, 1, 3, 4).reshape(b, t, h, out.shape[-1])
+
+
+def prefill_attention_paged(q, k_chunk, v_chunk, k_pool, v_pool,
+                            page_table: torch.Tensor,
+                            offset: Union[int, torch.Tensor], *,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            scale: float = 1.0, v_width=None, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
+    """Chunked-prefill attention over a *paged* cache prefix.
+
+    q: (B, T, H, hdq) chunk queries at positions ``offset[b] + i``.
+    k_chunk/v_chunk: (B, T, KVH, hdq/hdv), not yet in the pools.
+    k_pool/v_pool: (P, page_size, KVH, hdq/hdv) physical pages holding
+    positions ``< offset[b]`` of every row, addressed through page_table
+    (B, NB) int.  offset: int or (B,) int tensor.  Paged caches store
+    sliding-window layers unwrapped, so ``window`` is an explicit mask
+    (no ``ring``).  Returns (B, T, H, hdv) in q.dtype.
+
+    ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized pools) come
+    with later slices of the port and raise.
+    """
+    refuse_later_slices(v_width, k_scale, v_scale)
+    qg, offs = _pack(q, k_chunk, k_pool.shape[2], offset)
+    b, t, h, _ = q.shape
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    if on_card(q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs):
+        out = prefill_attention_paged_cuda(
+            qg.contiguous(), k_chunk.contiguous(), v_chunk.contiguous(),
+            k_pool, v_pool, page_table.to(torch.int32).contiguous(), offs,
+            **kw)
+    else:
+        out = prefill_attention_paged_ref(qg, k_chunk, v_chunk, k_pool,
+                                          v_pool, page_table, offs, **kw)
     return out.permute(0, 2, 1, 3, 4).reshape(b, t, h, out.shape[-1])

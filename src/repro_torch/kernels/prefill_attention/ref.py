@@ -1,16 +1,20 @@
-"""Plain PyTorch version of chunked-prefill attention.
+"""Plain PyTorch versions of chunked-prefill attention, contiguous and
+paged.
 
 The blockwise twin of the JAX package's ``prefill_attention_ref``: it
 sweeps the cache prefix block by block, then the chunk's own keys block
 by block, folding every block into one (m, l, acc) online softmax with
-the same operations in the same order.
+the same operations in the same order.  ``prefill_attention_paged_ref``
+gathers a paged cache and runs it with blocks of one page, as the JAX
+package's ``prefill_attention_paged_ref`` does.
 
 Semantics (matching the serve engine's chunked admission):
 
   * Query ``i`` of row ``b`` sits at absolute position ``offs[b] + i``.
   * ``k_cache``/``v_cache`` hold positions ``< offs[b]`` only.
-      - ``ring=False``: slot ``s`` holds position ``s``; attendable iff
-        ``s < offs[b]`` (and, with ``window``, ``pos_q - s < window``).
+      - ``ring=False`` (a full or a paged cache): slot ``s`` holds
+        position ``s``; attendable iff ``s < offs[b]`` (and, with
+        ``window``, ``pos_q - s < window``).
       - ``ring=True`` (sliding-window ring of size ``C``): slot ``s``
         holds position ``p = (offs[b]-1) - ((offs[b]-1-s) mod C)``;
         attendable iff ``p >= 0`` and ``pos_q - p < window``.
@@ -76,3 +80,31 @@ def prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache,
                                v_chunk[:, lo:lo + bk_t], valid, m, l, acc,
                                softcap, _SPEC)
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+
+
+def prefill_attention_paged_ref(q, k_chunk, v_chunk, k_pool, v_pool,
+                                page_table: torch.Tensor,
+                                offs: torch.Tensor, *,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                scale: float = 1.0) -> torch.Tensor:
+    """Blockwise twin of the paged chunked-prefill, as the JAX package's
+    ``prefill_attention_paged_ref``.
+
+    q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv);
+    k_pool/v_pool: (P, page_size, KVH, hdq/hdv) physical pages;
+    page_table: (B, NB) int; offs: (B,) int chunk start positions.
+    Gathers the logical cache through the page table and runs
+    ``prefill_attention_ref`` on it unwrapped (``ring=False``, the window
+    an explicit mask) with blocks of one page.  Returns
+    (B, KVH, T, G, hdv) in q.dtype.
+    """
+    b, kvh = q.shape[:2]
+    ps = k_pool.shape[1]
+    nb = page_table.shape[1]
+    pt = page_table.to(device=q.device, dtype=torch.int64)
+    k_cache = k_pool[pt].reshape(b, nb * ps, kvh, k_pool.shape[-1])
+    v_cache = v_pool[pt].reshape(b, nb * ps, kvh, v_pool.shape[-1])
+    return prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache, offs,
+                                 ring=False, window=window, softcap=softcap,
+                                 scale=scale, block_k=ps)

@@ -4,7 +4,9 @@ weights.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       [--reduced] [--requests 8] [--batch 4] [--max-new 16] \
-      [--max-len 128] [--prefill-chunk 32] [--seed 0] [--device cuda]
+      [--max-len 128] [--prefill-chunk 32] [--seed 0] [--device cuda] \
+      [--kv-layout paged [--kv-page-size 16] [--kv-pool-blocks N] \
+       [--no-prefix-cache]]
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are random
 token ids with lengths spread over [1, max_len / 2], made from
@@ -14,7 +16,9 @@ cpu``): the engine opens an aggregate region per ``generate()`` and a
 flat ``serve/req<N>`` span per request with ``/prefill`` and ``/decode``
 phase spans.  Prints the generated tokens per second, the aggregate
 joules per token, the costliest request's joules per token with its
-prefill/decode split, and each request's token count.
+prefill/decode split, and each request's token count.  With
+``--kv-layout paged`` it also prints the page pool's use and the prefix
+cache's hits (the ``kv pool:`` line).
 """
 from __future__ import annotations
 
@@ -74,6 +78,21 @@ def energy_report(records, n_tokens: int, backends) -> list:
     return lines
 
 
+def kv_pool_line(kc: dict) -> str:
+    """The JAX launcher's ``kv pool:`` line from ``stats()["kv_cache"]``
+    of a paged engine."""
+    line = (f"kv pool: {kc['pages_used']}/{kc['pages_total']} pages held "
+            f"({kc['pages_free']} free, {kc['page_size']} tokens/page, "
+            f"{kc['pool_wait_events']} pool waits)")
+    if kc["prefix_cache"]:
+        line += (f"; prefix cache: {kc['prefix_hits']}/"
+                 f"{kc['prefix_lookups']} hits, "
+                 f"{kc['prefix_hit_tokens']} prompt tokens reused, "
+                 f"{kc['prefix_evictions']} evictions, "
+                 f"~{kc['saved_prefill_joules']:.2f} J prefill saved")
+    return line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
@@ -87,6 +106,26 @@ def main(argv=None):
                     help="tokens per chunked-prefill admission slice; "
                          "default resolves PMT_PREFILL_CHUNK then "
                          "cfg.prefill_chunk")
+    ap.add_argument("--kv-layout", default="contiguous",
+                    choices=["contiguous", "paged"],
+                    help="KV cache layout: paged = page pools + per-slot "
+                         "page tables + radix prefix reuse; contiguous = "
+                         "the per-slot caches")
+    ap.add_argument("--kv-page-size", type=int, default=None,
+                    help="tokens per KV page (paged layout); default "
+                         "cfg.kv_page_size")
+    ap.add_argument("--kv-pool-blocks", type=int, default=None,
+                    help="usable pages in the shared pool (paged layout); "
+                         "default batch * ceil(max_len / page_size). "
+                         "Smaller pools trade admission waits for cache "
+                         "memory; prefix-tree pages are evicted LRU "
+                         "under pressure")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="radix-tree prefix reuse across requests (paged "
+                         "layout; default on)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
@@ -108,6 +147,10 @@ def main(argv=None):
         engine = ServeEngine(cfg, params, batch_size=args.batch,
                              max_len=args.max_len,
                              prefill_chunk=args.prefill_chunk,
+                             kv_layout=args.kv_layout,
+                             kv_page_size=args.kv_page_size,
+                             kv_pool_pages=args.kv_pool_blocks,
+                             prefix_cache=args.prefix_cache,
                              device=device, session=session)
         t0 = time.perf_counter()
         done = engine.generate(requests)
@@ -125,6 +168,8 @@ def main(argv=None):
           f"{len(engine.stall_events)} chunks")
     for line in energy_report(energy.records, n, backends):
         print(line)
+    if args.kv_layout == "paged":
+        print(kv_pool_line(engine.stats()["kv_cache"]))
     for r in done:
         print(f"  req{r.id}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
               f"({r.finish_reason})")

@@ -1,13 +1,15 @@
 """GQA attention for the serve path: projections, KV caches, decode and
-chunked-prefill self-attention.
+chunked-prefill self-attention, over contiguous caches or page pools.
 
 PyTorch counterparts of the JAX package's ``models/attention.py`` for the
 dense GQA layer.  Weights: wq (d, H, hd), wk/wv (d, KVH, hd),
 wo (H, hd, d).  Caches: {"k", "v"} of (B, C, KVH, hd), a ring buffer of
-size ``window`` for sliding-window layers.
+size ``window`` for sliding-window layers; or, paged, {"k", "v"} pools
+of (P, page_size, KVH, hd) shared by every slot through (B, NB) page
+tables, sliding-window layers stored unwrapped.
 
-Caches are updated **in place** — the decode scatter
-(``kernels/cache_update``) and the prefill chunk write both write into
+Caches and pools are updated **in place** — the decode scatters
+(``kernels/cache_update``) and the prefill chunk writes all write into
 the tensors they are given, where the JAX package returned new buffers
 and donated the old ones.  Decode attention always takes the
 length-aware flash path (``kernels/decode_attention``); chunk attention
@@ -22,9 +24,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cache_update.ops import cache_update
-from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.prefill_attention.ops import prefill_attention
+from repro_torch.kernels.cache_update.ops import (cache_update,
+                                                  paged_cache_update)
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      decode_attention_paged)
+from repro_torch.kernels.prefill_attention.ops import (
+    prefill_attention, prefill_attention_paged)
 from repro_torch.models import layers
 
 
@@ -181,4 +186,83 @@ def prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
                           softcap=cfg.attn_softcap, scale=attn_scale(cfg))
     chunk_kv_write(cache["k"], k_new, offset, valid_len, ring=ring)
     chunk_kv_write(cache["v"], v_new, offset, valid_len, ring=ring)
+    return output_proj(p, o)
+
+
+# -- paged KV cache (page pools + page tables) ---------------------------------
+
+def init_paged_kv_pools(cfg: ModelConfig, num_pages: int, page_size: int,
+                        dtype: torch.dtype = torch.bfloat16,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """Physical page pools for one attention layer: (P, page_size, KVH,
+    hd) k and v, zero-filled, on the card unless ``device="cpu"``.
+
+    Every layer's pool shares ONE page-id space: a request's (NB,) page
+    table row addresses the same physical page in every leaf.  Page 0 is
+    the scratch page (masked writes may land there; its content is
+    undefined).  Sliding-window layers store positions unwrapped
+    (slot == position), the window an explicit attention mask, so prefix
+    pages are position-stable and shareable across requests.
+    """
+    _no_quant(cfg)
+    device = resolve_device(device)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
+                                cache: Dict[str, torch.Tensor],
+                                cur_len: torch.Tensor,
+                                page_table: torch.Tensor, rope_tables, *,
+                                window: Optional[int] = None
+                                ) -> torch.Tensor:
+    """One-token decode against paged pools, which are updated in place.
+
+    x: (B, 1, d).  cur_len: (B,) int32 per-row positions.  page_table:
+    (B, NB) int32 — rows the scheduler has masked to 0 (mid-prefill or
+    dead slots) read and write only the scratch page, so their garbage
+    decode tokens cannot touch a live request's pages.  The new k/v land
+    at ``cur_len`` through ``paged_cache_update`` (clamped to the table's
+    last slot), then ``decode_attention_paged`` reads each row's pages.
+    Returns out (B, 1, d).
+    """
+    _no_quant(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
+    ones = torch.ones_like(cur_len)
+    paged_cache_update(cache["k"], k_new, page_table, cur_len, ones)
+    paged_cache_update(cache["v"], v_new, page_table, cur_len, ones)
+    o = decode_attention_paged(q, cache["k"], cache["v"], page_table,
+                               cur_len, window=window,
+                               softcap=cfg.attn_softcap,
+                               scale=attn_scale(cfg))
+    return output_proj(p, o)
+
+
+def paged_prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
+                                       cache: Dict[str, torch.Tensor],
+                                       offs: torch.Tensor,
+                                       valid_len: torch.Tensor,
+                                       page_table: torch.Tensor,
+                                       rope_tables, *,
+                                       window: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """One chunk of chunked prefill through one attention layer, paged.
+
+    x: (B, T, d) at positions ``offs[b] + i``; the pools hold positions
+    ``< offs[b]`` of every row through page_table (B, NB).  ``offs`` and
+    ``valid_len`` are (B,) int32 — rows with ``valid_len == 0`` (slots
+    decoding, or idle, during a batched admission dispatch) give garbage
+    outputs the caller discards and write nothing.  The chunk attends
+    first, then its KV is written into the pools in place.  Returns out
+    (B, T, d).
+    """
+    _no_quant(cfg)
+    q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
+    o = prefill_attention_paged(q, k_new, v_new, cache["k"], cache["v"],
+                                page_table, offs, window=window,
+                                softcap=cfg.attn_softcap,
+                                scale=attn_scale(cfg))
+    paged_cache_update(cache["k"], k_new, page_table, offs, valid_len)
+    paged_cache_update(cache["v"], v_new, page_table, offs, valid_len)
     return output_proj(p, o)

@@ -1,4 +1,5 @@
-"""Per-layer block assembly: the attention + MLP block (kind "A").
+"""Per-layer block assembly: the attention + MLP block (kind "A"), over
+contiguous caches or page pools.
 
 PyTorch counterparts of the kind-"A" branches of the JAX package's
 ``models/blocks.py``.  The other kinds (mamba "M", xLSTM "m"/"s",
@@ -39,6 +40,20 @@ def check_supported(cfg: ModelConfig) -> None:
         if hit:
             raise NotImplementedError(f"{cfg.name}: {name} is not ported "
                                       f"yet; it comes with {where}")
+
+
+def layer_kind(cfg: ModelConfig, idx: int) -> str:
+    """The block kind of decoder layer ``idx``, as the JAX package names
+    it: "A" attention, "X" cross-attention decoder, a mamba "M" or xLSTM
+    "m"/"s" letter of a hybrid or state arch's pattern."""
+    if cfg.is_encoder_decoder:
+        return "X"
+    if cfg.family == "ssm":
+        pat = cfg.xlstm.pattern
+        return pat[idx % len(pat)]
+    if cfg.family == "hybrid":
+        return cfg.hybrid_pattern[idx % len(cfg.hybrid_pattern)]
+    return "A"
 
 
 def layer_window(cfg: ModelConfig, idx: int) -> Optional[int]:
@@ -102,5 +117,46 @@ def block_prefill_chunk(cfg: ModelConfig, p, x: torch.Tensor, cache,
     h = layers.apply_norm(cfg, p["norm_1"], x)
     out = attn.prefill_chunk_self_attention(
         cfg, p["mixer"], h, cache, offset, offs, valid_len, rope_tables,
+        window=layer_window(cfg, idx))
+    return _tail(cfg, p, x, out)
+
+
+# -- paged decode / prefill (page pools + page tables) --------------------------
+
+def init_paged_block_cache(cfg: ModelConfig, idx: int, num_pages: int,
+                           page_size: int,
+                           dtype: torch.dtype = torch.bfloat16,
+                           device=None) -> Dict[str, torch.Tensor]:
+    """Layer ``idx``'s page pools, on the card unless ``device="cpu"``.
+    Only attention layers (kind "A") page: state blocks carry O(1)
+    recurrent state and encoder-decoder blocks a one-shot cross cache."""
+    if layer_kind(cfg, idx) != "A":
+        raise ValueError(f"layer {idx} (kind {layer_kind(cfg, idx)!r}) "
+                         "has no paged cache layout")
+    return attn.init_paged_kv_pools(cfg, num_pages, page_size, dtype=dtype,
+                                    device=device)
+
+
+def block_paged_decode(cfg: ModelConfig, p, x: torch.Tensor, cache,
+                       cur_len: torch.Tensor, page_table: torch.Tensor,
+                       idx: int, rope_tables):
+    """One-token decode through one block against paged pools, which are
+    updated in place.  x: (B, 1, d); cur_len: (B,); page_table: (B, NB)."""
+    h = layers.apply_norm(cfg, p["norm_1"], x)
+    out = attn.paged_decode_self_attention(
+        cfg, p["mixer"], h, cache, cur_len, page_table, rope_tables,
+        window=layer_window(cfg, idx))
+    return _tail(cfg, p, x, out)
+
+
+def block_paged_prefill_chunk(cfg: ModelConfig, p, x: torch.Tensor, cache,
+                              offs: torch.Tensor, valid_len: torch.Tensor,
+                              page_table: torch.Tensor, idx: int,
+                              rope_tables):
+    """One prefill chunk through one block against paged pools: x
+    (B, T, d); offs/valid_len: (B,); page_table: (B, NB)."""
+    h = layers.apply_norm(cfg, p["norm_1"], x)
+    out = attn.paged_prefill_chunk_self_attention(
+        cfg, p["mixer"], h, cache, offs, valid_len, page_table, rope_tables,
         window=layer_window(cfg, idx))
     return _tail(cfg, p, x, out)

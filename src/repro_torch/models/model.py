@@ -14,6 +14,9 @@ Entry points:
                                              weight matrices in cfg.dtype
   init_caches(cfg, batch, max_len, ...)   -> decode caches
   make_serve_fns(cfg)                     -> ServeFns(decode, prefill_chunk)
+  init_paged_caches(cfg, pages, ps, ...)  -> page pools
+  make_paged_serve_fns(cfg)               -> PagedServeFns(decode,
+                                                           prefill_chunk)
 
 The whole-prompt ``prefill`` of the JAX package feeds only the blocking
 ``prefill_chunk=0`` admission baseline and comes with a later slice.
@@ -21,6 +24,7 @@ The whole-prompt ``prefill`` of the JAX package feeds only the blocking
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Union
 
 import torch
@@ -111,6 +115,17 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_len: int,
 
 # -- serve steps -----------------------------------------------------------------------
 
+def _run_units(lay: UnitLayout, params, caches, x, step):
+    """Run ``step(block_params, x, block_cache, layer_idx)`` over every
+    layer, unit by unit; each block's cache is updated in place."""
+    for u in range(lay.n_units):
+        up = unit_slice(params["units"], u)
+        uc = unit_slice(caches["units"], u)
+        for r in range(lay.unit_len):
+            x = step(up[f"r{r}"], x, uc[f"r{r}"], u * lay.unit_len + r)
+    return x
+
+
 class ServeFns(NamedTuple):
     """The two serve steps of the continuous-batching engine."""
 
@@ -136,15 +151,7 @@ def make_serve_fns(cfg: ModelConfig) -> ServeFns:
     ``last_idx`` marks the chunk's last real token; the positions past
     it are right-padding whose outputs are discarded.
     """
-    lay = unit_layout(cfg)
-
-    def run_units(params, caches, x, step):
-        for u in range(lay.n_units):
-            up = unit_slice(params["units"], u)
-            uc = unit_slice(caches["units"], u)
-            for r in range(lay.unit_len):
-                x = step(up[f"r{r}"], x, uc[f"r{r}"], u * lay.unit_len + r)
-        return x
+    run_units = functools.partial(_run_units, unit_layout(cfg))
 
     def decode_step(params, caches, tokens: torch.Tensor,
                     cur_len: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -182,3 +189,107 @@ def make_serve_fns(cfg: ModelConfig) -> ServeFns:
         return layers.logits_from_hidden(cfg, params["embed"], x_last)[:, 0]
 
     return ServeFns(decode_step, prefill_chunk)
+
+
+# -- serve: paged caches -------------------------------------------------------------
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """Whether this arch can serve from paged KV pools: every layer must
+    be kind "A".  State archs carry O(1) recurrent state — nothing to
+    page — and encoder-decoder archs a one-shot cross cache; such archs
+    keep the contiguous layout."""
+    if cfg.is_encoder_decoder or cfg.pos_embed == "sinusoidal":
+        return False
+    return all(blocks.layer_kind(cfg, i) == "A"
+               for i in range(cfg.num_layers))
+
+
+def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
+                      dtype: torch.dtype = torch.bfloat16, device=None):
+    """Page pools with :func:`init_caches`'s tree shape: each leaf
+    (n_units, P, page_size, KVH, hd) instead of (n_units, B, C, KVH, hd),
+    zero-filled, on the card unless ``device="cpu"``.  Every leaf shares
+    one page-id space; page 0 is scratch."""
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: arch does not support paged KV "
+                         "(needs all-attention layers, no encoder)")
+    dev = resolve_device(device)
+    lay = unit_layout(cfg)
+    per_unit = [{f"r{r}": blocks.init_paged_block_cache(
+        cfg, r, num_pages, page_size, dtype, dev)
+        for r in range(lay.unit_len)} for _ in range(lay.n_units)]
+    return {"units": _stack(per_unit)}
+
+
+class PagedServeFns(NamedTuple):
+    """The two paged serve steps (see :func:`make_paged_serve_fns`)."""
+
+    decode: Any
+    prefill_chunk: Any
+
+
+def make_paged_serve_fns(cfg: ModelConfig) -> PagedServeFns:
+    """Returns ``PagedServeFns(decode, prefill_chunk)``.
+
+    decode(params, caches, tokens (B, 1), cur_len (B,), page_table)
+        -> logits (B, V)
+    prefill_chunk(params, caches, tokens (B, T), offset (B,),
+                  last_idx (B,), page_table) -> logits (B, V)
+
+    ``caches`` are :func:`init_paged_caches` pools, updated in place;
+    ``page_table`` is (B, NB) int32 mapping each slot's logical blocks to
+    physical pages (rows the scheduler masks to 0 touch only the scratch
+    page).  Paged serving is always continuous, so ``cur_len`` and
+    ``offset`` are per-row vectors, and — unlike the contiguous
+    ``prefill_chunk`` — ``last_idx`` is a (B,) vector too: one (B, T)
+    dispatch advances several requests' chunks, each row at its own
+    offset with its own fill.  Rows with ``last_idx == -1`` are
+    passengers (idle or decoding): their valid length is 0, so they
+    write nothing, and their logits row is garbage the caller discards.
+    """
+    if not supports_paged(cfg):
+        raise ValueError(f"{cfg.name}: arch does not support paged KV "
+                         "(needs all-attention layers, no encoder)")
+    run_units = functools.partial(_run_units, unit_layout(cfg))
+
+    def vector(x, b: int, dev) -> torch.Tensor:
+        t = torch.as_tensor(x, dtype=torch.int32, device=dev)
+        return (t.expand(b) if t.dim() == 0 else t).contiguous()
+
+    def decode(params, caches, tokens: torch.Tensor, cur_len,
+               page_table: torch.Tensor) -> torch.Tensor:
+        b, dev = tokens.shape[0], tokens.device
+        cur = vector(cur_len, b, dev)
+        pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
+        tables = layers.rope_tables(cur[:, None], cfg.head_dim,
+                                    cfg.rope_theta)
+        x = layers.embed_tokens(cfg, params["embed"], tokens)
+        x = run_units(params, caches, x, lambda p, xx, c, idx:
+                      blocks.block_paged_decode(cfg, p, xx, c, cur, pt, idx,
+                                                tables))
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        return layers.logits_from_hidden(cfg, params["embed"], x)[:, 0]
+
+    def prefill_chunk(params, caches, tokens: torch.Tensor, offset,
+                      last_idx, page_table: torch.Tensor) -> torch.Tensor:
+        b, t = tokens.shape
+        dev = tokens.device
+        offs = vector(offset, b, dev)
+        last = vector(last_idx, b, dev)
+        valid_len = torch.clamp(last + 1, min=0)
+        pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
+        positions = offs[:, None] + torch.arange(t, device=dev,
+                                                 dtype=torch.int32)
+        tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x = layers.embed_tokens(cfg, params["embed"], tokens)
+        x = run_units(params, caches, x, lambda p, xx, c, idx:
+                      blocks.block_paged_prefill_chunk(cfg, p, xx, c, offs,
+                                                       valid_len, pt, idx,
+                                                       tables))
+        x = layers.apply_norm(cfg, params["final_norm"], x)
+        # each row's last real token (passengers read position 0)
+        idx = torch.clamp(last, 0, t - 1).long()
+        x_last = x[torch.arange(b, device=dev), idx][:, None]   # (B, 1, d)
+        return layers.logits_from_hidden(cfg, params["embed"], x_last)[:, 0]
+
+    return PagedServeFns(decode, prefill_chunk)

@@ -31,10 +31,19 @@ one ``serve/batch<N>`` region counting the generated tokens.  Spans
 open through a duck-typed ``session.region(label, tokens=,
 nested=False)`` or ``monitor.measure_request`` / ``measure_step``.
 
+``kv_layout="paged"`` serves from page pools instead (``_run_paged``):
+one (P, page_size, KVH, hd) pool per cache leaf, allocated once by the
+constructor and kept across ``generate()`` calls, per-slot page tables,
+a radix prefix tree that maps retired prompts' pages copy-free into new
+requests (``serve/paging.py``), every pending admission's chunk batched
+into one (B, chunk) dispatch, and a masked page table for decode.  The
+three paged kernels carry it: ``paged_cache_update``,
+``decode_attention_paged``, ``prefill_attention_paged``.
+
 Still to come, each with its slice (see ROADMAP.md), and refused here:
 sampling (``greedy=False``), the blocking ``prefill_chunk=0`` baseline,
-``mode="wave"``, ``kv_layout="paged"``, preemption and swap, quantized
-``cache_dtype``, and the power governor.
+``mode="wave"``, preemption and swap, quantized ``cache_dtype``, and the
+power governor.
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
 from repro_torch.models.blocks import layer_window
+from repro_torch.serve.paging import PagePool, RadixPrefixCache
 
 
 def stall_p95(events) -> float:
@@ -111,10 +121,209 @@ class _Prefill:
     offset: int = 0
 
 
+@dataclasses.dataclass
+class _PagedPrefill:
+    """An admission mid-chunked-prefill on the paged path: its slot and
+    pages are reserved; chunks write straight into the shared pools
+    through the slot's page-table row.  ``offset`` starts at
+    ``matched_tokens`` when the radix prefix tree mapped cached pages
+    in: prefill resumes from the match."""
+
+    req: Request
+    slot: int
+    toks: np.ndarray                # (plen + chunk,) right-zero-padded
+    plen: int
+    offset: int
+    matched_tokens: int = 0
+
+
 def _leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _leaves(tree[k])]
     return [tree]
+
+
+class _Slots:
+    """One ``generate()`` call's slot state, shared by both layouts'
+    loops: the waiting queue, pending prefills, live decode rows, the
+    deadlines, and each slot's ``serve/req<N>`` span with the
+    ``/prefill`` and ``/decode`` spans that tile it.
+
+    ``release(j, r, retired)`` is the layout's hook for slot j giving up
+    request ``r``: ``retired`` is True when the request retires after
+    decoding, False when it is dropped mid-prefill (deadline) or by an
+    exception."""
+
+    def __init__(self, eng: "ServeEngine", requests: List[Request],
+                 release=None):
+        b = eng.batch
+        self.eng, self.b = eng, b
+        self._release = release or (lambda j, r, retired: None)
+        self.waiting = list(requests)
+        self.prefills: Deque[Any] = collections.deque()
+        self.reserved = [False] * b             # slot held by a prefill
+        self.active: List[Optional[Request]] = [None] * b
+        self.remaining = [0] * b
+        self.tokens = np.zeros((b, 1), np.int64)
+        self.pos = np.zeros((b,), np.int32)
+        self.req_ctxs: List[Any] = [None] * b
+        self.pf_ctxs: List[Any] = [None] * b
+        self.dec_ctxs: List[Any] = [None] * b
+        self.deadlines = {id(r): time.monotonic() + r.deadline_s
+                          for r in requests if r.deadline_s is not None}
+
+    def busy(self) -> bool:
+        return bool(self.waiting or self.prefills or self.live())
+
+    def free(self, j: int) -> bool:
+        return self.active[j] is None and not self.reserved[j]
+
+    def live(self) -> List[int]:
+        return [j for j in range(self.b) if self.active[j] is not None]
+
+    def _open(self, ctxs: List[Any], j: int, rid: int, tokens: int,
+              phase: Optional[str] = None) -> None:
+        ctxs[j] = self.eng._request_ctx(rid, tokens=tokens, phase=phase)
+        ctxs[j].__enter__()
+
+    @staticmethod
+    def _close(ctxs: List[Any], j: int) -> None:
+        if ctxs[j] is not None:
+            ctxs[j].__exit__(None, None, None)
+            ctxs[j] = None
+
+    def admit(self, j: int, st, prefill_tokens: int) -> None:
+        """``st`` prefills ``waiting[0]`` in slot j.  The slot is reserved
+        before anything here can raise, so ``close_all`` releases what
+        the layout committed to it."""
+        self.reserved[j] = True
+        r = self.eng._admit(self.waiting.pop(0))
+        self._open(self.req_ctxs, j, r.id, r.max_new_tokens)
+        self._open(self.pf_ctxs, j, r.id, prefill_tokens, phase="prefill")
+        self.prefills.append(st)
+
+    def go_live(self, st, first: int, next_pos: int) -> None:
+        """``st`` finished prefill with ``first`` generated: its slot
+        becomes a decode row.  The prefill span closes and the decode
+        span opens back to back, so the two tile the request span."""
+        j, r = st.slot, st.req
+        self.prefills.remove(st)
+        self.reserved[j] = False
+        self._close(self.pf_ctxs, j)
+        self._open(self.dec_ctxs, j, r.id, r.max_new_tokens, phase="decode")
+        self.tokens[j, 0] = first
+        self.pos[j] = next_pos
+        self.remaining[j] = r.max_new_tokens - 1
+        self.active[j] = r
+        r.out.append(first)
+        if self.remaining[j] == 0:
+            self.retire(j)
+
+    def retire(self, j: int, reason: str = "length") -> None:
+        # The caller already fenced this slot's last token.
+        r = self.active[j]
+        r.finish_reason = reason
+        self._release(j, r, True)
+        self._close(self.dec_ctxs, j)
+        self._close(self.req_ctxs, j)
+        self.active[j] = None
+
+    def sweep_deadlines(self) -> None:
+        """Retire every request past its deadline — waiting, mid-prefill
+        (free its slot), or mid-decode (keep the tokens generated so
+        far)."""
+        if not self.deadlines:
+            return
+        now = time.monotonic()
+
+        def expired(r: Request) -> bool:
+            dl = self.deadlines.get(id(r))
+            return dl is not None and now > dl
+
+        kept = []
+        for r in self.waiting:
+            if expired(r):
+                r.finish_reason = "timeout"
+                self.eng._timeouts += 1
+            else:
+                kept.append(r)
+        self.waiting[:] = kept
+        for st in [st for st in self.prefills if expired(st.req)]:
+            self.prefills.remove(st)
+            self.reserved[st.slot] = False
+            self._release(st.slot, st.req, False)
+            self._close(self.pf_ctxs, st.slot)
+            self._close(self.req_ctxs, st.slot)
+            st.req.finish_reason = "timeout"
+            self.eng._timeouts += 1
+        for j in self.live():
+            if expired(self.active[j]):
+                self.retire(j, reason="timeout")
+                self.eng._timeouts += 1
+
+    def update_gauges(self) -> None:
+        eng, chunk = self.eng, self.eng.prefill_chunk
+        eng.queue_depth = len(self.waiting)
+        eng.live_slots = len(self.live()) + sum(self.reserved)
+        eng.pending_prefill_chunks = sum(
+            math.ceil(max(0, st.plen - st.offset) / chunk)
+            for st in self.prefills)
+
+    def decode(self, live: List[int], step) -> None:
+        """Advance the live rows by a burst of decode steps on the device
+        (``step(tokens, pos)`` gives the logits), read every token back
+        at once, and retire the rows that are done.
+
+        Retirement is deterministic (exactly ``max_new_tokens`` per
+        request), so with no admission work pending the burst runs until
+        the next slot retires: one host sync per retirement, not per
+        token.  While prefill chunks are pending, decode advances one
+        step per chunk.  Rows not in ``live`` decode garbage that only
+        their own dead cache rows (contiguous) or the scratch page
+        (paged) receive."""
+        steps = 1 if self.prefills \
+            else min(self.remaining[j] for j in live)
+        if steps > 1 and self.deadlines \
+                and any(id(self.active[j]) in self.deadlines for j in live):
+            # a deadline'd request must pass the sweep between bursts:
+            # bound the device-side run.
+            steps = min(steps, 8)
+        dev = self.eng.device
+        tok_dev = torch.as_tensor(self.tokens, device=dev)
+        pos_dev = torch.as_tensor(self.pos, device=dev)
+        outs = []
+        for _ in range(steps):
+            tok_dev = step(tok_dev, pos_dev).argmax(dim=-1, keepdim=True)
+            outs.append(tok_dev)
+            pos_dev = pos_dev + 1
+        gen = torch.cat(outs, dim=1).cpu().numpy()
+        # the host read waited for every step, so spans closed below are
+        # fenced.
+        for j in live:
+            r = self.active[j]
+            r.out.extend(gen[j].tolist())
+            self.tokens[j, 0] = gen[j, -1]
+            self.pos[j] += steps
+            self.remaining[j] -= steps
+            if self.remaining[j] == 0:
+                self.retire(j)
+
+    def close_all(self) -> None:
+        """On the way out, exception or not: release what the layout
+        still holds for a slot and close every open span (an open span
+        pins the shared session's sampler)."""
+        for j in range(self.b):
+            if self.active[j] is not None or self.reserved[j]:
+                self._release(j, self.active[j], False)
+        self.prefills.clear()
+        self.waiting.clear()
+        self.reserved[:] = [False] * self.b
+        self.active[:] = [None] * self.b
+        self.update_gauges()
+        for j in range(self.b):
+            self._close(self.pf_ctxs, j)
+            self._close(self.dec_ctxs, j)
+            self._close(self.req_ctxs, j)
 
 
 class ServeEngine:
@@ -135,9 +344,20 @@ class ServeEngine:
       cache_dtype: KV storage dtype: torch.bfloat16 or torch.float32, or
         its name (the kernels take those two).
       device: where the engine runs; the card unless "cpu" is asked for.
-      mode, kv_layout, governor, preempt, swap_store, greedy: accepted
-        at their defaults only; other values belong to later slices and
-        raise.
+      kv_layout: "contiguous" (default) keeps per-slot (B, max_len, ...)
+        caches; "paged" serves from one page pool per cache leaf with
+        per-slot page tables: pages are allocated at admission (after a
+        radix prefix-tree match maps any cached prompt prefix in
+        copy-free) and recycled at retirement, so the cache budget is
+        the pool.  Needs chunked prefill and an all-attention arch.
+      kv_page_size: tokens per page (default ``cfg.kv_page_size``).
+      kv_pool_pages: usable pool capacity in pages (default
+        ``batch_size * ceil(max_len / page_size)``); smaller pools make
+        admissions wait for pages.
+      prefix_cache: keep retired requests' full pages in a radix tree
+        for copy-free prefix reuse (paged layout).
+      mode, governor, preempt, swap_store, greedy: accepted at their
+        defaults only; other values belong to later slices and raise.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
@@ -145,13 +365,23 @@ class ServeEngine:
                  mode: str = "continuous",
                  prefill_chunk: Optional[int] = None,
                  governor=None, kv_layout: str = "contiguous",
+                 kv_page_size: Optional[int] = None,
+                 kv_pool_pages: Optional[int] = None,
+                 prefix_cache: bool = True,
                  preempt: bool = False, swap_store=None,
                  greedy: bool = True,
                  cache_dtype: Union[str, torch.dtype] = torch.bfloat16,
                  device=None):
+        if kv_layout not in ("contiguous", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "paged":
+            if mode != "continuous":
+                raise ValueError("paged KV requires continuous mode")
+            if prefill_chunk == 0:
+                raise ValueError("paged KV requires chunked prefill "
+                                 "(prefill_chunk > 0)")
         later = {
             "mode='wave'": mode != "continuous",
-            "kv_layout='paged'": kv_layout != "contiguous",
             "governor": governor is not None,
             "preempt": bool(preempt),
             "swap_store": swap_store is not None,
@@ -179,7 +409,7 @@ class ServeEngine:
         self.monitor = monitor
         self.session = session
         self.mode = "continuous"
-        self.kv_layout = "contiguous"
+        self.kv_layout = kv_layout
         self.cache_dtype = cache_dtype
         self.prefill_chunk = resolve_prefill_chunk(cfg, prefill_chunk)
         if self.prefill_chunk > max_len:
@@ -204,6 +434,46 @@ class ServeEngine:
         # ``nonfinite_logit_rows`` (which syncs).
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
+
+        # -- paged KV (page pools + page tables + prefix reuse) ----------
+        self.kv_page_size = int(kv_page_size if kv_page_size is not None
+                                else cfg.kv_page_size)
+        self.prefix_hit_tokens = 0          # prompt tokens served off pages
+        self.saved_prefill_joules = 0.0     # priced at the learned J/token
+        self._prefill_jpt: Optional[float] = None   # EWMA J per prefill tok
+        self.pool_wait_events = 0           # admissions deferred on pages
+        self._pool_short = False            # mid-wait episode flag
+        self._pool: Optional[PagePool] = None
+        self._radix: Optional[RadixPrefixCache] = None
+        if kv_layout == "paged":
+            if not model_mod.supports_paged(cfg):
+                raise ValueError(
+                    f"{cfg.name}: paged KV needs an all-attention arch "
+                    "(state and encoder-decoder archs keep the contiguous "
+                    "layout)")
+            ps = self.kv_page_size
+            if ps < 1:
+                raise ValueError(f"kv_page_size must be >= 1, got {ps}")
+            self._pages_per_slot = math.ceil(max_len / ps)
+            usable = (int(kv_pool_pages) if kv_pool_pages is not None
+                      else batch_size * self._pages_per_slot)
+            if usable < self._pages_per_slot:
+                raise ValueError(
+                    f"kv_pool_pages {usable} cannot hold even one slot "
+                    f"({self._pages_per_slot} pages of {ps})")
+            # +1: page 0 is the reserved scratch page
+            self._pool = PagePool(usable + 1, ps)
+            if prefix_cache:
+                self._radix = RadixPrefixCache(self._pool)
+            # The pools persist across generate() calls: the radix tree
+            # owns pages between runs.
+            self._paged_caches = model_mod.init_paged_caches(
+                cfg, usable + 1, ps, dtype=cache_dtype, device=self.device)
+            self._page_table = np.zeros(
+                (batch_size, self._pages_per_slot), np.int32)
+            self._slot_pages: List[List[int]] = \
+                [[] for _ in range(batch_size)]
+            self._paged_fns = model_mod.make_paged_serve_fns(cfg)
 
     # -- measurement contexts ----------------------------------------------
     def _measure_ctx(self, agg_id: int, tokens: int):
@@ -246,6 +516,8 @@ class ServeEngine:
                     f"cache slots (chunk-padded prompt / prompt + "
                     f"max_new_tokens) but max_len is {self.max_len}")
         self.stall_events = []
+        if self.kv_layout == "paged":
+            return self._run_paged(requests)
         return self._run_continuous(requests)
 
     @property
@@ -267,10 +539,7 @@ class ServeEngine:
             "stall_p95_s": stall_p95(self.stall_events),
             "requests_timed_out": self._timeouts,
             "compile_counts": dict(self.compile_counts),
-            "kv_cache": {
-                "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
-                "bytes_per_token": self.cache_bytes_per_token(),
-            },
+            "kv_cache": self._kv_cache_stats(),
             "preemption": {
                 "enabled": False, "preemptions": 0, "resumes": 0,
                 "retries_exhausted": 0, "wasted_tokens": 0,
@@ -280,9 +549,40 @@ class ServeEngine:
             },
         }
 
+    def _kv_cache_stats(self) -> Dict[str, Any]:
+        s: Dict[str, Any] = {
+            "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
+            "bytes_per_token": self.cache_bytes_per_token(),
+        }
+        if self._pool is not None:
+            s.update(
+                page_size=self._pool.page_size,
+                pages_total=self._pool.total_pages,
+                pages_free=self._pool.free_pages,
+                pages_used=self._pool.used_pages,
+                pool_wait_events=self.pool_wait_events,
+                prefix_cache=self._radix is not None,
+                prefix_hit_tokens=self.prefix_hit_tokens,
+                saved_prefill_joules=self.saved_prefill_joules)
+            if self._radix is not None:
+                s.update(
+                    prefix_lookups=self._radix.lookups,
+                    prefix_hits=self._radix.hits,
+                    prefix_hit_rate=self._radix.hit_rate,
+                    prefix_evictions=self._radix.evictions,
+                    prefix_nodes=self._radix.node_count)
+        return s
+
     def cache_bytes_per_token(self) -> float:
-        """KV-cache bytes per cached token position, all layers summed,
-        over ``batch * max_len`` positions (ring layers hold fewer)."""
+        """KV-cache bytes per cached token position, all layers summed.
+        Contiguous: over ``batch * max_len`` positions (ring layers hold
+        fewer).  Paged: every pool leaf, scratch page included, over the
+        usable pages' ``total_pages * page_size`` positions."""
+        if self._pool is not None:
+            total = sum(t.numel() * t.element_size()
+                        for t in _leaves(self._paged_caches))
+            return total / max(1, self._pool.total_pages
+                               * self._pool.page_size)
         cfg = self.cfg
         item = torch.empty((), dtype=self.cache_dtype).element_size()
         total = 0
@@ -292,6 +592,22 @@ class ServeEngine:
             total += 2 * self.batch * size * cfg.num_kv_heads \
                 * cfg.head_dim * item
         return total / max(1, self.batch * self.max_len)
+
+    def on_record(self, rec) -> None:
+        """Session-record subscriber: learns joules per prefill token from
+        resolved ``serve/req<N>/prefill`` records — the price of the
+        prefill work a prefix-tree hit avoids.  ``saved_prefill_joules``
+        accrues at admission from this EWMA."""
+        path = getattr(rec, "path", "")
+        if not (path.startswith("serve/req") and path.endswith("/prefill")):
+            return
+        tokens = getattr(rec, "tokens", None)
+        joules = getattr(rec, "joules", None)
+        if not tokens or joules is None or joules <= 0.0:
+            return
+        jpt = joules / tokens
+        self._prefill_jpt = jpt if self._prefill_jpt is None \
+            else 0.8 * self._prefill_jpt + 0.2 * jpt
 
     # -- continuous batching --------------------------------------------------
     def _admit(self, r: Request) -> Request:
@@ -338,191 +654,221 @@ class ServeEngine:
             self.stall_events.append(time.perf_counter() - t0)
         return tok if final else None
 
-    def _run_continuous(self, requests: List[Request]) -> List[Request]:
-        b = self.batch
-        chunk = self.prefill_chunk
-        dev = self.device
-        waiting = list(requests)
-        caches = model_mod.init_caches(self.cfg, b, self.max_len,
-                                       dtype=self.cache_dtype, device=dev)
-        cache_leaves = _leaves(caches)
-        tokens = np.zeros((b, 1), np.int64)
-        pos = np.zeros((b,), np.int32)
-        active: List[Optional[Request]] = [None] * b
-        remaining = [0] * b
-        req_ctxs: List[Any] = [None] * b
-        pf_ctxs: List[Any] = [None] * b
-        dec_ctxs: List[Any] = [None] * b
-        prefills: Deque[_Prefill] = collections.deque()
-        reserved = [False] * b                   # slot held by a prefill
-        deadlines = {id(r): time.monotonic() + r.deadline_s
-                     for r in requests if r.deadline_s is not None}
-        total_tokens = sum(r.max_new_tokens for r in requests)
+    def _serve(self, requests: List[Request], slots: _Slots,
+               iterate) -> List[Request]:
+        """The loop both layouts share: sweep deadlines, then one
+        ``iterate()`` (admission, prefill, a decode burst) until every
+        request is served, all inside one ``serve/batch<N>`` region."""
         agg_id = self._batch_count
         self._batch_count += 1
-
-        def open_ctx(rid, tokens_, phase=None):
-            ctx = self._request_ctx(rid, tokens=tokens_, phase=phase)
-            ctx.__enter__()
-            return ctx
-
-        def close_ctx(ctx):
-            if ctx is not None:
-                ctx.__exit__(None, None, None)
-
-        def activate(j: int, st: _Prefill, first: int) -> None:
-            """Request ``st.req`` finished prefill: its row goes live in
-            slot j.  The decode span opens before the row insert so the
-            prefill/decode spans tile the request span."""
-            r = st.req
-            dec_ctxs[j] = open_ctx(r.id, r.max_new_tokens, phase="decode")
-            for live, row in zip(cache_leaves, _leaves(st.caches)):
-                live[:, j].copy_(row[:, 0])
-            tokens[j, 0] = first
-            pos[j] = st.plen
-            remaining[j] = r.max_new_tokens - 1
-            active[j] = r
-            r.out.append(first)
-            if remaining[j] == 0:
-                retire(j)
-
-        def retire(j: int, reason: str = "length") -> None:
-            # The caller already fenced this slot's last token.
-            active[j].finish_reason = reason
-            close_ctx(dec_ctxs[j])
-            dec_ctxs[j] = None
-            close_ctx(req_ctxs[j])
-            req_ctxs[j] = None
-            active[j] = None
-
-        def sweep_deadlines() -> None:
-            """Retire every request past its deadline — waiting, mid-
-            prefill (free the reserved slot), or mid-decode (keep the
-            tokens generated so far)."""
-            if not deadlines:
-                return
-            now = time.monotonic()
-
-            def expired(r: Request) -> bool:
-                dl = deadlines.get(id(r))
-                return dl is not None and now > dl
-
-            kept = []
-            for r in waiting:
-                if expired(r):
-                    r.finish_reason = "timeout"
-                    self._timeouts += 1
-                else:
-                    kept.append(r)
-            waiting[:] = kept
-            for st in [st for st in prefills if expired(st.req)]:
-                prefills.remove(st)
-                reserved[st.slot] = False
-                close_ctx(pf_ctxs[st.slot])
-                pf_ctxs[st.slot] = None
-                close_ctx(req_ctxs[st.slot])
-                req_ctxs[st.slot] = None
-                st.req.finish_reason = "timeout"
-                self._timeouts += 1
-            for j in range(b):
-                if active[j] is not None and expired(active[j]):
-                    retire(j, reason="timeout")
-                    self._timeouts += 1
-
-        def update_gauges():
-            self.queue_depth = len(waiting)
-            self.live_slots = sum(1 for a in active if a is not None) \
-                + sum(reserved)
-            self.pending_prefill_chunks = sum(
-                max(0, st.toks.shape[1] - st.offset) // chunk
-                for st in prefills)
-
+        total_tokens = sum(r.max_new_tokens for r in requests)
         with self._measure_ctx(agg_id, tokens=total_tokens):
             try:
-                while waiting or prefills \
-                        or any(r is not None for r in active):
-                    sweep_deadlines()
-                    update_gauges()
-                    # slot-granular admission: every free slot enters the
-                    # chunk queue now instead of waiting for the batch to
-                    # drain.
-                    for j in range(b):
-                        if active[j] is not None or reserved[j] \
-                                or not waiting:
-                            continue
-                        r = self._admit(waiting.pop(0))
-                        req_ctxs[j] = open_ctx(r.id, r.max_new_tokens)
-                        pf_ctxs[j] = open_ctx(r.id, len(r.prompt),
-                                              phase="prefill")
-                        reserved[j] = True
-                        prefills.append(self._start_chunked_prefill(r, j))
-                    update_gauges()
-
-                    # one prefill chunk per decode step; with no live
-                    # decode rows the chunk queue drains back to back.
-                    if prefills:
-                        decode_live = any(a is not None for a in active)
-                        st = prefills[0]
-                        first = self._step_chunked_prefill(st, decode_live)
-                        if first is not None:
-                            prefills.popleft()
-                            reserved[st.slot] = False
-                            close_ctx(pf_ctxs[st.slot])
-                            pf_ctxs[st.slot] = None
-                            activate(st.slot, st, first)
-                        update_gauges()
-
-                    live = [j for j in range(b) if active[j] is not None]
-                    if not live:
-                        continue          # everything retired at prefill
-                    # Retirement is deterministic (exactly max_new_tokens
-                    # per request), so with no admission work pending
-                    # decode runs on the device until the next slot
-                    # retires.  While prefill chunks are pending, decode
-                    # advances one step per chunk.  Inactive rows decode
-                    # garbage into their own (dead) cache rows only.
-                    steps = 1 if prefills \
-                        else min(remaining[j] for j in live)
-                    if steps > 1 and deadlines \
-                            and any(id(active[j]) in deadlines
-                                    for j in live):
-                        # a deadline'd request must pass the sweep
-                        # between bursts: bound the device-side run.
-                        steps = min(steps, 8)
-                    tok_dev = torch.as_tensor(tokens, device=dev)
-                    pos_dev = torch.as_tensor(pos, device=dev)
-                    outs = []
-                    for _ in range(steps):
-                        logits = self._fns.decode(self.params, caches,
-                                                  tok_dev, pos_dev)
-                        self._count_nonfinite(logits)
-                        tok_dev = logits.argmax(dim=-1, keepdim=True)
-                        outs.append(tok_dev)
-                        pos_dev = pos_dev + 1
-                    gen = torch.cat(outs, dim=1).cpu().numpy()
-                    # the host read waited for every step, so spans
-                    # closed below are fenced.
-                    for j in live:
-                        r = active[j]
-                        r.out.extend(gen[j].tolist())
-                        tokens[j, 0] = gen[j, -1]
-                        pos[j] += steps
-                        remaining[j] -= steps
-                        if remaining[j] == 0:
-                            retire(j)
+                while slots.busy():
+                    slots.sweep_deadlines()
+                    slots.update_gauges()
+                    iterate()
             finally:
-                # An exception mid-loop must not leak open request/phase
-                # spans: they pin the shared session's sampler.
-                prefills.clear()
-                waiting.clear()
-                reserved[:] = [False] * b
-                active[:] = [None] * b
-                update_gauges()
-                for j in range(b):
-                    close_ctx(pf_ctxs[j])
-                    pf_ctxs[j] = None
-                    close_ctx(dec_ctxs[j])
-                    dec_ctxs[j] = None
-                    close_ctx(req_ctxs[j])
-                    req_ctxs[j] = None
+                slots.close_all()
         return requests
+
+    def _run_continuous(self, requests: List[Request]) -> List[Request]:
+        b = self.batch
+        caches = model_mod.init_caches(self.cfg, b, self.max_len,
+                                       dtype=self.cache_dtype,
+                                       device=self.device)
+        cache_leaves = _leaves(caches)
+        slots = _Slots(self, requests)
+
+        def step(tok_dev, pos_dev):
+            logits = self._fns.decode(self.params, caches, tok_dev, pos_dev)
+            self._count_nonfinite(logits)
+            return logits
+
+        def iterate():
+            # slot-granular admission: every free slot enters the chunk
+            # queue now instead of waiting for the batch to drain.
+            for j in range(b):
+                if slots.waiting and slots.free(j):
+                    st = self._start_chunked_prefill(slots.waiting[0], j)
+                    slots.admit(j, st, st.plen)
+            slots.update_gauges()
+            # one prefill chunk per decode step; with no live decode rows
+            # the chunk queue drains back to back.
+            if slots.prefills:
+                st = slots.prefills[0]
+                first = self._step_chunked_prefill(st, bool(slots.live()))
+                if first is not None:
+                    for live_leaf, row in zip(cache_leaves,
+                                              _leaves(st.caches)):
+                        live_leaf[:, st.slot].copy_(row[:, 0])
+                    slots.go_live(st, first, st.plen)
+                slots.update_gauges()
+            live = slots.live()
+            if live:                    # else everything retired at prefill
+                slots.decode(live, step)
+
+        return self._serve(requests, slots, iterate)
+
+    # -- paged continuous batching --------------------------------------------
+    def _admit_paged(self, r: Request, j: int) -> Optional[_PagedPrefill]:
+        """Reserve slot ``j``'s pages for request ``r``: radix-match the
+        prompt (mapping cached prefix pages in copy-free), then allocate
+        the rest of ``ceil((plen + max_new - 1) / page_size)`` pages up
+        front, so decode never waits for a page mid-request.  Returns
+        None when the pool cannot cover it now, even after evicting
+        tree pages (the caller leaves the request waiting)."""
+        pool, radix = self._pool, self._radix
+        ps = self.kv_page_size
+        toks_all = list(r.prompt)
+        plen = len(toks_all)
+        pages_needed = math.ceil((plen + r.max_new_tokens - 1) / ps)
+        matched: List[int] = []
+        if radix is not None:
+            _, mpages = radix.match(toks_all)
+            # cap the match one token short of the prompt: the final
+            # chunk must re-run >= 1 token for its logits
+            use = min(len(mpages), (plen - 1) // ps)
+            if use < len(mpages):
+                pool.release(mpages[use:])
+            matched = mpages[:use]
+        fresh = pool.alloc(pages_needed - len(matched))
+        if fresh is None and radix is not None:
+            radix.evict_for(pages_needed - len(matched))
+            fresh = pool.alloc(pages_needed - len(matched))
+        if fresh is None:
+            if matched:
+                pool.release(matched)
+            return None
+        slot_pages, mt = matched + fresh, len(matched) * ps
+        self._slot_pages[j] = slot_pages
+        self._page_table[j, :] = 0
+        self._page_table[j, :len(slot_pages)] = slot_pages
+        self.prefix_hit_tokens += mt
+        if mt and self._prefill_jpt is not None:
+            self.saved_prefill_joules += mt * self._prefill_jpt
+        toks = np.zeros((plen + self.prefill_chunk,), np.int64)
+        toks[:plen] = toks_all
+        return _PagedPrefill(req=r, slot=j, toks=toks, plen=plen, offset=mt,
+                             matched_tokens=mt)
+
+    def _release_slot_pages(self, j: int) -> None:
+        if self._slot_pages[j]:
+            self._pool.release(self._slot_pages[j])
+            self._slot_pages[j] = []
+        self._page_table[j, :] = 0
+
+    def _step_paged_prefills(self, slots: _Slots) -> None:
+        """Batched chunk admissions: ONE (B, chunk) dispatch advances
+        EVERY pending prefill by one chunk, each row at its own offset;
+        passenger rows ride with ``last_idx == -1`` and write nothing.
+        Fenced (the token read waits for the device)."""
+        b, chunk, dev = self.batch, self.prefill_chunk, self.device
+        decode_live = bool(slots.live())
+        t0 = time.perf_counter()
+        ctoks = np.zeros((b, chunk), np.int64)
+        offs = np.zeros((b,), np.int32)
+        last = np.full((b,), -1, np.int32)
+        for st in slots.prefills:
+            ctoks[st.slot] = st.toks[st.offset:st.offset + chunk]
+            offs[st.slot] = st.offset
+            last[st.slot] = min(st.plen - 1 - st.offset, chunk - 1)
+        logits = self._paged_fns.prefill_chunk(
+            self.params, self._paged_caches,
+            torch.as_tensor(ctoks, device=dev),
+            torch.as_tensor(offs, device=dev),
+            torch.as_tensor(last, device=dev),
+            torch.as_tensor(self._page_table, device=dev))
+        done = [st.slot for st in slots.prefills
+                if st.offset + chunk >= st.plen]
+        if done:
+            self._count_nonfinite(logits[torch.as_tensor(done, device=dev)])
+        tok = logits.argmax(dim=-1).cpu().numpy()           # fence
+        if decode_live:
+            self.stall_events.append(time.perf_counter() - t0)
+        for st in list(slots.prefills):
+            st.offset += chunk
+            if st.offset >= st.plen:
+                slots.go_live(st, int(tok[st.slot]), st.plen)
+
+    def _run_paged(self, requests: List[Request]) -> List[Request]:
+        """Continuous batching over the page pools.
+
+        Differences from ``_run_continuous``: admission reserves pages
+        instead of a cache row, and may wait on the pool as well as on
+        slots; prefill chunks write straight into the shared pools
+        through the slot's page-table row, every pending admission's
+        chunk batched into one dispatch (``_step_paged_prefills``);
+        decode sees a masked page table (mid-prefill and dead rows read
+        and write only the scratch page); retirement adopts the
+        request's full pages into the radix prefix tree before releasing
+        its references.
+        """
+        b, dev = self.batch, self.device
+        radix, ps = self._radix, self.kv_page_size
+        caches = self._paged_caches     # pools persist across generate()s
+        self._pool_short = False
+
+        def release(j: int, r: Optional[Request], retired: bool) -> None:
+            if retired and radix is not None:
+                # Adopt the full pages actually written — the prompt and
+                # every generated token fed back (the last one never
+                # lands in the cache) — into the prefix tree BEFORE
+                # releasing this request's refs, so adopted pages never
+                # transit the free list.  Existing nodes win on
+                # duplicate content; timeouts contribute their written
+                # prefix like any other retirement.
+                written = list(r.prompt) + r.out[:-1]
+                n_full = len(written) // ps
+                if n_full:
+                    radix.insert(written[:n_full * ps],
+                                 self._slot_pages[j][:n_full])
+            self._release_slot_pages(j)
+
+        slots = _Slots(self, requests, release)
+
+        def iterate():
+            # Admission: page reservation for each free slot.  A pool too
+            # drained to cover the next request defers it — retirements
+            # free pages; an idle engine always admits, since one slot's
+            # pages fit the pool (checked in __init__) and an idle pool,
+            # after prefix-tree eviction, is wholly free.
+            for j in range(b):
+                if not (slots.waiting and slots.free(j)):
+                    continue
+                st = self._admit_paged(slots.waiting[0], j)
+                if st is None:
+                    # count each episode of waiting on pages once
+                    if not self._pool_short:
+                        self._pool_short = True
+                        self.pool_wait_events += 1
+                    break
+                self._pool_short = False
+                # the phase span counts the tokens actually prefilled: a
+                # prefix hit shrinks the work
+                slots.admit(j, st, st.plen - st.matched_tokens)
+            slots.update_gauges()
+            if slots.prefills:
+                self._step_paged_prefills(slots)
+                slots.update_gauges()
+            live = slots.live()
+            if not live:
+                return                  # everything retired at prefill
+            # Decode sees a MASKED page table: only decoding rows expose
+            # their pages — mid-prefill and dead rows read and write the
+            # scratch page only, so their garbage tokens cannot touch
+            # pages a prefill is filling.
+            mask = np.zeros((b, 1), np.int32)
+            mask[live] = 1
+            pt_dec = torch.as_tensor(self._page_table * mask, device=dev)
+            live_dev = torch.as_tensor(live, device=dev)
+
+            def step(tok_dev, pos_dev):
+                logits = self._paged_fns.decode(self.params, caches, tok_dev,
+                                                pos_dev, pt_dec)
+                self._count_nonfinite(logits[live_dev])
+                return logits
+
+            slots.decode(live, step)
+
+        return self._serve(requests, slots, iterate)

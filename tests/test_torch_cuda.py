@@ -5,7 +5,8 @@ the card run them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances as in chip_smoke.py: 2e-5 in fp32 (summation order), one
 bf16 rounding step of outputs below 4 (2^-6) in bf16; the scatter is
-exact.  The Fig. 2 kernels: STREAM and JACOBI2D exact, FMA32 within
+exact, the paged scatter exact outside the scratch page 0.  The Fig. 2
+kernels: STREAM and JACOBI2D exact, FMA32 within
 1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
 within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
 within 1e-3 relative.
@@ -91,6 +92,77 @@ def test_prefill_kernel_matches_plain(card, dt, ring, window, softcap):
     got = pa_ops.prefill_attention(q, kx, vx, kc, vc, offs, **kw)
     qg = q.reshape(b, t, kvh, g, hd).permute(0, 2, 1, 3, 4)
     want = pa_ref.prefill_attention_ref(qg, kx, vx, kc, vc, offs, **kw)
+    want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+# -- the paged kernels --------------------------------------------------------
+
+def _table(card, b, nb, num_pages, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randperm(num_pages - 1, generator=g)[:b * nb] + 1
+    return ids.reshape(b, nb).to(device=card, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("ps,t", [(16, 1), (16, 32), (24, 7), (8, 16)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_cache_update_kernel_is_exact_outside_page_0(card, dt, ps, t):
+    p, b, nb = 40, 4, 8
+    pool = _randn(card, dt, p, ps, 3, 64)
+    new = _randn(card, dt, b, t, 3, 64, seed=1)
+    table = _table(card, b, nb, p)
+    table[3] = 0                              # a dead row on the scratch page
+    starts = torch.tensor([0, ps - 1, 5, 10 * ps * nb], dtype=torch.int32,
+                          device=card)
+    valids = torch.tensor([t, max(t - 3, 0), 0, 1], dtype=torch.int32,
+                          device=card)
+    want = cu_ref.paged_cache_update_ref(pool.clone(), new, table, starts,
+                                         valids)
+    got = cu_ops.paged_cache_update(pool.clone(), new, table, starts, valids)
+    assert torch.equal(got[1:], want[1:])
+    # row 2 is masked: its pages keep their bits
+    for page in table[2].tolist():
+        assert torch.equal(got[page], pool[page])
+
+
+@pytest.mark.parametrize("ps,window,softcap", [
+    (16, None, None), (24, 40, None), (8, None, 30.0), (8, 20, 10.0)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain(card, dt, ps, window, softcap):
+    b, kvh, g, hd, p, nb = 5, 3, 3, 64, 60, 10
+    q = _randn(card, dt, b, 1, kvh * g, hd)
+    k = _randn(card, dt, p, ps, kvh, hd, seed=1)
+    v = _randn(card, dt, p, ps, kvh, hd, seed=2)
+    table = _table(card, b, nb, p)
+    c = nb * ps
+    lens = torch.tensor([0, 1, ps, c - 1, c + 3], dtype=torch.int32,
+                        device=card)
+    kw = dict(window=window, softcap=softcap, scale=0.125)
+    got = da_ops.decode_attention_paged(q, k, v, table, lens, **kw)
+    want = da_ref.decode_attention_paged_ref(
+        q.reshape(b, kvh, g, hd), k, v, table, lens,
+        **kw).reshape(b, 1, kvh * g, hd)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("ps,window,softcap", [
+    (16, None, None), (24, 40, None), (8, None, 30.0), (8, 20, 10.0)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_matches_plain(card, dt, ps, window, softcap):
+    b, t, kvh, g, hd, p, nb = 4, 32, 3, 3, 64, 60, 10
+    q = _randn(card, dt, b, t, kvh * g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    k = _randn(card, dt, p, ps, kvh, hd, seed=3)
+    v = _randn(card, dt, p, ps, kvh, hd, seed=4)
+    table = _table(card, b, nb, p)
+    offs = torch.tensor([0, ps, ps + 1, nb * ps - t], dtype=torch.int32,
+                        device=card)
+    kw = dict(window=window, softcap=softcap, scale=0.125)
+    got = pa_ops.prefill_attention_paged(q, kx, vx, k, v, table, offs, **kw)
+    qg = q.reshape(b, t, kvh, g, hd).permute(0, 2, 1, 3, 4)
+    want = pa_ref.prefill_attention_paged_ref(qg, kx, vx, k, v, table, offs,
+                                              **kw)
     want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
 

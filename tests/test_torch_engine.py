@@ -133,13 +133,40 @@ def test_per_request_spans_tile_the_request(setup):
             <= dec["t1"] <= req["t1"]
 
 
+class StepClock:
+    """A clock for the dummy sensor that the test drives: it moves 10 ms
+    per serve step the engine runs, and not at all between steps, so the
+    spans measure device work only and the host's scheduling (an xdist
+    worker descheduled between one span's close and the next one's
+    open) cannot shift joules out of the phases."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def wrap(self, fns):
+        def tick(fn):
+            def step(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.t += 0.01
+                return out
+            return step
+        return type(fns)(*(tick(fn) for fn in fns))
+
+
 def test_real_session_phase_joules_sum_to_request(setup):
     """The same accounting through a PMT ``Session`` on the dummy
     backend, as tests/test_serve_continuous.py holds the JAX engine."""
     reqs = mk(MIXED[:4])
-    with pmt.Session(["dummy"], pool=pmt.SensorPool()) as sess:
+    clk = StepClock()
+    with pmt.Session([pmt.create("dummy", clock=clk)],
+                     pool=pmt.SensorPool(), period_s=1e6) as sess:
         mem = sess.add_exporter(pmt.MemoryExporter())
-        port_engine(setup, 2, session=sess).generate(reqs)
+        eng = port_engine(setup, 2, session=sess)
+        eng._fns = clk.wrap(eng._fns)
+        eng.generate(reqs)
         sess.flush()
         per_req = [r for r in mem.records if r.path.startswith("serve/req")
                    and "/" not in r.path.replace("serve/", "")]
@@ -156,9 +183,13 @@ def test_port_session_phase_joules_sum_to_request(setup):
     (``repro_torch.core``), which the port's launchers use."""
     import repro_torch.core as port_pmt
     reqs = mk(MIXED[:4])
-    with port_pmt.Session(["dummy"], pool=port_pmt.SensorPool()) as sess:
+    clk = StepClock()
+    with port_pmt.Session([port_pmt.create("dummy", clock=clk)],
+                          pool=port_pmt.SensorPool(), period_s=1e6) as sess:
         mem = sess.add_exporter(port_pmt.MemoryExporter())
-        port_engine(setup, 2, session=sess).generate(reqs)
+        eng = port_engine(setup, 2, session=sess)
+        eng._fns = clk.wrap(eng._fns)
+        eng.generate(reqs)
         sess.flush()
         per_req = [r for r in mem.records if r.path.startswith("serve/req")
                    and "/" not in r.path.replace("serve/", "")]
@@ -183,7 +214,7 @@ def test_request_validation_and_later_slices_raise(setup):
         eng.generate(mk([([1] * 60, 10)]))
     with pytest.raises(ValueError, match="max_new_tokens"):
         eng.generate(mk([([1], 0)]))
-    for kw in (dict(mode="wave"), dict(kv_layout="paged"),
+    for kw in (dict(mode="wave"),
                dict(governor=object()), dict(preempt=True),
                dict(greedy=False), dict(cache_dtype="int8"),
                dict(prefill_chunk=0)):

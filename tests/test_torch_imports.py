@@ -41,7 +41,10 @@ def test_port_modules_import_without_jax_or_repro():
     assert {"repro_torch.core.faults", "repro_torch.core.energy_model",
             "repro_torch.core.backends.rapl", "repro_torch.core.backends.sysfs",
             "repro_torch.core.backends.h100"} <= set(mods)
-    for family in ("fma32", "stream", "gemm", "jacobi2d", "gridder"):
+    # the paged serve path: the copy of the page allocator and radix tree
+    assert "repro_torch.serve.paging" in mods
+    for family in ("fma32", "stream", "gemm", "jacobi2d", "gridder",
+                   "cache_update", "decode_attention", "prefill_attention"):
         assert {f"repro_torch.kernels.{family}.{part}"
                 for part in ("kernel", "ref", "ops")} <= set(mods)
     code = (
