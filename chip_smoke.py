@@ -19,10 +19,20 @@ Phases, in order; any failure exits nonzero:
      odd ones (page sizes 8 and 24, shuffled pages, a window, softcap,
      masked rows, dead rows past their table); the scatter exact outside
      the scratch page 0, real pages untouched where rows are masked.
+     3q. quantized KV caches, int8 and fp8_e4m3: the two quantizing
+     scatters (contiguous, paged) bit for bit equal to their plain
+     versions in codes and scales, over bf16 and fp32 rows with zero
+     rows and +-1e4 extremes, no NaN, real pages untouched where rows
+     are masked; the four attention kernels over codes and row scales
+     against their plain versions with the same tolerances and cases as
+     above; each timed with its byte bound at code width.
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
      against the same model on the CPU (plain versions), contiguous and
      paged; the paged engine's greedy tokens on the card equal the
-     contiguous engine's and the CPU's.
+     contiguous engine's and the CPU's.  Then the same with int8 and
+     fp8_e4m3 caches (logits within QUANT_CARD_TOL, codes at most one
+     step apart, greedy tokens equal), and the drift gate of
+     tests/test_quant_serve.py on the card.
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
      16 requests through the continuous-batching engine with chunked
      prefill, twice (the second run gives the spread); check every
@@ -39,6 +49,13 @@ Phases, in order; any failure exits nonzero:
      that add up, the pages held after a run equal to the prefix tree's,
      prefix hits in both runs and priced saved prefill joules in the
      warm one; then a short run under the profiler.
+     5c. phase 5's 16 requests once per quantized cache mode and layout
+     (int8, fp8_e4m3; contiguous, paged at page 16 with the default
+     512-page pool), each with phase 5's checks, plus: only that
+     layout's three quantized kernels launched (the bf16 ones and the
+     other layout's stayed at 0), ``stats()["kv_cache"]`` names the
+     mode, and bytes per token under 0.6x phase 5's bf16 figure; prints
+     how many requests generate the bf16 run's tokens (not gated).
   6. the paper's Fig. 2 (``repro_torch.launch.fig2``) at full size:
      SLEEP, FMA32, STREAM, GRIDDER, DEGRIDDER, GEMM, JACOBI2D, each one
      region of a PMT session stacking cpuutil and nvml, with the modeled
@@ -49,8 +66,10 @@ Phases, in order; any failure exits nonzero:
      grew, that every busy row's card watts exceed SLEEP's, and that each
      row's session joules are within 10% of an independent
      ``EnergyMeter`` reading of the same window.
-  7. print the ``{"kernels": [...]}`` line, then the final
-     ``{"ok": true, "device": {...}}`` line.
+  7. print the ``{"kernels": [...]}`` line (14 kernels; the attention
+     kernels with their quantized launches and times beside, the
+     quantizing scatters with fp8_e4m3's times beside int8's), then the
+     final ``{"ok": true, "device": {...}}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -90,6 +109,12 @@ KERNEL_INFO = {
         "src/repro/kernels/decode_attention/decode_attention.py:272"),
     "paged_cache_update": ("src/repro_torch/kernels/csrc/cache_update.cu",
                            "src/repro/kernels/cache_update/cache_update.py:48"),
+    "quant_cache_update": (
+        "src/repro_torch/kernels/csrc/cache_update.cu",
+        "src/repro/kernels/cache_update/cache_update.py:157"),
+    "quant_paged_cache_update": (
+        "src/repro_torch/kernels/csrc/cache_update.cu",
+        "src/repro/kernels/cache_update/cache_update.py:209"),
     "decode_attention_paged": (
         "src/repro_torch/kernels/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:187"),
@@ -109,11 +134,23 @@ KERNEL_INFO = {
     "degridder": ("src/repro_torch/kernels/csrc/gridder.cu",
                   "src/repro/kernels/gridder/gridder.py:93"),
 }
-# Launch counters: kernel name -> attribute of its wrapper module.
+# Launch counters: kernel name -> attribute of its wrapper module.  The
+# attention kernels count their launches over quantized caches apart,
+# under the name with a " quant" suffix.
 COUNTER = {"gridder": "gridder_launches", "degridder": "degridder_launches",
            "paged_cache_update": "paged_launches",
            "decode_attention_paged": "paged_launches",
-           "prefill_attention_paged": "paged_launches"}
+           "prefill_attention_paged": "paged_launches",
+           "quant_cache_update": "quant_launches",
+           "quant_paged_cache_update": "quant_paged_launches",
+           "decode_attention quant": "quant_launches",
+           "prefill_attention quant": "quant_launches",
+           "decode_attention_paged quant": "quant_paged_launches",
+           "prefill_attention_paged quant": "quant_paged_launches"}
+# Quantized KV-cache modes; the drift gate of tests/test_quant_serve.py:
+# max |logit - fp32 cache's logit| under this share of max(max |logit|, 1).
+MODES = ("int8", "fp8_e4m3")
+DRIFT_GATE = {"int8": 0.10, "fp8_e4m3": 0.20}
 
 
 def log(msg: str) -> None:
@@ -153,6 +190,18 @@ def library_time(fn):
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def u8(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte code tensor as its bytes (``torch.equal`` has no
+    float8 kernel), any other tensor as it is."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def quantized(mode, *caches):
+    """Each cache as (codes, float32 row scales) of ``mode``."""
+    from repro_torch.kernels import quant
+    return [quant.quantize(c, mode) for c in caches]
 
 
 def zero_counts(kernels) -> None:
@@ -213,7 +262,10 @@ def _decode_inputs(dev, dt, b, c, kvh, g, hd, seed=2):
     return q, k, v
 
 
-def check_decode(kernel, ref, dev):
+def check_decode(kernel, ref, dev, mode=None):
+    """Tolerance TOL of q's dtype.  With ``mode`` the cache holds that
+    mode's codes and row scales (quantized from the same values), which
+    kernel and plain version dequantize to the same float32 values."""
     cases = {
         "main B8 C1024 KVH3 G3 hd64": dict(
             b=8, c=1024, kvh=3, g=3, hd=64,
@@ -239,12 +291,14 @@ def check_decode(kernel, ref, dev):
             lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
             scale = 1.0 / math.sqrt(cs["hd"])
             kw = dict(ring=cs["ring"], softcap=cs["softcap"], scale=scale)
+            if mode:
+                (k, kw["k_scale"]), (v, kw["v_scale"]) = quantized(mode, k, v)
             got = kernel.decode_attention_cuda(q, k, v, lens, **kw)
             want = ref.decode_attention_ref(q, k, v, lens, **kw)
             torch.cuda.synchronize()
             err = max_err(got, want)
-            log(f"  decode_attention {name} {str(dt)[6:]}: max |err| "
-                f"{err:.3g} (tol {TOL[dt]:.3g})")
+            log(f"  decode_attention {mode or ''} {name} {str(dt)[6:]}: max "
+                f"|err| {err:.3g} (tol {TOL[dt]:.3g})")
             if not err <= TOL[dt]:
                 raise AssertionError("decode_attention disagrees with its "
                                      "plain version")
@@ -253,8 +307,9 @@ def check_decode(kernel, ref, dev):
                                                      "hd"))
                 el = k.element_size()
                 keys = sum(min(n, c - 1) + 1 for n in cs["lens"])
-                nbytes = keys * kvh * 2 * hd * el + 2 * q.numel() * el \
-                    + 4 * b
+                # a quantized row also reads its 4-byte scale
+                nbytes = keys * kvh * 2 * (hd * el + (4 if mode else 0)) \
+                    + 2 * q.numel() * q.element_size() + 4 * b
                 flops = keys * kvh * g * 4 * hd
                 qh = q.view(b, kvh * g, 1, hd)
                 kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
@@ -265,7 +320,7 @@ def check_decode(kernel, ref, dev):
                         q, k, v, lens, **kw)),
                     "plain_ms": time_ms(lambda: ref.decode_attention_ref(
                         q, k, v, lens, **kw), iters=5),
-                    "library_ms": library_time(
+                    "library_ms": None if mode else library_time(
                         lambda: F.scaled_dot_product_attention(
                             qh, kh, vh, attn_mask=mask, scale=scale,
                             enable_gqa=True)),
@@ -282,7 +337,9 @@ def _prefill_inputs(dev, dt, b, t, c, kvh, g, hd, seed=3):
             mk(b, c, kvh, hd), mk(b, c, kvh, hd))
 
 
-def check_prefill(kernel, ref, dev):
+def check_prefill(kernel, ref, dev, mode=None):
+    """Tolerance TOL of q's dtype; with ``mode`` the cache prefix holds
+    codes and row scales, the chunk's own k/v stay in q's dtype."""
     cases = {
         "main B8 T32 C1024 KVH3 G3 hd64": dict(
             b=8, t=32, c=1024, kvh=3, g=3, hd=64,
@@ -313,26 +370,32 @@ def check_prefill(kernel, ref, dev):
             scale = 1.0 / math.sqrt(hd)
             kw = dict(ring=cs["ring"], window=cs["window"],
                       softcap=cs["softcap"], scale=scale)
+            if mode:
+                (kc, kw["k_scale"]), (vc, kw["v_scale"]) = quantized(
+                    mode, kc, vc)
             got = kernel.prefill_attention_cuda(q, kx, vx, kc, vc, offs, **kw)
             want = ref.prefill_attention_ref(q, kx, vx, kc, vc, offs, **kw)
             torch.cuda.synchronize()
             err = max_err(got, want)
-            log(f"  prefill_attention {name} {str(dt)[6:]}: max |err| "
-                f"{err:.3g} (tol {TOL[dt]:.3g})")
+            log(f"  prefill_attention {mode or ''} {name} {str(dt)[6:]}: max "
+                f"|err| {err:.3g} (tol {TOL[dt]:.3g})")
             if not err <= TOL[dt]:
                 raise AssertionError("prefill_attention disagrees with its "
                                      "plain version")
             if name.startswith("serve path") and dt == torch.bfloat16:
                 off = cs["offs"][0]
-                el = kc.element_size()
-                nbytes = (min(off, c) + t) * kvh * 2 * hd * el \
-                    + 2 * q.numel() * el + 4 * b
+                el, qel = kc.element_size(), q.element_size()
+                nbytes = min(off, c) * kvh * 2 * (hd * el
+                                                  + (4 if mode else 0)) \
+                    + t * kvh * 2 * hd * qel + 2 * q.numel() * qel + 4 * b
                 pairs = t * min(off, c) + t * (t + 1) // 2
                 flops = pairs * kvh * g * 4 * hd
                 h = kvh * g
                 qh = q.permute(0, 1, 3, 2, 4).reshape(b, h, t, hd)
-                kall = torch.cat([kc[:, :off], kx], 1).permute(0, 2, 1, 3)
-                vall = torch.cat([vc[:, :off], vx], 1).permute(0, 2, 1, 3)
+                kall = torch.cat([kc[:, :off].to(dt), kx], 1).permute(
+                    0, 2, 1, 3)
+                vall = torch.cat([vc[:, :off].to(dt), vx], 1).permute(
+                    0, 2, 1, 3)
                 mask = torch.ones((t, off + t), dtype=torch.bool, device=dev)
                 mask[:, off:] = torch.tril(mask[:, off:])
                 tm = {
@@ -340,13 +403,166 @@ def check_prefill(kernel, ref, dev):
                         q, kx, vx, kc, vc, offs, **kw)),
                     "plain_ms": time_ms(lambda: ref.prefill_attention_ref(
                         q, kx, vx, kc, vc, offs, **kw), iters=5),
-                    "library_ms": library_time(
+                    "library_ms": None if mode else library_time(
                         lambda: F.scaled_dot_product_attention(
                             qh, kall, vall, attn_mask=mask, scale=scale,
                             enable_gqa=True)),
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
                 results = dict(tm, max_abs_err=err)
+    return results
+
+
+# -- phase 3, quantized: the quantizing scatters ---------------------------
+# Shapes: the serve path's (8 slots of 1024, smollm-135m's 3 kv heads of
+# 64; paged: 512 usable pages of 16 plus scratch, decode T 1 and a
+# 32-token chunk with masked rows) and odd ones (5 heads of 40, page
+# sizes 8 and 24, positions past the table).  Bit for bit: codes through
+# their bytes, scales with torch.equal.
+
+def check_quant_cache_update(kernel, ref, quant, dev):
+    cases = {"main B8 C1024 KVH3 hd64": (8, 1024, 3, 64),
+             "odd B5 C77 H5 D40": (5, 77, 5, 40)}
+    results = {}
+    for mode in MODES:
+        for name, (b, c, h, d) in cases.items():
+            for dt in (torch.float32, torch.bfloat16):
+                g = torch.Generator(device=dev).manual_seed(21)
+                cache, scales = quant.quantize(torch.randn(
+                    (b, c, h, d), generator=g, device=dev), mode)
+                new = (3 * torch.randn((b, 1, h, d), generator=g,
+                                       device=dev)).to(dt)
+                new[1, 0, h - 1] = 0.0                      # a zero row
+                new[2, 0, 0, :2] = torch.tensor([1e4, -1e4], device=dev)
+                slots = torch.randint(0, c, (b,), generator=g, device=dev,
+                                      dtype=torch.int32)
+                slots[0], slots[-1] = 0, c - 1
+                want = ref.quant_cache_update_ref(
+                    cache.clone(), scales.clone(), new, slots, mode)
+                got = kernel.quant_cache_update_cuda(
+                    cache.clone(), scales.clone(), new, slots, mode)
+                torch.cuda.synchronize()
+                exact = torch.equal(u8(got[0]), u8(want[0])) \
+                    and torch.equal(got[1], want[1])
+                finite = bool(torch.isfinite(quant.dequantize(*got)).all())
+                log(f"  quant_cache_update {mode} {name} {str(dt)[6:]} "
+                    f"rows: codes and scales "
+                    f"{'equal' if exact else 'DIFFERENT'} bit for bit, "
+                    f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
+                if not (exact and finite):
+                    raise AssertionError("quant_cache_update disagrees with "
+                                         "its plain version")
+                if name.startswith("main") and dt == torch.bfloat16:
+                    n = b * h
+                    t = {
+                        "ms": time_ms(lambda: kernel.quant_cache_update_cuda(
+                            cache, scales, new, slots, mode), iters=200),
+                        "plain_ms": time_ms(
+                            lambda: ref.quant_cache_update_ref(
+                                cache, scales, new, slots, mode), iters=200),
+                        "library_ms": None,
+                    }
+                    # read the rows, write codes and scales, read slots
+                    t["bound_ms"], t["bound_by"] = bound(
+                        n * d * new.element_size() + n * d + 4 * n + 4 * b,
+                        0.0, dt)
+                    results[mode] = dict(t, max_abs_err=0.0)
+    log("  quant_cache_update: library none (no single PyTorch call "
+        "quantizes rows and scatters codes and scales)")
+    return results
+
+
+def check_quant_paged_cache_update(kernel, ref, quant, dev):
+    """Bit for bit outside the scratch page 0; every row of a real page
+    that no valid row targets keeps its code bytes and its scale."""
+    cases = {
+        "decode P513 ps16 B8 NB64 T1": dict(
+            p=513, ps=16, h=3, d=64, b=8, nb=64, t=1, masked=(7,),
+            starts=[0, 1, 15, 16, 511, 1023, 700, 1500],
+            valids=[1, 1, 1, 1, 1, 1, 0, 1]),
+        "prefill P513 ps16 B8 NB64 T32": dict(
+            p=513, ps=16, h=3, d=64, b=8, nb=64, t=32, masked=(),
+            starts=[0, 16, 512, 992, 5, 100, 0, 17],
+            valids=[32, 32, 17, 32, 0, 1, 0, 31]),
+        "odd P40 ps24 H2 D40 B3 NB5 T7": dict(
+            p=40, ps=24, h=2, d=40, b=3, nb=5, t=7, masked=(),
+            starts=[0, 23, 110], valids=[7, 3, 0]),
+        "odd P40 ps8 B4 NB9 T1 past the table": dict(
+            p=40, ps=8, h=3, d=64, b=4, nb=9, t=1, masked=(),
+            starts=[71, 72, 500, 3], valids=[1, 1, 1, 0]),
+    }
+    results = {}
+    for mode in MODES:
+        for name, cs in cases.items():
+            for dt in (torch.float32, torch.bfloat16):
+                p, ps, h, d, b, nb, t = (cs[x] for x in (
+                    "p", "ps", "h", "d", "b", "nb", "t"))
+                g = torch.Generator(device=dev).manual_seed(22)
+                pool, scales = quant.quantize(torch.randn(
+                    (p, ps, h, d), generator=g, device=dev), mode)
+                new = (3 * torch.randn((b, t, h, d), generator=g,
+                                       device=dev)).to(dt)
+                new[0, 0, 0] = 0.0
+                new[1, 0, 0, :2] = torch.tensor([1e4, -1e4], device=dev)
+                table = _page_table(dev, b, nb, p, 23, cs["masked"])
+                starts = torch.tensor(cs["starts"], dtype=torch.int32,
+                                      device=dev)
+                valids = torch.tensor(cs["valids"], dtype=torch.int32,
+                                      device=dev)
+                args = (new, table, starts, valids, mode)
+                want = ref.quant_paged_cache_update_ref(
+                    pool.clone(), scales.clone(), *args)
+                got = kernel.quant_paged_cache_update_cuda(
+                    pool.clone(), scales.clone(), *args)
+                torch.cuda.synchronize()
+                exact = torch.equal(u8(got[0])[1:], u8(want[0])[1:]) \
+                    and torch.equal(got[1][1:], want[1][1:])
+                pos = torch.clamp(starts.long()[:, None]
+                                  + torch.arange(t, device=dev),
+                                  max=nb * ps - 1)
+                ok = torch.arange(t, device=dev)[None] \
+                    < valids.long()[:, None]
+                hit = (torch.gather(table.long(), 1, pos // ps) * ps
+                       + pos % ps)[ok]
+                kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
+                kept[hit] = False
+                kept[:ps] = False                   # page 0: undefined
+                untouched = torch.equal(
+                    u8(got[0]).view(p * ps, -1)[kept],
+                    u8(pool).view(p * ps, -1)[kept]) and torch.equal(
+                    got[1].view(p * ps, -1)[kept],
+                    scales.view(p * ps, -1)[kept])
+                finite = bool(torch.isfinite(
+                    quant.dequantize(*got)[1:]).all())
+                log(f"  quant_paged_cache_update {mode} {name} "
+                    f"{str(dt)[6:]} rows: outside page 0 "
+                    f"{'equal' if exact else 'DIFFERENT'} bit for bit; "
+                    f"{int(kept.sum())} rows of real pages no valid row "
+                    f"targets {'unchanged' if untouched else 'CHANGED'}; "
+                    f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
+                if not (exact and untouched and finite):
+                    raise AssertionError("quant_paged_cache_update "
+                                         "disagrees with its plain version")
+                if name.startswith(("decode", "prefill")) \
+                        and dt == torch.bfloat16:
+                    n = int(ok.sum()) * h
+                    tm = {
+                        "ms": time_ms(
+                            lambda: kernel.quant_paged_cache_update_cuda(
+                                pool, scales, *args), iters=200),
+                        "plain_ms": time_ms(
+                            lambda: ref.quant_paged_cache_update_ref(
+                                pool, scales, *args), iters=200),
+                        "library_ms": None,
+                    }
+                    tm["bound_ms"], tm["bound_by"] = bound(
+                        n * d * new.element_size() + n * d + 4 * n
+                        + 4 * int(ok.sum()) + 8 * b, 0.0, dt)
+                    log(f"  quant_paged_cache_update {mode} {name}: kernel "
+                        f"{tm['ms']:.5f} ms, plain {tm['plain_ms']:.5f}, "
+                        f"bound {tm['bound_ms']:.7f}")
+                    if name.startswith("decode"):
+                        results[mode] = dict(tm, max_abs_err=0.0)
     return results
 
 
@@ -448,11 +664,12 @@ def check_paged_cache_update(kernel, ref, dev):
     return results
 
 
-def check_paged_decode(kernel, ref, dev):
+def check_paged_decode(kernel, ref, dev, mode=None):
     """Tolerance TOL.  A row with no attendable key (a windowed dead row
     past its table) must give 0, the TPU kernel's value; the plain
     version, which folds every page, gives the mean of the values
-    there."""
+    there.  With ``mode`` the pools hold codes and the scale pools page
+    with them."""
     cases = {
         # row 7: a dead row, table masked to page 0, position past it
         "main P513 ps16 B8 NB64 KVH3 G3 hd64": dict(
@@ -486,6 +703,9 @@ def check_paged_decode(kernel, ref, dev):
             scale = 1.0 / math.sqrt(hd)
             kw = dict(window=cs["window"], softcap=cs["softcap"],
                       scale=scale)
+            if mode:
+                (kp, kw["k_scale"]), (vp, kw["v_scale"]) = quantized(
+                    mode, kp, vp)
             got = kernel.decode_attention_paged_cuda(q, kp, vp, table, lens,
                                                      **kw)
             want = ref.decode_attention_paged_ref(q, kp, vp, table, lens,
@@ -500,8 +720,8 @@ def check_paged_decode(kernel, ref, dev):
             err = max_err(got[some], want[some])
             zero = max_err(got[none], torch.zeros_like(got[none])) \
                 if none else 0.0
-            log(f"  decode_attention_paged {name} {str(dt)[6:]}: max |err| "
-                f"{err:.3g} (tol {TOL[dt]:.3g})"
+            log(f"  decode_attention_paged {mode or ''} {name} "
+                f"{str(dt)[6:]}: max |err| {err:.3g} (tol {TOL[dt]:.3g})"
                 + (f"; rows {none} attend no key: max |out| {zero} (must "
                    f"be 0)" if none else ""))
             if not err <= TOL[dt] or zero != 0.0:
@@ -520,8 +740,9 @@ def check_paged_decode(kernel, ref, dev):
                     pos = np.arange(f, min(n, c - 1) + 1)
                     entries.update((i, j) for j in np.unique(pos // ps))
                     rows.update((tab[i, pos // ps] * ps + pos % ps).tolist())
-                nbytes = len(rows) * kvh * 2 * hd * el \
-                    + 2 * q.numel() * el + 4 * (b + len(entries))
+                nbytes = len(rows) * kvh * 2 * (hd * el + (4 if mode else 0)) \
+                    + 2 * q.numel() * q.element_size() \
+                    + 4 * (b + len(entries))
                 flops = keys * kvh * g * 4 * hd
                 tm = {
                     "ms": time_ms(lambda: kernel.decode_attention_paged_cuda(
@@ -538,9 +759,10 @@ def check_paged_decode(kernel, ref, dev):
     return results
 
 
-def check_paged_prefill(kernel, ref, dev):
+def check_paged_prefill(kernel, ref, dev, mode=None):
     """Tolerance TOL.  Offsets at, just before and just past a page
-    boundary, and 0 (no cache page read)."""
+    boundary, and 0 (no cache page read).  With ``mode`` the pools hold
+    codes and the scale pools page with them."""
     cases = {
         "main P513 ps16 B8 T32 NB64 KVH3 G3 hd64": dict(
             p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
@@ -576,21 +798,25 @@ def check_paged_prefill(kernel, ref, dev):
             scale = 1.0 / math.sqrt(hd)
             kw = dict(window=cs["window"], softcap=cs["softcap"],
                       scale=scale)
+            if mode:
+                (kp, kw["k_scale"]), (vp, kw["v_scale"]) = quantized(
+                    mode, kp, vp)
             args = (q, kx, vx, kp, vp, table, offs)
             got = kernel.prefill_attention_paged_cuda(*args, **kw)
             want = ref.prefill_attention_paged_ref(*args, **kw)
             torch.cuda.synchronize()
             err = max_err(got, want)
-            log(f"  prefill_attention_paged {name} {str(dt)[6:]}: max "
-                f"|err| {err:.3g} (tol {TOL[dt]:.3g})")
+            log(f"  prefill_attention_paged {mode or ''} {name} "
+                f"{str(dt)[6:]}: max |err| {err:.3g} (tol {TOL[dt]:.3g})")
             if not err <= TOL[dt]:
                 raise AssertionError("prefill_attention_paged disagrees "
                                      "with its plain version")
             if name.startswith("serve path") and dt == torch.bfloat16:
-                el = kp.element_size()
+                el, qel = kp.element_size(), q.element_size()
                 prefix = sum(min(o, nb * ps) for o in cs["offs"])
-                nbytes = (prefix + b * t) * kvh * 2 * hd * el \
-                    + 2 * q.numel() * el + 4 * (b + prefix // ps)
+                nbytes = prefix * kvh * 2 * (hd * el + (4 if mode else 0)) \
+                    + b * t * kvh * 2 * hd * qel + 2 * q.numel() * qel \
+                    + 4 * (b + prefix // ps)
                 pairs = t * prefix + b * t * (t + 1) // 2
                 flops = pairs * kvh * g * 4 * hd
                 tm = {
@@ -927,6 +1153,122 @@ def check_small_reference(configs, model_mod, ServeEngine, Request):
         raise AssertionError(f"engine tokens differ: {runs}")
 
 
+def ordinals(codes: torch.Tensor) -> torch.Tensor:
+    """Codes as integers in value order: int8 as they are, fp8_e4m3 as
+    its sign-magnitude byte, so neighbouring values differ by 1."""
+    if codes.dtype == torch.int8:
+        return codes.int()
+    u = codes.view(torch.uint8).int()
+    return torch.where(u >= 128, -(u & 0x7F), u & 0x7F)
+
+
+def code_flips(a: dict, b: dict, skip_page0: bool = False) -> int:
+    """Codes of two caches one step apart (raises on any further apart),
+    and scales within 1e-5 relative."""
+    flips = 0
+    for name in ("k", "v"):
+        x, y = ordinals(a[name].cpu()), ordinals(b[name].cpu())
+        s, t = a[f"{name}_scale"].cpu(), b[f"{name}_scale"].cpu()
+        if skip_page0:
+            x, y, s, t = x[:, 1:], y[:, 1:], s[:, 1:], t[:, 1:]
+        d = (x - y).abs()
+        if int(d.max()) > 1 or not torch.allclose(s, t, rtol=1e-5, atol=0):
+            raise AssertionError(f"{name}: codes {int(d.max())} steps apart "
+                                 f"or scales apart, card vs CPU")
+        flips += int((d == 1).sum())
+    return flips
+
+
+# Card against CPU on a quantized cache: with equal codes the logits
+# differ as the fp32 steps do (under 1e-4); a code can also land one step
+# apart where the two sides' k/v straddle a rounding boundary in their
+# last bits, which moves these logits by up to ~1e-3 (fp8) each, so the
+# gate allows a few such codes.
+QUANT_CARD_TOL = 1e-2
+
+
+def check_small_quantized(configs, model_mod, ServeEngine, Request):
+    """Reduced smollm-135m, fp32, int8 and fp8_e4m3 caches: the serve
+    steps on the card (kernels) against the CPU (plain versions),
+    contiguous and paged; the drift gate of tests/test_quant_serve.py on
+    the card; the engine's greedy tokens equal on card and CPU in both
+    layouts."""
+    base = dataclasses.replace(configs.get_config("smollm-135m",
+                                                  reduced=True),
+                               dtype="float32")
+    params = model_mod.init_params(base, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    t = 32
+    toks = torch.as_tensor(rng.integers(0, base.vocab_size, (2, t)))
+    padded = torch.zeros_like(toks)
+    padded[:, :t - 1] = toks[:, :t - 1]
+    table = torch.tensor([[5, 2, 9, 7], [3, 8, 1, 6]], dtype=torch.int32)
+    offs, last = torch.tensor([0, 5]), torch.tensor([7, -1])
+
+    def contiguous_steps(cfg, dev):
+        """Prefill t - 1 tokens in chunks of 8, then two decode steps."""
+        fns = model_mod.make_serve_fns(cfg)
+        p = model_mod.serving_params(cfg, params, dev)
+        caches = model_mod.init_caches(cfg, 2, t + 4, torch.float32, dev)
+        for off in range(0, t, 8):
+            fns.prefill_chunk(p, caches, padded[:, off:off + 8].to(dev), off,
+                              min(t - 2 - off, 7))
+        l1 = fns.decode(p, caches, toks[:, t - 1:].to(dev), t - 1)
+        l2 = fns.decode(p, caches, toks[:, :1].to(dev), t)
+        return [l1.cpu(), l2.cpu()], caches["units"]["r0"]
+
+    def paged_steps(cfg, dev):
+        pfns = model_mod.make_paged_serve_fns(cfg)
+        p = model_mod.serving_params(cfg, params, dev)
+        pools = model_mod.init_paged_caches(cfg, 10, 8, torch.float32, dev)
+        lp = pfns.prefill_chunk(p, pools, toks[:, :8].to(dev), offs.to(dev),
+                                last.to(dev), table.to(dev))
+        ld = pfns.decode(p, pools, toks[:, -1:].to(dev),
+                         torch.tensor([8, 9], device=dev), table.to(dev))
+        return [lp[:1].cpu(), ld.cpu()], pools["units"]["r0"]
+
+    ref = contiguous_steps(base, "cuda")[0]
+    mix = [([1, 2, 3], 8), ([4, 5], 3), ([6], 1),
+           ([7, 8, 9, 10, 11, 12, 13, 14, 15], 5), ([2], 12)]
+    for mode in MODES:
+        cfg = dataclasses.replace(base, kv_quant=mode)
+        for layout, steps in (("contiguous", contiguous_steps),
+                              ("paged", paged_steps)):
+            (lc, cc), (lg, cg) = steps(cfg, "cpu"), steps(cfg, "cuda")
+            err = max(max_err(a, b) for a, b in zip(lc, lg))
+            flips = code_flips(cc, cg, skip_page0=layout == "paged")
+            log(f"  reduced fp32 {mode} {layout} serve steps, card vs CPU: "
+                f"logits max |err| {err:.3g} (tol {QUANT_CARD_TOL}), "
+                f"{flips} codes one step apart, scales within 1e-5")
+            if not err <= QUANT_CARD_TOL:
+                raise AssertionError(f"{mode} {layout} serve steps on the "
+                                     f"card disagree with the CPU")
+            if layout == "contiguous":
+                drift = max(max_err(a, b) for a, b in zip(lg, ref))
+                gate = DRIFT_GATE[mode] * max(float(ref[0].abs().max()), 1.0)
+                finite = all(bool(torch.isfinite(x).all()) for x in lg)
+                log(f"  reduced fp32 {mode} decode on the card against the "
+                    f"fp32 cache: max |dlogit| {drift:.4g} (gate {gate:.4g}: "
+                    f"{DRIFT_GATE[mode]} of max(max |logit|, 1))")
+                if not (finite and drift < gate):
+                    raise AssertionError(f"{mode} drift gate failed")
+        runs = {}
+        for dev, layout in (("cpu", "contiguous"), ("cuda", "contiguous"),
+                            ("cpu", "paged"), ("cuda", "paged")):
+            kw = dict(kv_layout="paged", kv_page_size=8) \
+                if layout == "paged" else {}
+            eng = ServeEngine(base, params, batch_size=2, max_len=64,
+                              prefill_chunk=4, cache_dtype=mode, device=dev,
+                              **kw)
+            runs[dev, layout] = [r.out for r in eng.generate(
+                [Request(prompt=p, max_new_tokens=n) for p, n in mix])]
+        same = {k: v == runs["cuda", "paged"] for k, v in runs.items()}
+        log(f"  reduced fp32 {mode} engine greedy tokens, paged engine on "
+            f"the card equal to: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"{mode} engine tokens differ: {runs}")
+
+
 # -- phase 5: serve at full width --------------------------------------------------
 
 def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
@@ -963,7 +1305,8 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
         reader.close()
     trace_serve(eng, cfg, Request, rng)
     session.close()
-    return runs[0][0]
+    return runs[0][0], prompts, runs[0][1], \
+        eng.stats()["kv_cache"]["bytes_per_token"]
 
 
 def served_run(eng, Request, prompts, kernels, meter, index, session,
@@ -1111,6 +1454,77 @@ def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
     return launches
 
 
+def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
+                    others, nvml, pmt, serve_launch, prompts, bf16_tokens,
+                    bf16_bytes):
+    """Phase 5c: phase 5's 16 requests through full-width smollm-135m
+    once per quantized cache mode and layout (contiguous; paged, page 16,
+    the default pool of 512 usable pages), each on its own engine, all
+    through one PMT session (cpuutil + nvml).  ``kernels[layout]`` are
+    the three quantized kernels that layout must launch; every counter
+    in ``others[layout]`` (the bf16 kernels, the other layout's quantized
+    ones) must stay 0.  Checks the mode in ``stats()``, the footprint under
+    0.6x phase 5's bf16 bytes per token, and everything ``served_run``
+    checks; traces the int8 engines as phases 5 and 5b trace theirs.
+    Returns each kernel's launches summed over both modes."""
+    cfg = configs.get_config("smollm-135m")
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    reader = nvml.NvmlReader(0)
+    rng = np.random.default_rng(2)
+    totals = {}
+    try:
+        log(f"  NVML: {reader.name()}, enforced power limit "
+            f"{reader.power_limit_watts():.0f} W")
+        for layout in ("contiguous", "paged"):
+            for index, mode in enumerate(MODES, 1):
+                kw = dict(kv_layout="paged", kv_page_size=16) \
+                    if layout == "paged" else {}
+                eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
+                                  prefill_chunk=32, cache_dtype=mode,
+                                  session=session, **kw)
+                kc = eng.stats()["kv_cache"]
+                ratio = kc["bytes_per_token"] / bf16_bytes
+                log(f"  {mode} {layout}: stats cache_dtype "
+                    f"{kc['cache_dtype']!r}, {kc['bytes_per_token']:.1f} "
+                    f"B/token, {ratio:.3f}x phase 5's bf16 "
+                    f"{bf16_bytes:.1f} (must be under 0.6x)")
+                if kc["cache_dtype"] != mode or not ratio < 0.6:
+                    raise AssertionError(f"{mode} {layout}: kv_cache stats "
+                                         f"{kc}")
+                eng.generate([Request(prompt=rng.integers(
+                    0, cfg.vocab_size, 40).tolist(), max_new_tokens=4)
+                    for _ in range(2)])
+                torch.cuda.synchronize()
+                zero_counts(others[layout])
+                counts, out = served_run(
+                    eng, Request, prompts, kernels[layout],
+                    nvml.EnergyMeter(reader), f"{mode} {layout}", session,
+                    energy, serve_launch)
+                stray = {k: n for k, n in read_counts(others[layout]).items()
+                         if n}
+                if stray:
+                    raise AssertionError(f"{mode} {layout} launched other "
+                                         f"kernels: {stray}")
+                agree = sum(a == b for a, b in zip(out, bf16_tokens))
+                log(f"  {mode} {layout}: the bf16 kernels and the other "
+                    f"layout's stayed at 0; {agree} of {len(out)} requests "
+                    f"generate phase 5's bf16 tokens (not gated)")
+                for name, n in counts.items():
+                    totals[name] = totals.get(name, 0) + n
+                if mode == "int8":
+                    # phase 5's and 5b's traced run on this engine: the
+                    # same shapes, so its wall clock, device busy time and
+                    # launches compare with theirs
+                    trace_serve(eng, cfg, Request, rng)
+                del eng
+    finally:
+        reader.close()
+    session.close()
+    return totals
+
+
 def trace_serve(eng, cfg, Request, rng):
     """Where the time goes: a short serve run (8 requests, 256-token
     prompts, 32 new tokens) under ``torch.profiler``; prints the device
@@ -1130,22 +1544,28 @@ def trace_serve(eng, cfg, Request, rng):
     # Device rows only (kernels, copies): a host op's row repeats the
     # device time of the kernels it launched, so summing every row
     # would count that time twice.
+    averages = prof.key_averages()
     rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == DeviceType.CUDA
             and not e.is_user_annotation]
     busy_us = sum(t for _, t, _ in rows)
     if busy_us <= 0:
         log("  trace: the profiler recorded no device time")
         return
+    # kernel launches the host issued (runtime and driver API calls)
+    issued = sum(e.count for e in averages
+                 if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
     log(f"  trace: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of "
-        f"wall, under the profiler)")
+        f"wall, under the profiler); {issued} kernel launches issued")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"    {t / 1e3:9.2f} ms  {n:6d} calls  {key[:90]}")
     for key, t, n in rows:
         if any(name in key for name in ("scatter_rows_kernel",
                                         "paged_scatter_kernel",
+                                        "quant_scatter_kernel",
+                                        "quant_paged_scatter_kernel",
                                         "decode_attention_kernel",
                                         "prefill_attention_kernel")):
             log(f"  trace: {t / max(n, 1):.2f} us of device time per "
@@ -1319,7 +1739,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.core.backends import nvml
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, quant
     from repro_torch.kernels.cache_update import kernel as cu_kernel
     from repro_torch.kernels.cache_update import ref as cu_ref
     from repro_torch.kernels.decode_attention import kernel as da_kernel
@@ -1342,6 +1762,8 @@ def main() -> int:
     from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import Request, ServeEngine
 
+    t_start = time.perf_counter()
+    elapsed = lambda: f"({time.perf_counter() - t_start:.0f} s in)"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1370,7 +1792,30 @@ def main() -> int:
         "decode_attention_paged": check_paged_decode(da_kernel, da_ref,
                                                      dev),
     }
-    log("[3b] Fig. 2 kernels against their plain versions")
+    log(f"[3q] quantized caches (int8, fp8_e4m3): the quantizing scatters "
+        f"bit for bit, the attention kernels over codes {elapsed()}")
+    quant_timings = {
+        "quant_cache_update": check_quant_cache_update(cu_kernel, cu_ref,
+                                                       quant, dev),
+        "quant_paged_cache_update": check_quant_paged_cache_update(
+            cu_kernel, cu_ref, quant, dev),
+    }
+    for name, check, kernel, ref in (
+            ("prefill_attention", check_prefill, pa_kernel, pa_ref),
+            ("decode_attention", check_decode, da_kernel, da_ref),
+            ("prefill_attention_paged", check_paged_prefill, pa_kernel,
+             pa_ref),
+            ("decode_attention_paged", check_paged_decode, da_kernel,
+             da_ref)):
+        quant_timings[name] = {m: check(kernel, ref, dev, mode=m)
+                               for m in MODES}
+    for name, by_mode in quant_timings.items():
+        for mode, t in by_mode.items():
+            log(f"  {name} {mode}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library none, bound "
+                f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
+
+    log(f"[3b] Fig. 2 kernels against their plain versions {elapsed()}")
     timings.update({
         "fma32": check_fma32(fma_kernel, fma_ref, dev),
         "stream_triad": check_stream(st_kernel, st_ref, dev),
@@ -1385,19 +1830,22 @@ def main() -> int:
             f"ms, library {lib} ms, bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
 
-    log("[4] small reference: reduced smollm-135m fp32, card vs CPU")
+    log(f"[4] small reference: reduced smollm-135m fp32, card vs CPU "
+        f"{elapsed()}")
     check_small_reference(configs, model_mod, ServeEngine, Request)
+    check_small_quantized(configs, model_mod, ServeEngine, Request)
 
-    log("[5] serve full-width smollm-135m, 16 requests, 8 slots, "
-        "max_len 1024, chunk 32, bf16")
+    log(f"[5] serve full-width smollm-135m, 16 requests, 8 slots, "
+        f"max_len 1024, chunk 32, bf16 {elapsed()}")
     kernels = {"cache_update": cu_kernel, "prefill_attention": pa_kernel,
                "decode_attention": da_kernel}
-    launches = serve_full(configs, model_mod, ServeEngine, Request, kernels,
-                          nvml, pmt, serve_launch)
+    launches, prompts, bf16_tokens, bf16_bytes = serve_full(
+        configs, model_mod, ServeEngine, Request, kernels, nvml, pmt,
+        serve_launch)
 
-    log("[5b] serve full-width smollm-135m paged: 16 requests sharing a "
-        "256-token system prompt, 8 slots, max_len 1024, chunk 32, page 16, "
-        "bf16, cold then warm")
+    log(f"[5b] serve full-width smollm-135m paged: 16 requests sharing a "
+        f"256-token system prompt, 8 slots, max_len 1024, chunk 32, page 16, "
+        f"bf16, cold then warm {elapsed()}")
     paged_kernels = {"paged_cache_update": cu_kernel,
                      "prefill_attention_paged": pa_kernel,
                      "decode_attention_paged": da_kernel}
@@ -1405,7 +1853,27 @@ def main() -> int:
                                 paged_kernels, nvml, pmt, serve_launch,
                                 kernels))
 
-    log("[6] the paper's Fig. 2 through launch/fig2.py, full size")
+    log(f"[5c] serve full-width smollm-135m with quantized KV caches: "
+        f"phase 5's 16 requests, int8 and fp8_e4m3, contiguous and paged "
+        f"(page 16), 8 slots, max_len 1024, chunk 32, bf16 weights "
+        f"{elapsed()}")
+    quant_kernels = {
+        "contiguous": {"quant_cache_update": cu_kernel,
+                       "prefill_attention quant": pa_kernel,
+                       "decode_attention quant": da_kernel},
+        "paged": {"quant_paged_cache_update": cu_kernel,
+                  "prefill_attention_paged quant": pa_kernel,
+                  "decode_attention_paged quant": da_kernel}}
+    all_kernels = dict(kernels, **paged_kernels,
+                       **quant_kernels["contiguous"], **quant_kernels["paged"])
+    others = {layout: {k: m for k, m in all_kernels.items() if k not in ks}
+              for layout, ks in quant_kernels.items()}
+    quant_launches = serve_quantized(
+        configs, model_mod, ServeEngine, Request, quant_kernels, others,
+        nvml, pmt, serve_launch, prompts, bf16_tokens, bf16_bytes)
+
+    log(f"[6] the paper's Fig. 2 through launch/fig2.py, full size "
+        f"{elapsed()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                           "--format=csv,noheader,nounits"],
@@ -1433,16 +1901,30 @@ def main() -> int:
                     "gemm": gemm_kernel, "jacobi2d": jac_kernel}
     launches.update(fig2_phase(fig2, nvml, fig2_kernels))
 
+    # The two quantizing scatters are rows of their own, their numbers
+    # int8's with fp8_e4m3's beside them; the four attention kernels carry
+    # their quantized launches (phase 5c, both modes) and times beside
+    # their bf16 ones.
+    for name in ("quant_cache_update", "quant_paged_cache_update"):
+        by_mode = quant_timings.pop(name)
+        timings[name] = dict(by_mode["int8"], fp8_e4m3=by_mode["fp8_e4m3"])
+        launches[name] = quant_launches[name]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     rows = []
     for name, t in timings.items():
         source, replaces = KERNEL_INFO[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"]})
-    log("[7] results")
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               **{k: t[k] for k in keys}}
+        if "fp8_e4m3" in t:
+            row["fp8_e4m3"] = {k: t["fp8_e4m3"][k] for k in keys}
+        if name in quant_timings:
+            row["quant_launches"] = quant_launches[f"{name} quant"]
+            row["quant"] = {m: {k: quant_timings[name][m][k] for k in keys}
+                            for m in MODES}
+        rows.append(row)
+    log(f"[7] results {elapsed()}")
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -124,9 +124,9 @@ class ModelConfig:
     # "auto" and "flash": decode attention always runs the length-aware
     # kernels/decode_attention path), ``prefill_chunk`` (tokens per
     # chunked-prefill admission slice, see serve/engine.py) and
-    # ``kv_quant`` (rejected until the quantized-cache slice); the others
-    # steer JAX-only paths (XLA lowering, training, paging) that later
-    # slices bring over.
+    # ``kv_quant`` (int8 / fp8_e4m3 codes plus float32 row scales in the
+    # KV caches, kernels/quant.py); the others steer JAX-only paths (XLA
+    # lowering, training) that later slices bring over.
     attn_impl: str = "auto"          # auto | dense | chunked | pallas
     attn_chunk: int = 1024           # q-block for chunked attention
     decode_attn_impl: str = "auto"   # auto | dense | flash

@@ -24,12 +24,16 @@ def on_card(*tensors: torch.Tensor) -> bool:
                      f"CPU, got {sorted(kinds)}")
 
 
-def refuse_later_slices(v_width, k_scale, v_scale) -> None:
-    """Raise for the attention options of later slices of the port:
-    ``v_width`` (MLA's aliased latent cache) and ``k_scale``/``v_scale``
-    (quantized caches)."""
+def refuse_later_slices(v_width) -> None:
+    """Raise for the attention option of a later slice of the port:
+    ``v_width`` (MLA's aliased latent cache)."""
     if v_width is not None:
         raise NotImplementedError("v_width comes with the MLA slice")
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "k_scale/v_scale come with the quantized-cache slice")
+
+
+def scale_tensors(k_scale, v_scale) -> list:
+    """The row-scale tensors of a quantized cache that were given (for
+    ``on_card``); ``v_scale`` alone, without ``k_scale``, raises."""
+    if k_scale is None and v_scale is not None:
+        raise ValueError("v_scale without k_scale")
+    return [t for t in (k_scale, v_scale) if t is not None]

@@ -37,15 +37,20 @@ SIGNATURES = {
     "pmt_cache_update": [_P, _P, _P, _I, _I, _LL, _P],
     "pmt_paged_cache_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
                                _P],
-    "pmt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _I, _F, _I, _I, _P],
-    "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _I, _F, _I, _F, _I, _I, _P],
-    "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _I, _F, _I, _I, _P],
-    "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _I, _I, _I, _F, _I, _F, _I,
-                                    _I, _P],
+    "pmt_quant_cache_update": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "pmt_quant_paged_cache_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _I, _I, _I, _P],
+    "pmt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _F, _I, _F, _I, _I, _P],
+    "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
+                                   _P],
+    "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _I,
+                              _P],
+    "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                    _F, _I, _I, _P],
     "pmt_fma32": [_P, _P, _LL, _I, _P],
     "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
     "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -141,11 +146,15 @@ def check(err: int, name: str) -> None:
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CODE_DTYPE_CODES = {torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
-def dtype_code(dtype) -> int:
-    """The C side's element-type code: 0 = float32, 1 = bfloat16."""
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, "
-                        f"not {dtype}")
-    return _DTYPE_CODES[dtype]
+def dtype_code(dtype, codes: bool = False) -> int:
+    """The C side's element-type code: 0 = float32, 1 = bfloat16; with
+    ``codes``, the quantized caches' element types instead: 2 = int8,
+    3 = float8_e4m3fn.  Raises for any other dtype."""
+    table = _CODE_DTYPE_CODES if codes else _DTYPE_CODES
+    if dtype not in table:
+        raise TypeError(f"the CUDA kernels take "
+                        f"{' or '.join(map(str, table))} here, not {dtype}")
+    return table[dtype]

@@ -5,6 +5,9 @@ attention K/V — flattens them to the kernel's (B, C, F) layout and
 writes in place: the CUDA kernel for tensors on the card, the plain
 version for tensors on the CPU.  ``paged_cache_update`` does the same
 for (P, page_size, *rest) page pools addressed through a page table.
+``quant_cache_update`` and ``quant_paged_cache_update`` are their
+quantizing twins for int8 / fp8_e4m3 caches: each (row, head) vector is
+quantized to codes plus one float32 scale, both scattered in place.
 The JAX package returned a new buffer (the Pallas call aliased its
 input); here the caller's cache itself is updated, and also returned.
 """
@@ -14,9 +17,11 @@ import torch
 
 from repro_torch.kernels import on_card
 from repro_torch.kernels.cache_update.kernel import (
-    cache_update_cuda, paged_cache_update_cuda)
-from repro_torch.kernels.cache_update.ref import (cache_update_ref,
-                                                  paged_cache_update_ref)
+    cache_update_cuda, paged_cache_update_cuda, quant_cache_update_cuda,
+    quant_paged_cache_update_cuda)
+from repro_torch.kernels.cache_update.ref import (
+    cache_update_ref, paged_cache_update_ref, quant_cache_update_ref,
+    quant_paged_cache_update_ref)
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
@@ -56,3 +61,53 @@ def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
     paged_cache_update_cuda(pool.view(p, ps, -1), rows, i32(page_table),
                             i32(starts), i32(valids))
     return pool
+
+
+def _heads(codes: torch.Tensor) -> torch.Tensor:
+    """A code leaf (B, C, *rest) or (P, page_size, *rest) as the kernels'
+    4-D view (B, C, H, D): H the product of rest[:-1], 1 for none."""
+    return codes.view(*codes.shape[:2], -1, codes.shape[-1])
+
+
+def quant_cache_update(cache: torch.Tensor, scales: torch.Tensor,
+                       new: torch.Tensor, slots: torch.Tensor, mode: str):
+    """Quantize ``new[b, 0]`` per row and write its codes at
+    ``cache[b, slots[b]]`` and its scales at ``scales[b, slots[b]]``.
+
+    cache: (B, C, *rest) codes of ``mode``   scales: (B, C, *rest[:-1])
+    float32   new: (B, 1, *rest) full precision   slots: (B,) int.
+    Returns ``(cache, scales)``, updated in place.
+    """
+    if not on_card(cache, scales, new, slots):
+        return quant_cache_update_ref(cache, scales, new, slots, mode)
+    codes = _heads(cache)
+    quant_cache_update_cuda(codes, scales.view(codes.shape[:3]),
+                            new.reshape(*new.shape[:2], *codes.shape[2:])
+                            .contiguous(),
+                            slots.to(torch.int32).contiguous(), mode)
+    return cache, scales
+
+
+def quant_paged_cache_update(pool: torch.Tensor, scales: torch.Tensor,
+                             new: torch.Tensor, page_table: torch.Tensor,
+                             starts: torch.Tensor, valids: torch.Tensor,
+                             mode: str):
+    """Quantize ``new[b, t]`` per row and write codes and scales at
+    logical position ``starts[b] + t`` of row ``b``'s paged cache, for
+    ``t < valids[b]``.
+
+    pool: (P, page_size, *rest) codes   scales: (P, page_size, *rest[:-1])
+    float32, paged like ``pool``   new: (B, T, *rest)   page_table:
+    (B, NB) int   starts/valids: (B,).  Masked rows never touch a real
+    page (as ``paged_cache_update``).  Returns ``(pool, scales)``.
+    """
+    if not on_card(pool, scales, new, page_table, starts, valids):
+        return quant_paged_cache_update_ref(pool, scales, new, page_table,
+                                            starts, valids, mode)
+    codes = _heads(pool)
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    quant_paged_cache_update_cuda(
+        codes, scales.view(codes.shape[:3]),
+        new.reshape(*new.shape[:2], *codes.shape[2:]).contiguous(),
+        i32(page_table), i32(starts), i32(valids), mode)
+    return pool, scales

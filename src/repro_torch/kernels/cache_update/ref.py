@@ -8,10 +8,18 @@ Out-of-range slots clamp to the nearest row, as
 
 ``paged_cache_update_ref``: the JAX package's ``paged_cache_update_ref``,
 the scatter through a page table into a shared page pool.
+
+``quant_cache_update_ref`` / ``quant_paged_cache_update_ref``: the JAX
+package's quantizing twins, quantize then scatter: ``quant.quantize``
+over all rows at once, then the two scatters above for the codes and
+for the scales.  Quantization is per row, so quantizing the whole batch
+here and one row at a time in the kernels gives the same bits.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels import quant
 
 
 def cache_update_ref(cache: torch.Tensor, new: torch.Tensor,
@@ -53,3 +61,30 @@ def paged_cache_update_ref(pool: torch.Tensor, new: torch.Tensor,
     flat[(page * ps + row).reshape(-1)] = \
         new.reshape(b * t, -1).to(pool.dtype)
     return pool
+
+
+def quant_cache_update_ref(cache: torch.Tensor, scales: torch.Tensor,
+                           new: torch.Tensor, slots: torch.Tensor,
+                           mode: str):
+    """cache: (B, C, *rest) codes  scales: (B, C, *rest[:-1]) float32
+    new: (B, 1, *rest) full precision  slots: (B,) int.  Quantizes
+    ``new`` per row and scatters codes and scales in place; returns
+    ``(cache, scales)``."""
+    codes, s = quant.quantize(new, mode)
+    return (cache_update_ref(cache, codes, slots),
+            cache_update_ref(scales, s, slots))
+
+
+def quant_paged_cache_update_ref(pool: torch.Tensor, scales: torch.Tensor,
+                                 new: torch.Tensor, page_table: torch.Tensor,
+                                 starts: torch.Tensor, valids: torch.Tensor,
+                                 mode: str):
+    """pool: (P, page_size, *rest) codes  scales: (P, page_size,
+    *rest[:-1]) float32, paged like ``pool``  new: (B, T, *rest)
+    page_table: (B, NB)  starts/valids: (B,) int.  Codes land in
+    ``pool`` and scales in ``scales`` through the same table, with the
+    same masking (masked rows to the scratch page 0).  Returns
+    ``(pool, scales)``."""
+    codes, s = quant.quantize(new, mode)
+    return (paged_cache_update_ref(pool, codes, page_table, starts, valids),
+            paged_cache_update_ref(scales, s, page_table, starts, valids))

@@ -1,11 +1,17 @@
 // Helpers shared by the port's CUDA kernels: element conversion, warp
-// reductions, and the online-softmax fold of one key tile that the
-// decode and chunked-prefill attention kernels both run.
+// reductions, the online-softmax fold of one key tile that the decode
+// and chunked-prefill attention kernels both run, and the tile loads
+// that dequantize the code types of quantized caches (int8_t and
+// __nv_fp8_e4m3, one float32 scale per row) as they stage a tile.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 // The additive mask of kernels/constants.py: finite, so that a fully
 // masked score never turns the running max into NaN.
@@ -18,6 +24,20 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// Codes of a quantized cache, widened exactly (every int8 and every
+// e4m3 value is a float32; e4m3 goes through half, which also holds it).
+template <> __device__ __forceinline__ float to_f<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+template <> __device__ __forceinline__ float to_f<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+
+// Element types that hold quantization codes, each row scaled by a
+// float32 scale kept beside it: dequantized = float(code) * scale.
+template <typename T> struct is_code : std::false_type {};
+template <> struct is_code<int8_t> : std::true_type {};
+template <> struct is_code<__nv_fp8_e4m3> : std::true_type {};
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -91,11 +111,19 @@ __device__ __forceinline__ void pv_fold(const float* ps, const float* vs,
 // them, so a tile costs about one memory round trip rather than one per
 // element; otherwise neighbouring threads read neighbouring elements.
 // `row` maps a tile row to its address: a fixed stride for a contiguous
-// cache, a page-table lookup for a paged one.
+// cache, a page-table lookup for a paged one.  For a code type `T` each
+// element is staged as float(code) * scl[r] (`scl`: the tile's row
+// scales, already in shared memory), the op order of the plain
+// versions; other types ignore `scl`.
 template <typename T, typename RowFn>
 __device__ __forceinline__ void load_rows(float* dst, RowFn row, int n,
                                           int width, bool vec_ok,
-                                          int pitch) {
+                                          int pitch,
+                                          const float* scl = nullptr) {
+  auto widen = [&](T x, int r) -> float {
+    if constexpr (is_code<T>::value) return to_f(x) * scl[r];
+    else return to_f(x);
+  };
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kInFlight = 4;
   if (vec_ok) {
@@ -119,7 +147,7 @@ __device__ __forceinline__ void load_rows(float* dst, RowFn row, int n,
           const T* e = reinterpret_cast<const T*>(&buf[u]);
           float* d = dst + r * pitch + c * kVec;
 #pragma unroll
-          for (int j = 0; j < kVec; ++j) d[j] = to_f(e[j]);
+          for (int j = 0; j < kVec; ++j) d[j] = widen(e[j], r);
         }
       }
     }
@@ -127,7 +155,7 @@ __device__ __forceinline__ void load_rows(float* dst, RowFn row, int n,
   }
   for (int i = threadIdx.x; i < n * width; i += blockDim.x) {
     const int r = i / width, d = i - r * width;
-    dst[r * pitch + d] = to_f(row(r)[d]);
+    dst[r * pitch + d] = widen(row(r)[d], r);
   }
 }
 

@@ -24,6 +24,15 @@
 // into its physical row (page_table[b, pos / ps] * ps + pos % ps) in
 // shared memory, then loads the rows.
 //
+// Quantized caches (int8 or fp8_e4m3 codes with one float32 scale per
+// (position, kv head) row beside them) replace the quantized branch of
+// both TPU kernels.  Only the cache prefix holds codes: the chunk's own
+// k/v arrive at q's precision.  Phase 1's tile loader reads the codes at
+// their own width and the tile's row scales through the same row
+// mapping (for a paged tile, the same physical rows), and stages
+// float(code) * scale in shared memory; nothing dequantized goes to
+// device memory.
+//
 // What bounds it on the H100: at the serve path's shapes (a 32-token
 // chunk, 3 query heads per kv head, prefixes up to ~1k) each key tile
 // is used by 96 query rows, ~0.1k flops per byte, still below the
@@ -55,16 +64,21 @@ __host__ __device__ inline size_t smem_floats(int hd, int hdv) {
 
 // kPaged: kc, vc are pools (P, ps, KVH, hd) and page_table is (B, NB),
 // C = NB * ps; otherwise kc, vc are (B, C, KVH, hd) and page_table unused.
+// A code type TC (int8_t, __nv_fp8_e4m3) reads ksc, vsc: the cache's row
+// scales (rows x KVH, rows counted as kc's); other types ignore them.
 template <typename TQ, typename TC, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
                          const TQ* __restrict__ vx, const TC* __restrict__ kc,
-                         const TC* __restrict__ vc, const int* __restrict__ offs,
+                         const TC* __restrict__ vc, const float* __restrict__ ksc,
+                         const float* __restrict__ vsc, const int* __restrict__ offs,
                          const int* __restrict__ page_table, TQ* __restrict__ out, int T,
                          int C, int NB, int ps, int KVH, int G, int hd, int hdv,
                          float scale, int ring, int window, float softcap) {
   extern __shared__ float smem[];
   __shared__ int rows_[kTile];  // physical rows of a paged tile's keys
+  __shared__ float kscl[kTile], vscl[kTile];  // a quantized tile's row scales
+  constexpr bool kQuant = pmt::is_code<TC>::value;
   const int b = blockIdx.x, h = blockIdx.y;
   const int row0 = blockIdx.z * kRows;
   const int rows_total = T * G;
@@ -144,10 +158,15 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
   for (int lo = start; lo < limit; lo += kTile) {
     const int n = min(kTile, limit - lo);
     __syncthreads();  // previous tile's readers are done with ks/vs/ps/rows
-    if constexpr (kPaged) {
+    if constexpr (kPaged || kQuant) {
       for (int r = threadIdx.x; r < n; r += kThreads) {
         const int pos = lo + r;  // < limit <= C, so pos / ps < NB
-        rows_[r] = pt[pos / ps] * ps + pos % ps;
+        if constexpr (kPaged) rows_[r] = pt[pos / ps] * ps + pos % ps;
+        if constexpr (kQuant) {  // the codes' own rows, paged or not
+          const size_t row = kPaged ? (size_t)rows_[r] : (size_t)b * C + pos;
+          kscl[r] = ksc[row * KVH + h];
+          vscl[r] = vsc[row * KVH + h];
+        }
       }
       __syncthreads();
     }
@@ -156,9 +175,9 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
       else return (size_t)b * C + lo + r;
     };
     pmt::load_rows<TC>(ks, [&](int r) { return kch + phys(r) * kstride; }, n, hd, kvec,
-                       hd + 1);
+                       hd + 1, kscl);
     pmt::load_rows<TC>(vs, [&](int r) { return vch + phys(r) * vstride; }, n, hdv, vvec,
-                       hdv);
+                       hdv, vscl);
     __syncthreads();
     scores(lo, n, true);
     fold(n);
@@ -186,7 +205,7 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
 }
 
 struct Args {
-  const void *q, *kx, *vx, *kc, *vc, *offs, *page_table;
+  const void *q, *kx, *vx, *kc, *vc, *ksc, *vsc, *offs, *page_table;
   void* out;
   int B, T, C, NB, ps, KVH, G, hd, hdv;
   float scale;
@@ -207,53 +226,69 @@ int launch(const Args& a, cudaStream_t stream) {
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TQ*>(a.kx), static_cast<const TQ*>(a.vx),
       static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
+      static_cast<const float*>(a.ksc), static_cast<const float*>(a.vsc),
       static_cast<const int*>(a.offs), static_cast<const int*>(a.page_table),
       static_cast<TQ*>(a.out), a.T, a.C, a.NB, a.ps, a.KVH, a.G, a.hd, a.hdv, a.scale,
       a.ring, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TQ, bool kPaged>
+int by_cache_type(const Args& a, int cache_dtype, cudaStream_t s) {
+  if (cache_dtype >= 2 && (a.ksc == nullptr || a.vsc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);  // codes need their scales
+  switch (cache_dtype) {
+    case 0: return launch<TQ, float, kPaged>(a, s);
+    case 1: return launch<TQ, __nv_bfloat16, kPaged>(a, s);
+    case 2: return launch<TQ, int8_t, kPaged>(a, s);
+    case 3: return launch<TQ, __nv_fp8_e4m3, kPaged>(a, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool kPaged>
 int dispatch(const Args& a, int q_dtype, int cache_dtype, void* stream) {
   if (a.B == 0 || a.T == 0 || a.KVH == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q_dtype == 0 && cache_dtype == 0) return launch<float, float, kPaged>(a, s);
-  if (q_dtype == 0 && cache_dtype == 1) return launch<float, __nv_bfloat16, kPaged>(a, s);
-  if (q_dtype == 1 && cache_dtype == 0) return launch<__nv_bfloat16, float, kPaged>(a, s);
-  if (q_dtype == 1 && cache_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, kPaged>(a, s);
+  if (q_dtype == 0) return by_cache_type<float, kPaged>(a, cache_dtype, s);
+  if (q_dtype == 1) return by_cache_type<__nv_bfloat16, kPaged>(a, cache_dtype, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q, out: (B, KVH, T, G, hd/hdv) and chunk kx, vx: (B, T, KVH, hd/hdv)
-// of q_dtype; cache kc, vc: (B, C, KVH, hd/hdv) of cache_dtype; offs:
-// (B,) int32.  dtype codes: 0 = float32, 1 = bfloat16.  window <= 0 and
-// softcap <= 0 mean none.  Returns cudaGetLastError().
+// of q_dtype; cache kc, vc: (B, C, KVH, hd/hdv) of cache_dtype; k_scale,
+// v_scale: (B, C, KVH) float32 for the code types, else ignored (may be
+// null); offs: (B,) int32.  dtype codes: 0 = float32, 1 = bfloat16, 2 =
+// int8, 3 = fp8_e4m3 (q: 0 or 1).  window <= 0 and softcap <= 0 mean
+// none.  Returns cudaGetLastError().
 extern "C" int pmt_prefill_attention(const void* q, const void* kx, const void* vx,
-                                     const void* kc, const void* vc, const void* offs,
+                                     const void* kc, const void* vc, const void* k_scale,
+                                     const void* v_scale, const void* offs,
                                      void* out, int B, int T, int C, int KVH, int G, int hd,
                                      int hdv, float scale, int ring, int window,
                                      float softcap, int q_dtype, int cache_dtype,
                                      void* stream) {
-  const Args a{q, kx, vx, kc, vc, offs, nullptr, out, B, T, C, 1, C, KVH, G, hd, hdv,
-               scale, ring, window, softcap};
+  const Args a{q,   kx,  vx, kc,  vc, k_scale, v_scale, offs, nullptr, out, B,      T,
+               C,   1,   C,  KVH, G,  hd,      hdv,     scale, ring,  window, softcap};
   return dispatch<false>(a, q_dtype, cache_dtype, stream);
 }
 
 // q, out, kx, vx, offs as above; k_pool, v_pool: (P, ps, KVH, hd/hdv) of
-// cache_dtype; page_table: (B, NB) int32, every entry a page of the
-// pools.  window <= 0 and softcap <= 0 mean none.  Returns
-// cudaGetLastError().
+// cache_dtype; k_scale, v_scale: (P, ps, KVH) float32 pools for the code
+// types; page_table: (B, NB) int32, every entry a page of the pools.
+// window <= 0 and softcap <= 0 mean none.  Returns cudaGetLastError().
 extern "C" int pmt_prefill_attention_paged(const void* q, const void* kx, const void* vx,
                                            const void* k_pool, const void* v_pool,
+                                           const void* k_scale, const void* v_scale,
                                            const void* page_table, const void* offs,
                                            void* out, int B, int T, int NB, int ps, int KVH,
                                            int G, int hd, int hdv, float scale, int window,
                                            float softcap, int q_dtype, int cache_dtype,
                                            void* stream) {
-  const Args a{q, kx, vx, k_pool, v_pool, offs, page_table, out, B, T, NB * ps, NB, ps, KVH,
-               G, hd, hdv, scale, 0, window, softcap};
+  const Args a{q,  kx,  vx,     k_pool, v_pool, k_scale, v_scale, offs,   page_table,
+               out, B,   T,      NB * ps, NB,    ps,      KVH,     G,      hd,
+               hdv, scale, 0,    window,  softcap};
   return dispatch<true>(a, q_dtype, cache_dtype, stream);
 }

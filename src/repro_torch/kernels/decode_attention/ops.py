@@ -5,6 +5,8 @@
 head together, and runs the CUDA kernel for tensors on the card or the
 plain version for tensors on the CPU.  ``decode_attention_paged`` does
 the same over (P, page_size, KVH, hd) page pools and a page table.
+Both take quantized caches too: int8 / fp8_e4m3 codes with float32 row
+scales (``k_scale``/``v_scale``), dequantized inside the kernel.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card, refuse_later_slices
+from repro_torch.kernels import on_card, refuse_later_slices, \
+    scale_tensors
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_cuda, decode_attention_paged_cuda)
@@ -46,21 +49,22 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its slot.  cur_len: int or (B,) int tensor — the new token's
     position (valid cache positions are ``<= cur_len``).  ``ring=True``
     for sliding-window ring caches.  ``block_k`` is the blocking of the
-    plain version.  Returns (B, 1, H, hdv) in q.dtype.
+    plain version.  ``k_scale``/``v_scale``: (B, C, KVH) float32 row
+    scales when k/v hold int8 or float8_e4m3fn codes (``v_scale``
+    defaults to ``k_scale``).  Returns (B, 1, H, hdv) in q.dtype.
 
-    ``v_width`` (MLA's aliased latent cache) and ``k_scale``/``v_scale``
-    (quantized caches) come with later slices of the port and raise.
+    ``v_width`` (MLA's aliased latent cache) comes with a later slice of
+    the port and raises.
     """
-    refuse_later_slices(v_width, k_scale, v_scale)
+    refuse_later_slices(v_width)
     qg, lens = _pack(q, k.shape[2], cur_len, "decode_attention")
     b, _, h, _ = q.shape
-    if on_card(q, k, v, lens):
-        out = decode_attention_cuda(qg.contiguous(), k, v, lens,
-                                    ring=ring, softcap=softcap, scale=scale)
+    kw = dict(ring=ring, softcap=softcap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if on_card(q, k, v, lens, *scale_tensors(k_scale, v_scale)):
+        out = decode_attention_cuda(qg.contiguous(), k, v, lens, **kw)
     else:
-        out = decode_attention_ref(qg, k, v, lens, ring=ring,
-                                   softcap=softcap, scale=scale,
-                                   block_k=block_k)
+        out = decode_attention_ref(qg, k, v, lens, block_k=block_k, **kw)
     return out.reshape(b, 1, h, out.shape[-1])
 
 
@@ -79,16 +83,19 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     page_table: (B, NB) int logical block -> physical page.  cur_len:
     int or (B,) int tensor.  Paged caches store sliding-window layers
     unwrapped, so ``window`` is an explicit mask here (no ``ring``).
+    ``k_scale``/``v_scale``: (P, page_size, KVH) float32 scale pools
+    when the pools hold int8 or float8_e4m3fn codes, paged like them.
     Returns (B, 1, H, hdv) in q.dtype.
 
-    ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized pools) come
-    with later slices of the port and raise.
+    ``v_width`` (MLA) comes with a later slice of the port and raises.
     """
-    refuse_later_slices(v_width, k_scale, v_scale)
+    refuse_later_slices(v_width)
     qg, lens = _pack(q, k_pool.shape[2], cur_len, "decode_attention_paged")
     b, _, h, _ = q.shape
-    kw = dict(window=window, softcap=softcap, scale=scale)
-    if on_card(q, k_pool, v_pool, page_table, lens):
+    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if on_card(q, k_pool, v_pool, page_table, lens,
+               *scale_tensors(k_scale, v_scale)):
         out = decode_attention_paged_cuda(
             qg.contiguous(), k_pool, v_pool,
             page_table.to(torch.int32).contiguous(), lens, **kw)

@@ -7,6 +7,12 @@ online-softmax accumulator with the same operations in the same order.
 They process every block; the kernels skip blocks past a row's fill,
 which are bit-neutral folds (masked scores are ``NEG_INF``).
 
+Quantized caches (``k_scale``/``v_scale`` given: int8 / fp8_e4m3 codes
+with float32 row scales) are dequantized block by block with
+``quant.dequantize`` (``codes.float() * scale[..., None]``), the op
+order of the JAX package's blockwise twins and of the kernels' tile
+loads.  ``v_scale`` defaults to ``k_scale``, as in the JAX package.
+
 Semantics (matching ``models.attention.decode_self_attention``):
 
   * ``lens[b]`` is the position of row ``b``'s new token; the cache has
@@ -24,8 +30,23 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import quant
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K, NEG_INF, \
     pick_block_k
+
+
+def cache_block(cache: torch.Tensor, scales, lo: int, n: int):
+    """Positions ``lo .. lo + n - 1`` (axis 1) of a cache, dequantized to
+    float32 when ``scales`` holds its row scales."""
+    blk = cache[:, lo:lo + n]
+    return blk if scales is None else quant.dequantize(
+        blk, scales[:, lo:lo + n])
+
+
+def gather_pages(pool: torch.Tensor, pt: torch.Tensor, b: int, c: int):
+    """The logical (B, NB * page_size, *rest) view of a page pool through
+    the (B, NB) int64 page table ``pt``."""
+    return pool[pt].reshape(b, c, *pool.shape[2:])
 
 
 def fold_block(q, k_blk, v_blk, valid, m, l, acc, softcap, spec: str):
@@ -54,9 +75,13 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lens: torch.Tensor, *, ring: bool = False,
                          softcap: Optional[float] = None,
                          scale: float = 1.0,
-                         block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                         block_k: int = DEFAULT_BLOCK_K, k_scale=None,
+                         v_scale=None) -> torch.Tensor:
     """q: (B, KVH, G, hdq), k: (B, C, KVH, hdq), v: (B, C, KVH, hdv),
-    lens: (B,) int.  Returns (B, KVH, G, hdv) in q.dtype."""
+    lens: (B,) int; k_scale/v_scale: (B, C, KVH) float32 row scales of
+    code caches.  Returns (B, KVH, G, hdv) in q.dtype."""
+    if k_scale is not None and v_scale is None:
+        v_scale = k_scale
     b, kvh, g, _ = q.shape
     c = k.shape[1]
     hdv = v.shape[-1]
@@ -73,9 +98,9 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             valid = torch.remainder(cur - cols, c) <= cur
         else:
             valid = cols <= cur
-        m, l, acc = fold_block(qs, k[:, lo:lo + bk], v[:, lo:lo + bk],
-                               valid, m, l, acc, softcap,
-                               "bhgd,bkhd->bhgk")
+        m, l, acc = fold_block(qs, cache_block(k, k_scale, lo, bk),
+                               cache_block(v, v_scale, lo, bk), valid, m, l,
+                               acc, softcap, "bhgd,bkhd->bhgk")
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
@@ -84,7 +109,8 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                lens: torch.Tensor, *,
                                window: Optional[int] = None,
                                softcap: Optional[float] = None,
-                               scale: float = 1.0) -> torch.Tensor:
+                               scale: float = 1.0, k_scale=None,
+                               v_scale=None) -> torch.Tensor:
     """Blockwise twin of the paged flash-decode, as the JAX package's
     ``decode_attention_paged_ref``.
 
@@ -93,15 +119,20 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
     the logical (B, NB * page_size, KVH, *) view through the page table
     and folds it one page per block.  Paged caches are never wrapped:
     slot == position, and a sliding window is the explicit mask
-    ``lens[b] - col < window``.  Returns (B, KVH, G, hdv) in q.dtype.
+    ``lens[b] - col < window``.  k_scale/v_scale: (P, page_size, KVH)
+    float32 scale pools of code pools, gathered through the same table.
+    Returns (B, KVH, G, hdv) in q.dtype.
     """
     b, kvh, g, _ = q.shape
     ps = k_pool.shape[1]
     nb = page_table.shape[1]
     c = nb * ps
     pt = page_table.to(device=q.device, dtype=torch.int64)
-    k = k_pool[pt].reshape(b, c, kvh, k_pool.shape[-1])
-    v = v_pool[pt].reshape(b, c, kvh, v_pool.shape[-1])
+    k, v = gather_pages(k_pool, pt, b, c), gather_pages(v_pool, pt, b, c)
+    ks = vs = None
+    if k_scale is not None:
+        ks = gather_pages(k_scale, pt, b, c)
+        vs = ks if v_scale is None else gather_pages(v_scale, pt, b, c)
     hdv = v.shape[-1]
     qs = q.float() * scale
     cur = lens.to(device=q.device, dtype=torch.int64).view(b, 1, 1, 1)
@@ -114,7 +145,7 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
         valid = cols <= cur
         if window is not None:
             valid = valid & (cur - cols < window)
-        m, l, acc = fold_block(qs, k[:, lo:lo + ps], v[:, lo:lo + ps],
-                               valid, m, l, acc, softcap,
-                               "bhgd,bkhd->bhgk")
+        m, l, acc = fold_block(qs, cache_block(k, ks, lo, ps),
+                               cache_block(v, vs, lo, ps), valid, m, l, acc,
+                               softcap, "bhgd,bkhd->bhgk")
     return (acc / torch.clamp(l, min=1e-30)).to(q.dtype)

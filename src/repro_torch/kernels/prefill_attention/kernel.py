@@ -1,6 +1,7 @@
 """Wrappers of the CUDA chunked-prefill kernel
 (``csrc/prefill_attention.cu``) over a contiguous cache and over page
-pools."""
+pools, each also over a quantized cache prefix: int8 / fp8_e4m3 codes
+with float32 row scales, dequantized in the kernel."""
 from __future__ import annotations
 
 from typing import Optional
@@ -8,19 +9,24 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention.kernel import SMEM_LIMIT
+from repro_torch.kernels.decode_attention.kernel import SMEM_LIMIT, \
+    cache_codes
 
-# Launches of each kernel since its count was last set to 0.
-launches = 0            # prefill_attention_cuda
-paged_launches = 0      # prefill_attention_paged_cuda
+# Launches of each kernel since its count was last set to 0.  The
+# quantized launches (``k_scale`` given) count apart from the others.
+launches = 0                # prefill_attention_cuda
+paged_launches = 0          # prefill_attention_paged_cuda
+quant_launches = 0          # prefill_attention_cuda over codes
+quant_paged_launches = 0    # prefill_attention_paged_cuda over codes
 
 _ROWS, _TILE = 16, 64     # packed query rows per block, keys per tile
 
 
 def smem_bytes(hd: int, hdv: int) -> int:
-    """Dynamic shared memory of one block, plus its static row table."""
+    """Dynamic shared memory of one block, plus its static row table and
+    the two row-scale arrays of a quantized tile."""
     return 4 * (_ROWS * hd + _TILE * (hd + 1) + _TILE * hdv
-                + _ROWS * _TILE + _ROWS * hdv + 3 * _ROWS + _TILE)
+                + _ROWS * _TILE + _ROWS * hdv + 3 * _ROWS + 3 * _TILE)
 
 
 def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
@@ -28,12 +34,15 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                            v_cache: torch.Tensor, offs: torch.Tensor, *,
                            ring: bool = False, window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           scale: float = 1.0) -> torch.Tensor:
+                           scale: float = 1.0, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv) of
     q's dtype; k_cache/v_cache: (B, C, KVH, hdq/hdv); offs: (B,) int32;
-    all on the card and contiguous.  Returns (B, KVH, T, G, hdv) in
+    all on the card and contiguous.  With ``k_scale`` (and ``v_scale``,
+    default ``k_scale``): the cache holds int8 or float8_e4m3fn codes
+    with (B, C, KVH) float32 row scales.  Returns (B, KVH, T, G, hdv) in
     q.dtype."""
-    global launches
+    global launches, quant_launches
     ts = (q, k_chunk, v_chunk, k_cache, v_cache, offs)
     if not all(t.is_cuda for t in ts):
         raise ValueError("prefill_attention_cuda takes tensors on the card")
@@ -67,16 +76,20 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
     if smem_bytes(hd, hdv) > SMEM_LIMIT:
         raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
                          f"a block has")
-    qd, cd = build.dtype_code(q.dtype), build.dtype_code(k_cache.dtype)
+    qd = build.dtype_code(q.dtype)
+    cd, ksp, vsp = cache_codes(k_cache, k_scale, v_scale, (b, c, kvh))
     out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=q.device)
     err = build.library().pmt_prefill_attention(
         q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), offs.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), ksp, vsp, offs.data_ptr(),
         out.data_ptr(), b, t, c, kvh, g, hd, hdv, float(scale), int(ring),
         int(window or 0), float(softcap or 0.0), qd, cd,
         torch.cuda.current_stream().cuda_stream)
     build.check(err, "prefill_attention")
-    launches += 1
+    if k_scale is None:
+        launches += 1
+    else:
+        quant_launches += 1
     return out
 
 
@@ -86,13 +99,16 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                                  page_table: torch.Tensor, offs: torch.Tensor,
                                  *, window: Optional[int] = None,
                                  softcap: Optional[float] = None,
-                                 scale: float = 1.0) -> torch.Tensor:
+                                 scale: float = 1.0, k_scale=None,
+                                 v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv) of
     q's dtype; k_pool/v_pool: (P, page_size, KVH, hdq/hdv); page_table:
     (B, NB) int32 with every entry a page of the pools; offs: (B,) int32;
-    all on the card and contiguous.  Returns (B, KVH, T, G, hdv) in
-    q.dtype."""
-    global paged_launches
+    all on the card and contiguous.  With ``k_scale`` (and ``v_scale``,
+    default ``k_scale``): the pools hold int8 or float8_e4m3fn codes with
+    (P, page_size, KVH) float32 scale pools paged like them.  Returns
+    (B, KVH, T, G, hdv) in q.dtype."""
+    global paged_launches, quant_paged_launches
     ts = (q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs)
     if not all(t.is_cuda for t in ts):
         raise ValueError("prefill_attention_paged_cuda takes tensors on the "
@@ -129,14 +145,18 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
     if smem_bytes(hd, hdv) > SMEM_LIMIT:
         raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
                          f"a block has")
-    qd, cd = build.dtype_code(q.dtype), build.dtype_code(k_pool.dtype)
+    qd = build.dtype_code(q.dtype)
+    cd, ksp, vsp = cache_codes(k_pool, k_scale, v_scale, (p, ps, kvh))
     out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=q.device)
     err = build.library().pmt_prefill_attention_paged(
         q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp, page_table.data_ptr(),
         offs.data_ptr(), out.data_ptr(), b, t, page_table.shape[1], ps, kvh,
         g, hd, hdv, float(scale), int(window or 0), float(softcap or 0.0),
         qd, cd, torch.cuda.current_stream().cuda_stream)
     build.check(err, "prefill_attention_paged")
-    paged_launches += 1
+    if k_scale is None:
+        paged_launches += 1
+    else:
+        quant_paged_launches += 1
     return out

@@ -5,7 +5,9 @@ chunk's own k/v (B, T, KVH, hd) and the (B, C, KVH, hd) caches — packs
 q as (B, KVH, T, G, hd) so each kv head's G query heads share its keys,
 and runs the CUDA kernel for tensors on the card or the plain version
 for tensors on the CPU.  ``prefill_attention_paged`` does the same over
-(P, page_size, KVH, hd) page pools and a page table.
+(P, page_size, KVH, hd) page pools and a page table.  Both take a
+quantized cache prefix too: int8 / fp8_e4m3 codes with float32 row
+scales (``k_scale``/``v_scale``), dequantized inside the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card, refuse_later_slices
+from repro_torch.kernels import on_card, refuse_later_slices, \
+    scale_tensors
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
 from repro_torch.kernels.prefill_attention.kernel import (
     prefill_attention_cuda, prefill_attention_paged_cuda)
@@ -49,13 +52,14 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
     k_cache/v_cache: (B, C, KVH, hdq/hdv) holding positions
     ``< offset``.  offset: int or (B,) int tensor.  ``ring=True`` for
     sliding-window ring caches, with ``window`` required.  ``block_k``
-    is the blocking of the plain version.  Returns (B, T, H, hdv) in
-    q.dtype.
+    is the blocking of the plain version.  ``k_scale``/``v_scale``:
+    (B, C, KVH) float32 row scales when the cache holds int8 or
+    float8_e4m3fn codes (the chunk's own k/v stay full precision).
+    Returns (B, T, H, hdv) in q.dtype.
 
-    ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized caches)
-    come with later slices of the port and raise.
+    ``v_width`` (MLA) comes with a later slice of the port and raises.
     """
-    refuse_later_slices(v_width, k_scale, v_scale)
+    refuse_later_slices(v_width)
     if ring and window is None:
         raise ValueError("ring caches need an explicit window")
     if window is not None and not ring:
@@ -63,8 +67,10 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
                          "(full-cache layers carry no window)")
     qg, offs = _pack(q, k_chunk, k_cache.shape[2], offset)
     b, t, h, _ = q.shape
-    kw = dict(ring=ring, window=window, softcap=softcap, scale=scale)
-    if on_card(q, k_chunk, v_chunk, k_cache, v_cache, offs):
+    kw = dict(ring=ring, window=window, softcap=softcap, scale=scale,
+              k_scale=k_scale, v_scale=v_scale)
+    if on_card(q, k_chunk, v_chunk, k_cache, v_cache, offs,
+               *scale_tensors(k_scale, v_scale)):
         out = prefill_attention_cuda(qg.contiguous(), k_chunk.contiguous(),
                                      v_chunk.contiguous(), k_cache, v_cache,
                                      offs, **kw)
@@ -89,16 +95,19 @@ def prefill_attention_paged(q, k_chunk, v_chunk, k_pool, v_pool,
     positions ``< offset[b]`` of every row, addressed through page_table
     (B, NB) int.  offset: int or (B,) int tensor.  Paged caches store
     sliding-window layers unwrapped, so ``window`` is an explicit mask
-    (no ``ring``).  Returns (B, T, H, hdv) in q.dtype.
+    (no ``ring``).  ``k_scale``/``v_scale``: (P, page_size, KVH) float32
+    scale pools when the pools hold int8 or float8_e4m3fn codes.  Returns
+    (B, T, H, hdv) in q.dtype.
 
-    ``v_width`` (MLA) and ``k_scale``/``v_scale`` (quantized pools) come
-    with later slices of the port and raise.
+    ``v_width`` (MLA) comes with a later slice of the port and raises.
     """
-    refuse_later_slices(v_width, k_scale, v_scale)
+    refuse_later_slices(v_width)
     qg, offs = _pack(q, k_chunk, k_pool.shape[2], offset)
     b, t, h, _ = q.shape
-    kw = dict(window=window, softcap=softcap, scale=scale)
-    if on_card(q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs):
+    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
+              v_scale=v_scale)
+    if on_card(q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs,
+               *scale_tensors(k_scale, v_scale)):
         out = prefill_attention_paged_cuda(
             qg.contiguous(), k_chunk.contiguous(), v_chunk.contiguous(),
             k_pool, v_pool, page_table.to(torch.int32).contiguous(), offs,

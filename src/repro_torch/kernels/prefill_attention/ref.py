@@ -20,6 +20,11 @@ Semantics (matching the serve engine's chunked admission):
         attendable iff ``p >= 0`` and ``pos_q - p < window``.
   * ``k_chunk``/``v_chunk`` are the chunk's own keys at ``offs[b] + j``;
     query ``i`` attends ``j <= i`` (and, windowed, ``i - j < window``).
+
+A quantized cache (``k_scale``/``v_scale``: float32 row scales of int8 /
+fp8_e4m3 codes) is dequantized per cache block, as in the JAX package's
+twin; only the prefix holds codes, the chunk's own k/v are full
+precision.  ``v_scale`` defaults to ``k_scale``.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ import torch
 
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K, NEG_INF, \
     pick_block_k
-from repro_torch.kernels.decode_attention.ref import fold_block
+from repro_torch.kernels.decode_attention.ref import cache_block, \
+    fold_block, gather_pages
 
 _SPEC = "bhtgd,bkhd->bhtgk"
 
@@ -39,10 +45,14 @@ def prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           scale: float = 1.0,
-                          block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+                          block_k: int = DEFAULT_BLOCK_K, k_scale=None,
+                          v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv);
-    k_cache/v_cache: (B, C, KVH, hdq/hdv); offs: (B,) int.
+    k_cache/v_cache: (B, C, KVH, hdq/hdv); offs: (B,) int; k_scale/
+    v_scale: (B, C, KVH) float32 row scales of a code cache.
     Returns (B, KVH, T, G, hdv) in q.dtype."""
+    if k_scale is not None and v_scale is None:
+        v_scale = k_scale
     b, kvh, t, g, _ = q.shape
     c = k_cache.shape[1]
     hdv = v_cache.shape[-1]
@@ -67,9 +77,9 @@ def prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache,
             valid = (cols < off) & torch.ones_like(q_pos, dtype=torch.bool)
             if window is not None:
                 valid = valid & (q_pos - cols < window)
-        m, l, acc = fold_block(qs, k_cache[:, lo:lo + bk_c],
-                               v_cache[:, lo:lo + bk_c], valid, m, l, acc,
-                               softcap, _SPEC)
+        m, l, acc = fold_block(qs, cache_block(k_cache, k_scale, lo, bk_c),
+                               cache_block(v_cache, v_scale, lo, bk_c),
+                               valid, m, l, acc, softcap, _SPEC)
     for lo in range(0, t, bk_t):
         cols = torch.arange(lo, lo + bk_t, device=dev)
         diff = q_idx - cols
@@ -87,24 +97,29 @@ def prefill_attention_paged_ref(q, k_chunk, v_chunk, k_pool, v_pool,
                                 offs: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 softcap: Optional[float] = None,
-                                scale: float = 1.0) -> torch.Tensor:
+                                scale: float = 1.0, k_scale=None,
+                                v_scale=None) -> torch.Tensor:
     """Blockwise twin of the paged chunked-prefill, as the JAX package's
     ``prefill_attention_paged_ref``.
 
     q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv);
     k_pool/v_pool: (P, page_size, KVH, hdq/hdv) physical pages;
     page_table: (B, NB) int; offs: (B,) int chunk start positions.
-    Gathers the logical cache through the page table and runs
+    Gathers the logical cache (and, for code pools, the k_scale/v_scale
+    pools (P, page_size, KVH)) through the page table and runs
     ``prefill_attention_ref`` on it unwrapped (``ring=False``, the window
     an explicit mask) with blocks of one page.  Returns
     (B, KVH, T, G, hdv) in q.dtype.
     """
-    b, kvh = q.shape[:2]
+    b = q.shape[0]
     ps = k_pool.shape[1]
-    nb = page_table.shape[1]
+    c = page_table.shape[1] * ps
     pt = page_table.to(device=q.device, dtype=torch.int64)
-    k_cache = k_pool[pt].reshape(b, nb * ps, kvh, k_pool.shape[-1])
-    v_cache = v_pool[pt].reshape(b, nb * ps, kvh, v_pool.shape[-1])
-    return prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache, offs,
-                                 ring=False, window=window, softcap=softcap,
-                                 scale=scale, block_k=ps)
+    ks = vs = None
+    if k_scale is not None:
+        ks = gather_pages(k_scale, pt, b, c)
+        vs = ks if v_scale is None else gather_pages(v_scale, pt, b, c)
+    return prefill_attention_ref(
+        q, k_chunk, v_chunk, gather_pages(k_pool, pt, b, c),
+        gather_pages(v_pool, pt, b, c), offs, ring=False, window=window,
+        softcap=softcap, scale=scale, block_k=ps, k_scale=ks, v_scale=vs)

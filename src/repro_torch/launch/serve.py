@@ -5,6 +5,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \
       [--reduced] [--requests 8] [--batch 4] [--max-new 16] \
       [--max-len 128] [--prefill-chunk 32] [--seed 0] [--device cuda] \
+      [--cache-dtype {bfloat16,float32,int8,fp8_e4m3}] \
       [--kv-layout paged [--kv-page-size 16] [--kv-pool-blocks N] \
        [--no-prefix-cache]]
 
@@ -16,9 +17,11 @@ cpu``): the engine opens an aggregate region per ``generate()`` and a
 flat ``serve/req<N>`` span per request with ``/prefill`` and ``/decode``
 phase spans.  Prints the generated tokens per second, the aggregate
 joules per token, the costliest request's joules per token with its
-prefill/decode split, and each request's token count.  With
-``--kv-layout paged`` it also prints the page pool's use and the prefix
-cache's hits (the ``kv pool:`` line).
+prefill/decode split, the KV cache's storage and footprint (the
+``kv cache: <dtype>, <N> B/token`` line; ``--cache-dtype int8`` or
+``fp8_e4m3`` stores codes plus float32 row scales) and each request's
+token count.  With ``--kv-layout paged`` it also prints the page pool's
+use and the prefix cache's hits (the ``kv pool:`` line).
 """
 from __future__ import annotations
 
@@ -111,6 +114,12 @@ def main(argv=None):
                     help="KV cache layout: paged = page pools + per-slot "
                          "page tables + radix prefix reuse; contiguous = "
                          "the per-slot caches")
+    ap.add_argument("--cache-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32", "int8", "fp8_e4m3"],
+                    help="KV cache storage: bfloat16/float32 store raw "
+                         "values; int8/fp8_e4m3 store quantized codes + "
+                         "per-row float32 scales, dequantized inside the "
+                         "attention kernels")
     ap.add_argument("--kv-page-size", type=int, default=None,
                     help="tokens per KV page (paged layout); default "
                          "cfg.kv_page_size")
@@ -151,6 +160,7 @@ def main(argv=None):
                              kv_page_size=args.kv_page_size,
                              kv_pool_pages=args.kv_pool_blocks,
                              prefix_cache=args.prefix_cache,
+                             cache_dtype=args.cache_dtype,
                              device=device, session=session)
         t0 = time.perf_counter()
         done = engine.generate(requests)
@@ -168,8 +178,11 @@ def main(argv=None):
           f"{len(engine.stall_events)} chunks")
     for line in energy_report(energy.records, n, backends):
         print(line)
+    kc = engine.stats()["kv_cache"]
+    print(f"kv cache: {kc['cache_dtype']}, "
+          f"{kc['bytes_per_token']:.1f} B/token")
     if args.kv_layout == "paged":
-        print(kv_pool_line(engine.stats()["kv_cache"]))
+        print(kv_pool_line(kc))
     for r in done:
         print(f"  req{r.id}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
               f"({r.finish_reason})")

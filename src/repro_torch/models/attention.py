@@ -6,14 +6,22 @@ dense GQA layer.  Weights: wq (d, H, hd), wk/wv (d, KVH, hd),
 wo (H, hd, d).  Caches: {"k", "v"} of (B, C, KVH, hd), a ring buffer of
 size ``window`` for sliding-window layers; or, paged, {"k", "v"} pools
 of (P, page_size, KVH, hd) shared by every slot through (B, NB) page
-tables, sliding-window layers stored unwrapped.
+tables, sliding-window layers stored unwrapped.  With ``cfg.kv_quant``
+("int8" / "fp8_e4m3") the "k", "v" leaves hold codes and two more
+leaves, "k_scale" and "v_scale", hold one float32 absmax scale per
+(position, kv head): (B, C, KVH), or (P, page_size, KVH) paged exactly
+like the code pools.  The attention kernels dequantize inside.
 
 Caches and pools are updated **in place** — the decode scatters
 (``kernels/cache_update``) and the prefill chunk writes all write into
 the tensors they are given, where the JAX package returned new buffers
 and donated the old ones.  Decode attention always takes the
 length-aware flash path (``kernels/decode_attention``); chunk attention
-takes ``kernels/prefill_attention``.
+takes ``kernels/prefill_attention``.  Quantized decode writes go through
+the quantizing scatters (``quant_cache_update``,
+``quant_paged_cache_update``); a contiguous prefill chunk is quantized
+once with ``quant.quantize`` and written with ``chunk_kv_write``, plain
+ops as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,19 +32,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.cache_update.ops import (cache_update,
-                                                  paged_cache_update)
+from repro_torch.kernels import quant
+from repro_torch.kernels.cache_update.ops import (
+    cache_update, paged_cache_update, quant_cache_update,
+    quant_paged_cache_update)
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_paged)
 from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention, prefill_attention_paged)
 from repro_torch.models import layers
-
-
-def _no_quant(cfg: ModelConfig) -> None:
-    if cfg.kv_quant is not None:
-        raise NotImplementedError(
-            f"kv_quant={cfg.kv_quant!r} comes with the quantized-cache slice")
 
 
 # -- params -------------------------------------------------------------------
@@ -79,19 +83,38 @@ def output_proj(p, o: torch.Tensor) -> torch.Tensor:
 
 # -- KV cache -------------------------------------------------------------------
 
+def kv_leaf_specs(cfg: ModelConfig, lead: tuple,
+                  dtype: torch.dtype = torch.bfloat16):
+    """{name: (shape, dtype)} of one attention layer's cache leaves whose
+    leading dims are ``lead`` ((B, size) or (P, page_size)): k and v of
+    ``dtype``, or with ``cfg.kv_quant`` codes of the mode's dtype plus
+    float32 k_scale and v_scale (``dtype`` then only names the layout an
+    unquantized engine would have used)."""
+    shape = (*lead, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.kv_quant is None:
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    qdt = quant.quant_dtype(cfg.kv_quant)
+    return {"k": (shape, qdt), "v": (shape, qdt),
+            "k_scale": (shape[:-1], torch.float32),
+            "v_scale": (shape[:-1], torch.float32)}
+
+
+def _zeros(specs, device) -> Dict[str, torch.Tensor]:
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in specs.items()}
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   window: Optional[int] = None,
                   dtype: torch.dtype = torch.bfloat16,
                   device=None) -> Dict[str, torch.Tensor]:
     """Cache for one attention layer: (B, size, KVH, hd) k and v, with
-    ``size = min(max_len, window)`` for sliding-window ring layers; on
-    the card unless ``device="cpu"``."""
-    _no_quant(cfg)
+    ``size = min(max_len, window)`` for sliding-window ring layers, and
+    (B, size, KVH) k_scale/v_scale with ``cfg.kv_quant``; on the card
+    unless ``device="cpu"``."""
     device = resolve_device(device)
     size = min(max_len, window) if window else max_len
-    shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _zeros(kv_leaf_specs(cfg, (batch, size), dtype), device)
 
 
 def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
@@ -106,19 +129,34 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     ``cur % C`` in a ring, else ``min(cur, C - 1)`` (a retired row that
     keeps decoding garbage past the end overwrites the last slot instead
     of writing outside its row).  Attention then runs the length-aware
-    ``kernels/decode_attention`` path.  Returns out (B, 1, d).
+    ``kernels/decode_attention`` path.  A quantized cache takes the
+    quantizing scatter and passes its scales to attention.  Returns out
+    (B, 1, d).
     """
-    _no_quant(cfg)
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
     size = cache["k"].shape[1]
     slots = torch.remainder(cur_len, size) if window \
         else torch.clamp(cur_len, max=size - 1)
-    cache_update(cache["k"], k_new, slots)
-    cache_update(cache["v"], v_new, slots)
+    _scatter(cfg, cache, k_new, v_new, cache_update, quant_cache_update,
+             slots)
     o = decode_attention(q, cache["k"], cache["v"], cur_len,
                          ring=window is not None, softcap=cfg.attn_softcap,
-                         scale=attn_scale(cfg))
+                         scale=attn_scale(cfg), k_scale=cache.get("k_scale"),
+                         v_scale=cache.get("v_scale"))
     return output_proj(p, o)
+
+
+def _scatter(cfg: ModelConfig, cache, k_new, v_new, plain, quantizing,
+             *where) -> None:
+    """Write the new k/v rows into the cache in place through the scatter
+    ``plain(leaf, rows, *where)``, or with ``cfg.kv_quant`` through its
+    quantizing twin ``quantizing(codes, scales, rows, *where, mode)``."""
+    for name, new in (("k", k_new), ("v", v_new)):
+        if cfg.kv_quant is None:
+            plain(cache[name], new, *where)
+        else:
+            quantizing(cache[name], cache[f"{name}_scale"], new, *where,
+                       cfg.kv_quant)
 
 
 def chunk_kv_write(cache: torch.Tensor, new: torch.Tensor,
@@ -176,16 +214,24 @@ def prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     after attention.  ``offs`` is ``offset`` as a (B,) int32 tensor on
     x's device (built once per step by the caller).  ``valid_len``:
     tokens ``>= valid_len`` are a final partial chunk's right-padding.
+    A quantized cache quantizes the chunk's k/v once, and its codes and
+    scales (scales are (B, T, KVH) rows) take the same masked write.
     Returns out (B, T, d).
     """
-    _no_quant(cfg)
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
     ring = window is not None
     o = prefill_attention(q, k_new, v_new, cache["k"], cache["v"], offs,
                           ring=ring, window=window,
-                          softcap=cfg.attn_softcap, scale=attn_scale(cfg))
-    chunk_kv_write(cache["k"], k_new, offset, valid_len, ring=ring)
-    chunk_kv_write(cache["v"], v_new, offset, valid_len, ring=ring)
+                          softcap=cfg.attn_softcap, scale=attn_scale(cfg),
+                          k_scale=cache.get("k_scale"),
+                          v_scale=cache.get("v_scale"))
+    rows = {"k": k_new, "v": v_new}
+    if cfg.kv_quant is not None:
+        for name in ("k", "v"):
+            rows[name], rows[f"{name}_scale"] = quant.quantize(
+                rows[name], cfg.kv_quant)
+    for name, new in rows.items():
+        chunk_kv_write(cache[name], new, offset, valid_len, ring=ring)
     return output_proj(p, o)
 
 
@@ -202,13 +248,12 @@ def init_paged_kv_pools(cfg: ModelConfig, num_pages: int, page_size: int,
     the scratch page (masked writes may land there; its content is
     undefined).  Sliding-window layers store positions unwrapped
     (slot == position), the window an explicit attention mask, so prefix
-    pages are position-stable and shareable across requests.
+    pages are position-stable and shareable across requests.  With
+    ``cfg.kv_quant`` the (P, page_size, KVH) k_scale/v_scale pools page
+    exactly like the code pools, so a page's scales travel with it.
     """
-    _no_quant(cfg)
     device = resolve_device(device)
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return _zeros(kv_leaf_specs(cfg, (num_pages, page_size), dtype), device)
 
 
 def paged_decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
@@ -225,17 +270,19 @@ def paged_decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     decode tokens cannot touch a live request's pages.  The new k/v land
     at ``cur_len`` through ``paged_cache_update`` (clamped to the table's
     last slot), then ``decode_attention_paged`` reads each row's pages.
-    Returns out (B, 1, d).
+    Quantized pools take the quantizing scatter and pass their scale
+    pools to attention.  Returns out (B, 1, d).
     """
-    _no_quant(cfg)
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
-    ones = torch.ones_like(cur_len)
-    paged_cache_update(cache["k"], k_new, page_table, cur_len, ones)
-    paged_cache_update(cache["v"], v_new, page_table, cur_len, ones)
+    _scatter(cfg, cache, k_new, v_new, paged_cache_update,
+             quant_paged_cache_update, page_table, cur_len,
+             torch.ones_like(cur_len))
     o = decode_attention_paged(q, cache["k"], cache["v"], page_table,
                                cur_len, window=window,
                                softcap=cfg.attn_softcap,
-                               scale=attn_scale(cfg))
+                               scale=attn_scale(cfg),
+                               k_scale=cache.get("k_scale"),
+                               v_scale=cache.get("v_scale"))
     return output_proj(p, o)
 
 
@@ -254,15 +301,16 @@ def paged_prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     ``valid_len`` are (B,) int32 — rows with ``valid_len == 0`` (slots
     decoding, or idle, during a batched admission dispatch) give garbage
     outputs the caller discards and write nothing.  The chunk attends
-    first, then its KV is written into the pools in place.  Returns out
-    (B, T, d).
+    first, then its KV is written into the pools in place (quantized by
+    the quantizing scatter with ``cfg.kv_quant``).  Returns out (B, T, d).
     """
-    _no_quant(cfg)
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
     o = prefill_attention_paged(q, k_new, v_new, cache["k"], cache["v"],
                                 page_table, offs, window=window,
                                 softcap=cfg.attn_softcap,
-                                scale=attn_scale(cfg))
-    paged_cache_update(cache["k"], k_new, page_table, offs, valid_len)
-    paged_cache_update(cache["v"], v_new, page_table, offs, valid_len)
+                                scale=attn_scale(cfg),
+                                k_scale=cache.get("k_scale"),
+                                v_scale=cache.get("v_scale"))
+    _scatter(cfg, cache, k_new, v_new, paged_cache_update,
+             quant_paged_cache_update, page_table, offs, valid_len)
     return output_proj(p, o)

@@ -31,7 +31,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "pos_embed": (cfg.pos_embed != "rope",
                       "the other-archs slice (sinusoidal / none)"),
         "mtp": (cfg.mtp, "the train slice"),
-        "kv_quant": (cfg.kv_quant is not None, "the quantized-cache slice"),
         "dense decode attention": (
             cfg.decode_attn_impl not in ("auto", "flash"),
             "no slice: decode attention always runs the flash kernel"),

@@ -104,7 +104,9 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16, device=None):
     """Decode caches {"units": {"r<i>": {"k", "v"}}}, each leaf
     (n_units, B, C, KVH, hd), zero-filled, on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``.  With ``cfg.kv_quant`` k and v hold codes and each
+    block also carries (n_units, B, C, KVH) float32 "k_scale" and
+    "v_scale" leaves."""
     dev = resolve_device(device)
     lay = unit_layout(cfg)
     per_unit = [{f"r{r}": blocks.init_block_cache(
@@ -208,8 +210,9 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
                       dtype: torch.dtype = torch.bfloat16, device=None):
     """Page pools with :func:`init_caches`'s tree shape: each leaf
     (n_units, P, page_size, KVH, hd) instead of (n_units, B, C, KVH, hd),
-    zero-filled, on the card unless ``device="cpu"``.  Every leaf shares
-    one page-id space; page 0 is scratch."""
+    zero-filled, on the card unless ``device="cpu"``; with
+    ``cfg.kv_quant`` also (n_units, P, page_size, KVH) scale pools.
+    Every leaf shares one page-id space; page 0 is scratch."""
     if not supports_paged(cfg):
         raise ValueError(f"{cfg.name}: arch does not support paged KV "
                          "(needs all-attention layers, no encoder)")

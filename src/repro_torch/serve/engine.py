@@ -40,10 +40,15 @@ into one (B, chunk) dispatch, and a masked page table for decode.  The
 three paged kernels carry it: ``paged_cache_update``,
 ``decode_attention_paged``, ``prefill_attention_paged``.
 
+``cache_dtype="int8"`` or ``"fp8_e4m3"`` quantizes the KV cache in
+either layout, as the JAX engine does: it sets ``cfg.kv_quant``, every
+cache leaf becomes low-bit codes plus one float32 absmax scale per
+(position, kv head), decode writes go through the quantizing scatters
+and the attention kernels dequantize inside.
+
 Still to come, each with its slice (see ROADMAP.md), and refused here:
 sampling (``greedy=False``), the blocking ``prefill_chunk=0`` baseline,
-``mode="wave"``, preemption and swap, quantized ``cache_dtype``, and the
-power governor.
+``mode="wave"``, preemption and swap, and the power governor.
 """
 from __future__ import annotations
 
@@ -60,7 +65,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.quant import QUANT_MODES
 from repro_torch.models import model as model_mod
+from repro_torch.models.attention import kv_leaf_specs
 from repro_torch.models.blocks import layer_window
 from repro_torch.serve.paging import PagePool, RadixPrefixCache
 
@@ -342,7 +349,8 @@ class ServeEngine:
       prefill_chunk: chunk size; None resolves ``PMT_PREFILL_CHUNK`` then
         ``cfg.prefill_chunk``.
       cache_dtype: KV storage dtype: torch.bfloat16 or torch.float32, or
-        its name (the kernels take those two).
+        its name, or a quantized-KV mode, "int8" or "fp8_e4m3", which
+        sets ``cfg.kv_quant`` (codes plus float32 row scales).
       device: where the engine runs; the card unless "cpu" is asked for.
       kv_layout: "contiguous" (default) keeps per-slot (B, max_len, ...)
         caches; "paged" serves from one page pool per cache leaf with
@@ -393,14 +401,15 @@ class ServeEngine:
                     f"{what} is not ported yet (see ROADMAP.md)")
         if isinstance(cache_dtype, str):
             named = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-            if cache_dtype in ("int8", "fp8_e4m3"):
-                raise NotImplementedError(
-                    f"cache_dtype {cache_dtype!r} comes with the "
-                    "quantized-cache slice")
-            if cache_dtype not in named:
-                raise ValueError(f"unknown cache_dtype {cache_dtype!r}; "
-                                 f"expected one of {sorted(named)}")
-            cache_dtype = named[cache_dtype]
+            if cache_dtype in QUANT_MODES:
+                cfg = dataclasses.replace(cfg, kv_quant=cache_dtype)
+                cache_dtype = torch.bfloat16    # unused by quant leaves
+            elif cache_dtype in named:
+                cache_dtype = named[cache_dtype]
+            else:
+                raise ValueError(
+                    f"unknown cache_dtype {cache_dtype!r}; expected one of "
+                    f"{sorted(named)} or a KV-quant mode {QUANT_MODES}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = model_mod.serving_params(cfg, params, self.device)
@@ -551,7 +560,8 @@ class ServeEngine:
 
     def _kv_cache_stats(self) -> Dict[str, Any]:
         s: Dict[str, Any] = {
-            "cache_dtype": str(self.cache_dtype).replace("torch.", ""),
+            "cache_dtype": (self.cfg.kv_quant if self.cfg.kv_quant is not None
+                            else str(self.cache_dtype).replace("torch.", "")),
             "bytes_per_token": self.cache_bytes_per_token(),
         }
         if self._pool is not None:
@@ -574,23 +584,25 @@ class ServeEngine:
         return s
 
     def cache_bytes_per_token(self) -> float:
-        """KV-cache bytes per cached token position, all layers summed.
-        Contiguous: over ``batch * max_len`` positions (ring layers hold
-        fewer).  Paged: every pool leaf, scratch page included, over the
-        usable pages' ``total_pages * page_size`` positions."""
+        """KV-cache bytes per cached token position, every leaf of every
+        layer summed (a quantized cache: codes and scales).  Contiguous:
+        the leaves ``init_caches`` would build, over ``batch * max_len``
+        positions (ring layers hold fewer).  Paged: every pool leaf,
+        scratch page included, over the usable pages' ``total_pages *
+        page_size`` positions."""
         if self._pool is not None:
             total = sum(t.numel() * t.element_size()
                         for t in _leaves(self._paged_caches))
             return total / max(1, self._pool.total_pages
                                * self._pool.page_size)
         cfg = self.cfg
-        item = torch.empty((), dtype=self.cache_dtype).element_size()
         total = 0
         for idx in range(cfg.num_layers):
             window = layer_window(cfg, idx)
             size = min(self.max_len, window) if window else self.max_len
-            total += 2 * self.batch * size * cfg.num_kv_heads \
-                * cfg.head_dim * item
+            specs = kv_leaf_specs(cfg, (self.batch, size), self.cache_dtype)
+            total += sum(math.prod(shape) * dt.itemsize
+                         for shape, dt in specs.values())
         return total / max(1, self.batch * self.max_len)
 
     def on_record(self, rec) -> None:

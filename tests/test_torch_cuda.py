@@ -5,7 +5,10 @@ the card run them with
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances as in chip_smoke.py: 2e-5 in fp32 (summation order), one
 bf16 rounding step of outputs below 4 (2^-6) in bf16; the scatter is
-exact, the paged scatter exact outside the scratch page 0.  The Fig. 2
+exact, the paged scatter exact outside the scratch page 0, and so are
+the quantizing scatters (codes and scales bit for bit); the quantized
+attention kernels hold the bf16 tolerance against their plain versions,
+which dequantize to the same float32 values.  The Fig. 2
 kernels: STREAM and JACOBI2D exact, FMA32 within
 1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
 within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
@@ -15,10 +18,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import quant  # noqa: E402
+from repro_torch.kernels.cache_update import kernel as cu_kernel  # noqa: E402
 from repro_torch.kernels.cache_update import ops as cu_ops  # noqa: E402
 from repro_torch.kernels.cache_update import ref as cu_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
+from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.prefill_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.prefill_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.fma32 import kernel as fma_kernel  # noqa: E402
@@ -163,6 +170,142 @@ def test_paged_prefill_kernel_matches_plain(card, dt, ps, window, softcap):
     qg = q.reshape(b, t, kvh, g, hd).permute(0, 2, 1, 3, 4)
     want = pa_ref.prefill_attention_paged_ref(qg, kx, vx, k, v, table, offs,
                                               **kw)
+    want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+# -- quantized caches (int8 / fp8_e4m3 codes with float32 row scales) --------
+
+MODES = ("int8", "fp8_e4m3")
+
+
+def _bytes(t):
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _codes(card, mode, *shape, seed=0):
+    """A quantized cache of ``shape``: (codes, scales)."""
+    return quant.quantize(_randn(card, torch.float32, *shape, seed=seed), mode)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_cache_update_kernel_is_bit_exact(card, mode, dt):
+    """Codes and scales equal the plain version's bit for bit, on a zero
+    row and on +-1e4 extremes too, with no NaN."""
+    cache, scales = _codes(card, mode, 4, 33, 3, 64)
+    new = _randn(card, dt, 4, 1, 3, 64, seed=1)
+    new[1, 0, 2] = 0.0
+    new[2, 0, 0, :2] = torch.tensor([1e4, -1e4], dtype=dt)
+    slots = torch.tensor([0, 32, 7, 40], dtype=torch.int32, device=card)
+    n0 = cu_kernel.quant_launches
+    want = cu_ref.quant_cache_update_ref(cache.clone(), scales.clone(), new,
+                                         slots, mode)
+    got = cu_ops.quant_cache_update(cache.clone(), scales.clone(), new,
+                                    slots, mode)
+    assert cu_kernel.quant_launches == n0 + 1
+    assert torch.equal(_bytes(got[0]), _bytes(want[0]))
+    assert torch.equal(got[1], want[1])
+    assert torch.isfinite(quant.dequantize(*got)).all()
+
+
+@pytest.mark.parametrize("ps,t", [(16, 1), (16, 32), (24, 7), (8, 16)])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_paged_cache_update_kernel_is_bit_exact(card, mode, ps, t):
+    p, b, nb = 40, 4, 8
+    pool, scales = _codes(card, mode, p, ps, 3, 64)
+    new = _randn(card, torch.bfloat16, b, t, 3, 64, seed=1)
+    table = _table(card, b, nb, p)
+    table[3] = 0                              # a dead row on the scratch page
+    starts = torch.tensor([0, ps - 1, 5, 10 * ps * nb], dtype=torch.int32,
+                          device=card)
+    valids = torch.tensor([t, max(t - 3, 0), 0, 1], dtype=torch.int32,
+                          device=card)
+    args = (new, table, starts, valids, mode)
+    want = cu_ref.quant_paged_cache_update_ref(pool.clone(), scales.clone(),
+                                               *args)
+    got = cu_ops.quant_paged_cache_update(pool.clone(), scales.clone(), *args)
+    assert torch.equal(_bytes(got[0])[1:], _bytes(want[0])[1:])
+    assert torch.equal(got[1][1:], want[1][1:])
+    for page in table[2].tolist():            # row 2 is masked
+        assert torch.equal(_bytes(got[0][page]), _bytes(pool[page]))
+        assert torch.equal(got[1][page], scales[page])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "ring", "paged",
+                                    "paged window softcap"])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_decode_kernel_matches_plain(card, mode, layout):
+    b, kvh, g, hd, dt = 5, 3, 3, 64, torch.bfloat16
+    q = _randn(card, dt, b, 1, kvh * g, hd)
+    if layout.startswith("paged"):
+        ps, p, nb = (8, 60, 10) if "window" in layout else (16, 60, 10)
+        k, ks = _codes(card, mode, p, ps, kvh, hd, seed=1)
+        v, vs = _codes(card, mode, p, ps, kvh, hd, seed=2)
+        table, c = _table(card, b, nb, p), nb * ps
+        lens = torch.tensor([0, 1, ps, c - 1, c + 3], dtype=torch.int32,
+                            device=card)
+        kw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+        if "window" in layout:
+            kw.update(window=20, softcap=10.0)
+        n0 = da_kernel.quant_paged_launches
+        got = da_ops.decode_attention_paged(q, k, v, table, lens, **kw)
+        assert da_kernel.quant_paged_launches == n0 + 1
+        want = da_ref.decode_attention_paged_ref(
+            q.reshape(b, kvh, g, hd), k, v, table, lens, **kw)
+    else:
+        c = 200
+        k, ks = _codes(card, mode, b, c, kvh, hd, seed=1)
+        v, vs = _codes(card, mode, b, c, kvh, hd, seed=2)
+        lens = torch.tensor([0, 1, 100, 199, 450], dtype=torch.int32,
+                            device=card)
+        kw = dict(ring=layout == "ring", scale=0.125, k_scale=ks, v_scale=vs)
+        n0 = da_kernel.quant_launches
+        got = da_ops.decode_attention(q, k, v, lens, **kw)
+        assert da_kernel.quant_launches == n0 + 1
+        want = da_ref.decode_attention_ref(q.reshape(b, kvh, g, hd), k, v,
+                                           lens, **kw)
+    want = want.reshape(b, 1, kvh * g, hd)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "ring", "paged",
+                                    "paged window softcap"])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_prefill_kernel_matches_plain(card, mode, layout):
+    b, t, kvh, g, hd, dt = 4, 32, 3, 3, 64, torch.bfloat16
+    q = _randn(card, dt, b, t, kvh * g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    qg = q.reshape(b, t, kvh, g, hd).permute(0, 2, 1, 3, 4)
+    if layout.startswith("paged"):
+        ps, p, nb = (8, 60, 10) if "window" in layout else (24, 60, 10)
+        k, ks = _codes(card, mode, p, ps, kvh, hd, seed=3)
+        v, vs = _codes(card, mode, p, ps, kvh, hd, seed=4)
+        table = _table(card, b, nb, p)
+        offs = torch.tensor([0, ps, ps + 1, nb * ps - t], dtype=torch.int32,
+                            device=card)
+        kw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+        if "window" in layout:
+            kw.update(window=20, softcap=10.0)
+        n0 = pa_kernel.quant_paged_launches
+        got = pa_ops.prefill_attention_paged(q, kx, vx, k, v, table, offs,
+                                             **kw)
+        assert pa_kernel.quant_paged_launches == n0 + 1
+        want = pa_ref.prefill_attention_paged_ref(qg, kx, vx, k, v, table,
+                                                  offs, **kw)
+    else:
+        c = 96
+        k, ks = _codes(card, mode, b, c, kvh, hd, seed=3)
+        v, vs = _codes(card, mode, b, c, kvh, hd, seed=4)
+        offs = torch.tensor([0, 1, 70, 300], dtype=torch.int32, device=card)
+        ring = layout == "ring"
+        kw = dict(ring=ring, window=64 if ring else None, scale=0.125,
+                  k_scale=ks, v_scale=vs)
+        n0 = pa_kernel.quant_launches
+        got = pa_ops.prefill_attention(q, kx, vx, k, v, offs, **kw)
+        assert pa_kernel.quant_launches == n0 + 1
+        want = pa_ref.prefill_attention_ref(qg, kx, vx, k, v, offs, **kw)
     want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
 

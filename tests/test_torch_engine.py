@@ -216,10 +216,11 @@ def test_request_validation_and_later_slices_raise(setup):
         eng.generate(mk([([1], 0)]))
     for kw in (dict(mode="wave"),
                dict(governor=object()), dict(preempt=True),
-               dict(greedy=False), dict(cache_dtype="int8"),
-               dict(prefill_chunk=0)):
+               dict(greedy=False), dict(prefill_chunk=0)):
         with pytest.raises(NotImplementedError):
             port_engine(setup, 1, **kw)
+    with pytest.raises(ValueError, match="int4"):
+        port_engine(setup, 1, cache_dtype="int4")
 
 
 def test_engine_needs_a_card_unless_cpu_is_asked(setup, monkeypatch):

@@ -193,14 +193,19 @@ def test_mixed_devices_raise():
 
 
 def test_later_slice_options_raise():
+    """Only MLA's ``v_width`` still raises; a quantized cache's scales
+    (``k_scale``, ``v_scale`` defaulting to it) give a result."""
     q, k = torch.zeros(1, 1, 2, 4), torch.zeros(1, 4, 1, 4)
     with pytest.raises(NotImplementedError, match="MLA"):
         da_ops.decode_attention(q, k, k, 0, v_width=2)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        da_ops.decode_attention(q, k, k, 0, k_scale=torch.zeros(1, 4, 1))
+    codes = torch.ones(1, 4, 1, 4, dtype=torch.int8)
+    out = da_ops.decode_attention(q, codes, codes, 0,
+                                  k_scale=torch.ones(1, 4, 1))
+    assert out.shape == (1, 1, 2, 4) and torch.isfinite(out).all()
     qc, kx = torch.zeros(1, 2, 2, 4), torch.zeros(1, 2, 1, 4)
     with pytest.raises(NotImplementedError, match="MLA"):
         pa_ops.prefill_attention(qc, kx, kx, k, k, 0, v_width=2)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        pa_ops.prefill_attention(qc, kx, kx, k, k, 0,
-                                 v_scale=torch.zeros(1, 4, 1))
+    out = pa_ops.prefill_attention(qc, kx, kx, codes, codes, 0,
+                                   k_scale=torch.ones(1, 4, 1),
+                                   v_scale=torch.ones(1, 4, 1))
+    assert out.shape == (1, 2, 2, 4) and torch.isfinite(out).all()

@@ -209,8 +209,9 @@ def test_unported_archs_and_features_raise():
     with pytest.raises(NotImplementedError, match="other-archs slice"):
         port_configs.get_config("gemma2-27b")
     _, cfg_t = _configs("dense")
-    with pytest.raises(NotImplementedError, match="quantized-cache slice"):
-        PM.make_serve_fns(dataclasses.replace(cfg_t, kv_quant="int8"))
+    # quantized caches are ported: the serve steps build with kv_quant
+    fns = PM.make_serve_fns(dataclasses.replace(cfg_t, kv_quant="int8"))
+    assert callable(fns.decode) and callable(fns.prefill_chunk)
     with pytest.raises(NotImplementedError, match="flash kernel"):
         PM.make_serve_fns(dataclasses.replace(cfg_t,
                                               decode_attn_impl="dense"))
