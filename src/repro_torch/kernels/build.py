@@ -51,6 +51,8 @@ SIGNATURES = {
     "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _F, _I, _I, _P],
+    "pmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                            _F, _I, _P],
     "pmt_fma32": [_P, _P, _LL, _I, _P],
     "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
     "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,5 +1,6 @@
-"""GQA attention for the serve path: projections, KV caches, decode and
-chunked-prefill self-attention, over contiguous caches or page pools.
+"""GQA attention: full-sequence attention for the train path, and for
+the serve path projections, KV caches, decode and chunked-prefill
+self-attention, over contiguous caches or page pools.
 
 PyTorch counterparts of the JAX package's ``models/attention.py`` for the
 dense GQA layer.  Weights: wq (d, H, hd), wk/wv (d, KVH, hd),
@@ -11,6 +12,13 @@ tables, sliding-window layers stored unwrapped.  With ``cfg.kv_quant``
 leaves, "k_scale" and "v_scale", hold one float32 absmax scale per
 (position, kv head): (B, C, KVH), or (P, page_size, KVH) paged exactly
 like the code pools.  The attention kernels dequantize inside.
+
+Full-sequence ``attention`` has the JAX package's three impls:
+``dense`` (the whole (B, H, Sq, Skv) score tensor), ``chunked`` (query
+chunks of ``chunk``, each chunk body under ``torch.utils.checkpoint`` as
+JAX wraps it in ``jax.checkpoint``) — both plain PyTorch, as they are
+XLA code in JAX — and ``pallas``, the flash-attention kernel
+(``kernels/flash_attention``), causal self-attention only.
 
 Caches and pools are updated **in place** — the decode scatters
 (``kernels/cache_update``) and the prefill chunk writes all write into
@@ -29,6 +37,7 @@ import math
 from typing import Dict, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -36,8 +45,10 @@ from repro_torch.kernels import quant
 from repro_torch.kernels.cache_update.ops import (
     cache_update, paged_cache_update, quant_cache_update,
     quant_paged_cache_update)
+from repro_torch.kernels.constants import NEG_INF
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_paged)
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.prefill_attention.ops import (
     prefill_attention, prefill_attention_paged)
 from repro_torch.models import layers
@@ -79,6 +90,129 @@ def output_proj(p, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
     wo = p["wo"].to(o.dtype)
     return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# -- masks and full-sequence attention ------------------------------------------
+
+def make_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+              window: Optional[int] = None,
+              kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Boolean (B, Sq, Skv) mask; True = attend.
+
+    q_pos: (B, Sq) token positions of the queries; kv_pos: (B, Skv)
+    positions of the keys; window: attend iff 0 <= q - k < window;
+    kv_valid: (B, Skv) validity of the keys.
+    """
+    diff = q_pos[:, :, None] - kv_pos[:, None, :]
+    mask = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+    if causal:
+        mask &= diff >= 0
+    if window is not None:
+        mask &= diff < window
+    if kv_valid is not None:
+        mask &= kv_valid[:, None, :]
+    return mask
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor,
+                softcap: Optional[float]) -> torch.Tensor:
+    """(B,Sq,KVH,G,hd) x (B,Skv,KVH,hd) -> fp32 (B,KVH,G,Sq,Skv); the
+    product is taken in the inputs' dtype, then widened, as in JAX."""
+    s = torch.einsum("bqhgk,bshk->bhgqs", q, k).float()
+    return layers.softcap(s, softcap)
+
+
+def _attend_block(cfg: ModelConfig, q, k, v, mask: torch.Tensor,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Dense attention for one (whole or chunked) query block.
+
+    q: (B,Sq,H,hd) k,v: (B,Skv,KVH,hd) mask: (B,Sq,Skv) -> (B,Sq,H,hd)
+    """
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    if scale is None:
+        scale = attn_scale(cfg)
+    qg = q.reshape(b, sq, kvh, h // kvh, hd) * scale
+    s = _gqa_scores(qg, k, cfg.attn_softcap)
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqs,bshk->bqhgk", p.to(v.dtype), v)
+    return o.reshape(b, sq, h, v.shape[-1])
+
+
+def attention(cfg: ModelConfig, q, k, v, *, q_pos, kv_pos,
+              causal: bool = True, window: Optional[int] = None,
+              kv_valid: Optional[torch.Tensor] = None, impl: str = "dense",
+              chunk: int = 1024, scale: Optional[float] = None,
+              unroll: bool = False,
+              causal_kv_trim: bool = False) -> torch.Tensor:
+    """Multi-head attention over explicit q (B,Sq,H,hd), k/v (B,Skv,KVH,hd).
+
+    impl="dense"   full score tensor.
+    impl="chunked" query chunks of size ``chunk``: the live score tensor
+                   is (B, H, chunk, Skv), and each chunk body runs under
+                   ``torch.utils.checkpoint`` so backward recomputes its
+                   scores instead of saving them.
+    impl="pallas"  the flash-attention kernel (causal self-attention
+                   only; the JAX package's name for it is kept).
+
+    ``unroll`` and ``causal_kv_trim`` as in the JAX package: with both
+    (causal, no ``kv_valid``), each query chunk attends only its
+    causally visible key prefix.  Without ``unroll`` JAX scans the chunks
+    and ignores the trim; here both are one Python loop.
+    """
+    if impl == "pallas":
+        # The flash kernel derives its mask from row and column indices;
+        # it cannot honour a kv_valid mask or non-causal attention.
+        if kv_valid is not None:
+            raise ValueError(
+                "attention(impl='pallas') cannot honor kv_valid masks — "
+                "use impl='dense'/'chunked', or the flash-decode kernel "
+                "(kernels/decode_attention) for single-token decode")
+        if not causal:
+            raise ValueError(
+                "attention(impl='pallas') is causal self-attention only; "
+                "cross-attention must use impl='dense' or 'chunked'")
+        if scale is None:
+            scale = attn_scale(cfg)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=cfg.attn_softcap, scale=scale)
+    if impl == "dense" or q.shape[1] <= chunk:
+        mask = make_mask(q_pos, kv_pos, causal, window, kv_valid)
+        return _attend_block(cfg, q, k, v, mask, scale)
+    if impl != "chunked":
+        raise ValueError(f"unknown attention impl {impl!r}")
+
+    sq = q.shape[1]
+    n_chunks, rem = divmod(sq, chunk)
+    if rem:
+        raise ValueError(f"seq {sq} not divisible by chunk {chunk}")
+
+    def chunk_body(qc, qpc, kc, vc, kv_pos_c, kv_valid_c):
+        mask = make_mask(qpc, kv_pos_c, causal, window, kv_valid_c)
+        return _attend_block(cfg, qc, kc, vc, mask, scale)
+
+    trim = unroll and causal_kv_trim and causal and kv_valid is None
+    outs = []
+    for i in range(n_chunks):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        hi = (i + 1) * chunk if trim else k.shape[1]
+        outs.append(checkpoint(
+            chunk_body, q[:, sl], q_pos[:, sl], k[:, :hi], v[:, :hi],
+            kv_pos[:, :hi], kv_valid, use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
+def self_attention(cfg: ModelConfig, p, x: torch.Tensor,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   window: Optional[int] = None, impl: str = "dense",
+                   chunk: int = 1024) -> torch.Tensor:
+    """Full self-attention of x (B, S, d) at positions (B, S), no cache."""
+    tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    q, k, v = project_qkv(cfg, p, x, tables)
+    o = attention(cfg, q, k, v, q_pos=positions, kv_pos=positions,
+                  causal=causal, window=window, impl=impl, chunk=chunk)
+    return output_proj(p, o)
 
 
 # -- KV cache -------------------------------------------------------------------

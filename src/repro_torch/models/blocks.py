@@ -1,5 +1,6 @@
 """Per-layer block assembly: the attention + MLP block (kind "A"), over
-contiguous caches or page pools.
+the full sequence (train path) or one step against contiguous caches or
+page pools (serve path).
 
 PyTorch counterparts of the kind-"A" branches of the JAX package's
 ``models/blocks.py``.  The other kinds (mamba "M", xLSTM "m"/"s",
@@ -30,7 +31,7 @@ def check_supported(cfg: ModelConfig) -> None:
         "m_rope": (cfg.m_rope, "the other-archs slice (qwen2-vl)"),
         "pos_embed": (cfg.pos_embed != "rope",
                       "the other-archs slice (sinusoidal / none)"),
-        "mtp": (cfg.mtp, "the train slice"),
+        "mtp": (cfg.mtp, "the other-archs slice (deepseek-v3 MTP)"),
         "dense decode attention": (
             cfg.decode_attn_impl not in ("auto", "flash"),
             "no slice: decode attention always runs the flash kernel"),
@@ -61,6 +62,17 @@ def layer_window(cfg: ModelConfig, idx: int) -> Optional[int]:
         kind = cfg.layer_pattern[idx % len(cfg.layer_pattern)]
         return cfg.sliding_window if kind == "L" else None
     return cfg.sliding_window
+
+
+def attn_impl(cfg: ModelConfig, seq_len: int) -> str:
+    """The full-sequence attention impl for ``seq_len``: ``cfg.attn_impl``,
+    or for "auto" dense when the sequence is short or not a whole number
+    of ``attn_chunk`` chunks, else chunked (never the kernel)."""
+    if cfg.attn_impl != "auto":
+        return cfg.attn_impl
+    if seq_len <= cfg.attn_chunk or seq_len % cfg.attn_chunk:
+        return "dense"
+    return "chunked"
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
@@ -94,6 +106,36 @@ def _tail(cfg: ModelConfig, p, x: torch.Tensor, out: torch.Tensor):
     if cfg.post_block_norm:
         out = layers.apply_norm(cfg, p["post_norm_2"], out)
     return x + out
+
+
+def block_forward(cfg: ModelConfig, p, x: torch.Tensor,
+                  positions: torch.Tensor, idx: int, *, enc_out=None,
+                  encoder: bool = False, collect_kv: bool = False,
+                  rope_tables=None):
+    """One block over the full sequence: x (B, S, d) at positions (B, S).
+
+    Returns (x, aux_loss, kv): aux_loss is a 0 fp32 scalar (no MoE here),
+    kv the layer's (k, v) with ``collect_kv``, else None.
+    ``rope_tables`` (``layers.rope_tables`` of ``positions``) may be
+    passed to share them across layers.  Only kind "A" decoder blocks are
+    ported; encoder and cross-attention blocks raise.
+    """
+    if encoder or enc_out is not None or layer_kind(cfg, idx) != "A":
+        raise NotImplementedError(f"{cfg.name}: block kind of layer {idx} "
+                                  "comes with the other-archs slice")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if rope_tables is None:
+        rope_tables = layers.rope_tables(positions, cfg.head_dim,
+                                         cfg.rope_theta)
+    h = layers.apply_norm(cfg, p["norm_1"], x)
+    q, k, v = attn.project_qkv(cfg, p["mixer"], h, rope_tables)
+    o = attn.attention(cfg, q, k, v, q_pos=positions, kv_pos=positions,
+                       causal=True, window=layer_window(cfg, idx),
+                       impl=attn_impl(cfg, h.shape[1]), chunk=cfg.attn_chunk,
+                       unroll=cfg.unroll_time_chunks,
+                       causal_kv_trim=cfg.causal_kv_trim)
+    out = attn.output_proj(p["mixer"], o)
+    return _tail(cfg, p, x, out), aux, ((k, v) if collect_kv else None)
 
 
 def block_decode(cfg: ModelConfig, p, x: torch.Tensor, cache,

@@ -116,6 +116,13 @@ def logits_from_hidden(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 # -- RoPE ----------------------------------------------------------------------------
 
+def default_positions(batch: int, seq: int, offset=0,
+                      device=None) -> torch.Tensor:
+    """(B, S) int32 positions ``offset + arange(S)`` for every row."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
+    return pos[None].expand(batch, seq)
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half

@@ -1,4 +1,5 @@
-"""Top-level model for the serve path: params, caches, serve steps.
+"""Top-level model: params, the full-sequence forward and loss (train
+path), caches and serve steps.
 
 Layer stacks are organised as *units*, the repeating pattern of the
 architecture (one layer for dense archs, the local/global pair for a
@@ -10,6 +11,10 @@ layer's cache ``caches["units"]["r0"]["k"][u]`` is a contiguous
 
 Entry points:
   init_params(cfg, seed, device)          -> parameter tree (fp32)
+  build_forward(cfg)                      -> forward(params, batch)
+                                             -> (hidden (B, S, d), aux)
+  loss_fn(cfg)                            -> loss(params, batch)
+                                             -> (scalar, metrics)
   serving_params(cfg, params, device)     -> the tree on the device,
                                              weight matrices in cfg.dtype
   init_caches(cfg, batch, max_len, ...)   -> decode caches
@@ -18,20 +23,30 @@ Entry points:
   make_paged_serve_fns(cfg)               -> PagedServeFns(decode,
                                                            prefill_chunk)
 
-The whole-prompt ``prefill`` of the JAX package feeds only the blocking
-``prefill_chunk=0`` admission baseline and comes with a later slice.
+The full-sequence forward runs the stacked units in a Python loop, each
+unit under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it
+(``"full"``: recompute everything; ``"dots"``: save the matrix
+products, as ``jax.checkpoint_policies.checkpoint_dots``), with the
+attention impl of ``blocks.attn_impl`` (``"pallas"``: the
+flash-attention kernel).  The loss is the JAX package's chunked
+cross-entropy over the tied head.  The whole-prompt ``prefill`` of the
+JAX package feeds only the blocking ``prefill_chunk=0`` admission
+baseline and comes with a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, NamedTuple, Union
+import math
+from typing import Any, Dict, NamedTuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,9 +65,7 @@ def unit_layout(cfg: ModelConfig) -> UnitLayout:
 
 
 def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
 def unit_slice(tree, u: int):
@@ -60,6 +73,24 @@ def unit_slice(tree, u: int):
     if isinstance(tree, dict):
         return {k: unit_slice(v, u) for k, v in tree.items()}
     return tree[u]
+
+
+def reference_layout(cfg: ModelConfig, tree):
+    """A parameter-shaped tree as the JAX package lays it out: with a
+    single unit the JAX package does not stack, so the units lose the
+    port's leading unit axis (views of the same tensors).  Shape-driven
+    rules (weight decay on ``ndim >= 2``, Adafactor's factoring) and the
+    checkpoint layout read this view."""
+    if unit_layout(cfg).n_units == 1:
+        return dict(tree, units=unit_slice(tree["units"], 0))
+    return tree
+
+
+def port_layout(cfg: ModelConfig, tree):
+    """The inverse of :func:`reference_layout` (views)."""
+    if unit_layout(cfg).n_units == 1:
+        return dict(tree, units=tree_map(lambda t: t[None], tree["units"]))
+    return tree
 
 
 # -- params ------------------------------------------------------------------------
@@ -96,6 +127,129 @@ def serving_params(cfg: ModelConfig, params, device=None):
         return tree.to(dev) if keep else tree.to(device=dev, dtype=dt)
 
     return cast(params, False)
+
+
+# -- full-sequence forward and loss ---------------------------------------------------
+
+def _positions(cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+    """(B, S) positions of the batch's tokens (M-RoPE's comes with
+    qwen2-vl)."""
+    b, s = batch["tokens"].shape
+    return layers.default_positions(b, s, device=batch["tokens"].device)
+
+
+def _input_embed(cfg: ModelConfig, params, batch):
+    """The tokens' embeddings (patch and frame inputs come with the
+    archs that take them)."""
+    return layers.embed_tokens(cfg, params["embed"], batch["tokens"])
+
+
+def _unstack(tree, n: int):
+    """The n unit trees of a stacked tree (views through one ``unbind``
+    per leaf, so the backward stacks the units' grads in one step)."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[u], parts) for u in range(n)]
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _run_stack(cfg: ModelConfig, unit_params, n_units: int, unit_fn, x,
+               aux):
+    """The full-sequence twin of the JAX ``_run_units``: ``unit_fn(x,
+    unit_tree) -> (x, aux)`` over the stacked units in a Python loop,
+    summing aux.  With ``cfg.remat`` "full" or "dots" and more than one
+    unit, each unit runs under ``torch.utils.checkpoint`` (non-reentrant;
+    "dots" keeps the matrix products and recomputes the rest)."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    remat = cfg.remat != "none" and n_units > 1
+    kw = {}
+    if remat and cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    for up in _unstack(unit_params, n_units):
+        if remat:
+            x, a = ckpt.checkpoint(unit_fn, x, up, use_reentrant=False, **kw)
+        else:
+            x, a = unit_fn(x, up)
+        aux = aux + a
+    return x, aux
+
+
+def build_forward(cfg: ModelConfig):
+    """Returns forward(params, batch) -> (hidden (B, S, d), aux_loss).
+
+    ``batch["tokens"]`` is (B, S) on the device the params live on; the
+    RoPE tables are built once and shared by every layer."""
+    lay = unit_layout(cfg)
+
+    def forward(params, batch):
+        x = _input_embed(cfg, params, batch)
+        pos = _positions(cfg, batch)
+        tables = layers.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def unit(xx, up):
+            a_sum = torch.zeros((), dtype=torch.float32, device=xx.device)
+            for r in range(lay.unit_len):
+                xx, a, _ = blocks.block_forward(cfg, up[f"r{r}"], xx, pos, r,
+                                                rope_tables=tables)
+                a_sum = a_sum + a
+            return xx, a_sum
+
+        x, aux = _run_stack(cfg, params["units"], lay.n_units, unit, x, aux)
+        return layers.apply_norm(cfg, params["final_norm"], x), aux
+
+    return forward
+
+
+def _xent_chunk(cfg: ModelConfig, embed_params, h, targets):
+    """Summed NLL over one chunk and its count of real targets.
+    h: (B, C, d), targets: (B, C) with -1 for padding."""
+    logits = layers.logits_from_hidden(cfg, embed_params, h)   # fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.clamp(targets, min=0).long()
+    picked = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    valid = (targets >= 0).float()
+    nll = (lse - picked) * valid
+    return nll.sum(), valid.sum()
+
+
+def _chunked_xent(cfg: ModelConfig, embed_params, hidden, targets):
+    s = hidden.shape[1]
+    ck = cfg.loss_chunk or s
+    nb = math.ceil(s / ck)
+    remat = nb > 1 and cfg.remat != "none"
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(nb):
+        args = (cfg, embed_params, hidden[:, i * ck:(i + 1) * ck],
+                targets[:, i * ck:(i + 1) * ck])
+        t, c = ckpt.checkpoint(_xent_chunk, *args, use_reentrant=False) \
+            if remat else _xent_chunk(*args)
+        total = total + t
+        count = count + c
+    return total / torch.clamp(count, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig):
+    """Returns loss(params, batch) -> (scalar, metrics dict) with metrics
+    ``nll``, ``aux_loss`` and ``loss`` (0-dim tensors)."""
+    forward = build_forward(cfg)
+
+    def loss(params, batch):
+        hidden, aux = forward(params, batch)
+        nll = _chunked_xent(cfg, params["embed"], hidden, batch["targets"])
+        return nll, {"nll": nll, "aux_loss": aux, "loss": nll}
+
+    return loss
 
 
 # -- caches --------------------------------------------------------------------------

@@ -70,6 +70,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.attention import kv_leaf_specs
 from repro_torch.models.blocks import layer_window
 from repro_torch.serve.paging import PagePool, RadixPrefixCache
+from repro_torch.tree import tree_leaves
 
 
 def stall_p95(events) -> float:
@@ -142,12 +143,6 @@ class _PagedPrefill:
     plen: int
     offset: int
     matched_tokens: int = 0
-
-
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [t for k in sorted(tree) for t in _leaves(tree[k])]
-    return [tree]
 
 
 class _Slots:
@@ -592,7 +587,7 @@ class ServeEngine:
         page_size`` positions."""
         if self._pool is not None:
             total = sum(t.numel() * t.element_size()
-                        for t in _leaves(self._paged_caches))
+                        for t in tree_leaves(self._paged_caches))
             return total / max(1, self._pool.total_pages
                                * self._pool.page_size)
         cfg = self.cfg
@@ -689,7 +684,7 @@ class ServeEngine:
         caches = model_mod.init_caches(self.cfg, b, self.max_len,
                                        dtype=self.cache_dtype,
                                        device=self.device)
-        cache_leaves = _leaves(caches)
+        cache_leaves = tree_leaves(caches)
         slots = _Slots(self, requests)
 
         def step(tok_dev, pos_dev):
@@ -712,7 +707,7 @@ class ServeEngine:
                 first = self._step_chunked_prefill(st, bool(slots.live()))
                 if first is not None:
                     for live_leaf, row in zip(cache_leaves,
-                                              _leaves(st.caches)):
+                                              tree_leaves(st.caches)):
                         live_leaf[:, st.slot].copy_(row[:, 0])
                     slots.go_live(st, first, st.plen)
                 slots.update_gauges()

@@ -8,7 +8,9 @@ bf16 rounding step of outputs below 4 (2^-6) in bf16; the scatter is
 exact, the paged scatter exact outside the scratch page 0, and so are
 the quantizing scatters (codes and scales bit for bit); the quantized
 attention kernels hold the bf16 tolerance against their plain versions,
-which dequantize to the same float32 values.  The Fig. 2
+which dequantize to the same float32 values.  Flash attention: TOL in
+fp32, and in bf16 2^-5 + 2e-5 (its plain oracle rounds the
+probabilities to bf16, the kernel keeps them in fp32).  The Fig. 2
 kernels: STREAM and JACOBI2D exact, FMA32 within
 1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
 within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
@@ -28,6 +30,9 @@ from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.prefill_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.prefill_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.fma32 import kernel as fma_kernel  # noqa: E402
 from repro_torch.kernels.fma32 import ops as fma_ops  # noqa: E402
 from repro_torch.kernels.fma32 import ref as fma_ref  # noqa: E402
@@ -308,6 +313,88 @@ def test_quant_prefill_kernel_matches_plain(card, mode, layout):
         want = pa_ref.prefill_attention_ref(qg, kx, vx, k, v, offs, **kw)
     want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+# -- flash attention (the train path) -----------------------------------------
+
+FLASH_BF16_TOL = 2.0 ** -5 + 2e-5
+# bf16 kernel against the fp32 oracle on the same bf16 values: one
+# rounding of the fp32 result to bf16 (2^-8 relative) beyond fp32 sums
+# in other orders
+FLASH_BF16_REL, FLASH_BF16_ATOL = 2.0 ** -8, 2 * TOL[torch.float32]
+
+
+def _flash_inputs(card, dt, b, sq, skv, h, kvh, hd):
+    return (_randn(card, dt, b * h, sq, hd),
+            _randn(card, dt, b * kvh, skv, hd, seed=1),
+            _randn(card, dt, b * kvh, skv, hd, seed=2))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 256, 256, 9, 3, 64, None, None),
+                                  (1, 77, 77, 4, 2, 32, 20, 30.0),
+                                  (2, 100, 300, 4, 4, 128, None, None),
+                                  (1, 300, 100, 3, 1, 16, 250, None)])
+def test_flash_attention_kernel_matches_plain(card, dt, case):
+    b, sq, skv, h, kvh, hd, window, softcap = case
+    q, k, v = _flash_inputs(card, dt, b, sq, skv, h, kvh, hd)
+    kw = dict(causal=True, window=window, softcap=softcap,
+              scale=hd ** -0.5)
+    got = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    tol = TOL[dt] if dt == torch.float32 else FLASH_BF16_TOL
+    assert got.dtype == dt
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if dt == torch.bfloat16:
+        exact = fa_ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+        assert bool(((got.float() - exact).abs() <= FLASH_BF16_REL
+                     * exact.abs() + FLASH_BF16_ATOL).all())
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_rows_with_no_key_are_zero(card, dt):
+    """Sq 300 on Skv 100 with window 20: rows 119 and on can attend no
+    key.  They come out as zeros (the oracle averages every key there),
+    also where their tile of query rows shares key tiles with rows that
+    have keys (rows 119-127); every other row matches the oracle."""
+    b, sq, skv, h, kvh, hd, window = 2, 300, 100, 4, 2, 64, 20
+    q, k, v = _flash_inputs(card, dt, b, sq, skv, h, kvh, hd)
+    kw = dict(causal=True, window=window, scale=hd ** -0.5)
+    got = fa_kernel.flash_attention_cuda(q, k, v, **kw)
+    want = fa_ref.flash_attention_ref(q, k, v, **kw)
+    first = skv + window - 1
+    tol = TOL[dt] if dt == torch.float32 else FLASH_BF16_TOL
+    assert float((got[:, :first].float() - want[:, :first].float())
+                 .abs().max()) <= tol
+    assert bool((got[:, first:] == 0).all())
+
+
+def test_flash_attention_op_launches_once_per_forward(card):
+    """The op launches the kernel in its forward (again when a checkpoint
+    recomputes it) and never in its backward, which is the oracle's VJP:
+    its gradients equal the oracle's."""
+    from torch.utils.checkpoint import checkpoint
+    b, s, h, kvh, hd = 2, 128, 4, 2, 64
+    mk = lambda *shape, seed: _randn(card, torch.float32, *shape,
+                                     seed=seed).requires_grad_()
+    q, k, v = mk(b, s, h, hd, seed=0), mk(b, s, kvh, hd, seed=1), \
+        mk(b, s, kvh, hd, seed=2)
+    g = _randn(card, torch.float32, b, s, h, hd, seed=3)
+    n0 = fa_kernel.launches
+    out = fa_ops.flash_attention(q, k, v, scale=0.125)
+    assert fa_kernel.launches == n0 + 1
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert fa_kernel.launches == n0 + 1
+    flat = lambda t: t.transpose(1, 2).reshape(-1, s, hd)
+    ref = fa_ref.flash_attention_ref(flat(q), flat(k), flat(v), scale=0.125)
+    want = torch.autograd.grad(ref, (q, k, v), flat(g))
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= TOL[torch.float32]
+    out = checkpoint(lambda *t: fa_ops.flash_attention(*t, scale=0.125),
+                     q, k, v, use_reentrant=False)
+    out.sum().backward()
+    assert fa_kernel.launches == n0 + 3
 
 
 # -- the Fig. 2 kernels ------------------------------------------------------

@@ -43,8 +43,15 @@ def test_port_modules_import_without_jax_or_repro():
             "repro_torch.core.backends.h100"} <= set(mods)
     # the paged serve path: the copy of the page allocator and radix tree
     assert "repro_torch.serve.paging" in mods
+    # the train path
+    assert {"repro_torch.optim", "repro_torch.optim.optimizers",
+            "repro_torch.train", "repro_torch.train.steps",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.launch.train"} <= set(mods)
     for family in ("fma32", "stream", "gemm", "jacobi2d", "gridder",
-                   "cache_update", "decode_attention", "prefill_attention"):
+                   "cache_update", "decode_attention", "prefill_attention",
+                   "flash_attention"):
         assert {f"repro_torch.kernels.{family}.{part}"
                 for part in ("kernel", "ref", "ops")} <= set(mods)
     code = (
