@@ -8,7 +8,10 @@ Phases, in order; any failure exits nonzero:
   3. hold each kernel against its plain PyTorch version on the card, at
      the serve path's shapes and at odd sizes, in fp32 and bf16, with the
      tolerances stated below; time kernel, plain version, one library
-     call doing the same work, and the least time the card could take.
+     call doing the same work, and the least time the card could take;
+     the four scatters (contiguous, paged, and their quantizing twins)
+     also with the host out of the loop: 100 calls in one CUDA graph,
+     the kernel and, where there is one, its ``index_copy_`` yardstick.
      3b. the same for the six Fig. 2 kernels (FMA32, STREAM, GRIDDER,
      DEGRIDDER, GEMM, JACOBI2D) at the Fig. 2 path's shapes and at odd
      ones, with the gridder pair's adjoint identity on the card and its
@@ -29,11 +32,16 @@ Phases, in order; any failure exits nonzero:
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
-     1, 3, 4, window, softcap, ragged S, Sq != Skv, hd 16/32/128), in
-     bf16 also elementwise against the fp32 oracle within one bf16
-     rounding, and the op's gradients against the oracle's; timed
-     beside the plain
-     version, ``scaled_dot_product_attention`` and its operation bound.
+     1, 3, 4, window, softcap, ragged S, Sq != Skv, hd 16/32/128, hd 128
+     with no window; in bf16 also scores reaching |s| ~50), in bf16 also
+     elementwise against the fp32 oracle within one bf16 rounding, and
+     the op's gradients against the oracle's; the bf16 kernels' SASS
+     (``cuobjdump -sass``) must hold HGMMA and UTMALDG (tensor cores fed
+     by TMA), the fp32 ones no HGMMA; the bf16 kernels' shared memory
+     (``pmt_flash_smem_bytes``) must equal the wrapper's ``smem_bytes``;
+     timed beside the plain version,
+     ``scaled_dot_product_attention`` and its operation bound, with its
+     TFLOP/s, share of the bound and factor against SDPA.
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
      against the same model on the CPU (plain versions), contiguous and
      paged; the paged engine's greedy tokens on the card equal the
@@ -200,6 +208,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 100, replays: int = 5) -> float:
+    """Device time of one call with the host out of the loop: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    CUDA events after a warm-up replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):           # capture wants a warm call
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -214,6 +246,13 @@ def library_time(fn):
     except (TypeError, RuntimeError) as exc:
         log(f"  library call unavailable: {exc}")
         return None
+
+
+def tm_graph(t: dict) -> str:
+    """The CUDA-graph device times of a timing dict, for the log."""
+    lib = t.get("library_graph_ms")
+    return (f"kernel {t['graph_ms']:.5f} ms" + ("" if lib is None else
+                                               f", index_copy_ {lib:.5f}"))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -275,9 +314,15 @@ def check_cache_update(kernel, ref, dev):
                         cache, new, slots), iters=200),
                     "library_ms": time_ms(lambda: flat.index_copy_(
                         0, idx, rows), iters=200),
+                    "graph_ms": graph_ms(lambda: kernel.cache_update_cuda(
+                        cache, new, slots)),
+                    "library_graph_ms": graph_ms(lambda: flat.index_copy_(
+                        0, idx, rows)),
                 }
                 t["bound_ms"], t["bound_by"] = bound(
                     2 * b * f * el + 4 * b, 0.0, dt)
+                log(f"  cache_update {name}: device time a call, host out "
+                    f"of the loop (CUDA graph): {tm_graph(t)}")
                 results = dict(t, max_abs_err=err)
     return results
 
@@ -489,7 +534,12 @@ def check_quant_cache_update(kernel, ref, quant, dev):
                             lambda: ref.quant_cache_update_ref(
                                 cache, scales, new, slots, mode), iters=200),
                         "library_ms": None,
+                        "graph_ms": graph_ms(
+                            lambda: kernel.quant_cache_update_cuda(
+                                cache, scales, new, slots, mode)),
                     }
+                    log(f"  quant_cache_update {mode} {name}: device time "
+                        f"a call (CUDA graph) {tm_graph(t)}")
                     # read the rows, write codes and scales, read slots
                     t["bound_ms"], t["bound_by"] = bound(
                         n * d * new.element_size() + n * d + 4 * n + 4 * b,
@@ -582,13 +632,17 @@ def check_quant_paged_cache_update(kernel, ref, quant, dev):
                             lambda: ref.quant_paged_cache_update_ref(
                                 pool, scales, *args), iters=200),
                         "library_ms": None,
+                        "graph_ms": graph_ms(
+                            lambda: kernel.quant_paged_cache_update_cuda(
+                                pool, scales, *args)),
                     }
                     tm["bound_ms"], tm["bound_by"] = bound(
                         n * d * new.element_size() + n * d + 4 * n
                         + 4 * int(ok.sum()) + 8 * b, 0.0, dt)
                     log(f"  quant_paged_cache_update {mode} {name}: kernel "
                         f"{tm['ms']:.5f} ms, plain {tm['plain_ms']:.5f}, "
-                        f"bound {tm['bound_ms']:.7f}")
+                        f"bound {tm['bound_ms']:.7f}; device time a call "
+                        f"(CUDA graph) {tm_graph(tm)}")
                     if name.startswith("decode"):
                         results[mode] = dict(tm, max_abs_err=0.0)
     return results
@@ -681,12 +735,18 @@ def check_paged_cache_update(kernel, ref, dev):
                         pool, new, table, starts, valids), iters=200),
                     "library_ms": time_ms(lambda: flat.index_copy_(
                         0, hit, rows), iters=200),
+                    "graph_ms": graph_ms(
+                        lambda: kernel.paged_cache_update_cuda(
+                            pool, new, table, starts, valids)),
+                    "library_graph_ms": graph_ms(lambda: flat.index_copy_(
+                        0, hit, rows)),
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(
                     2 * n * f * el + 4 * n + 8 * b, 0.0, dt)
                 log(f"  paged_cache_update {name}: kernel {tm['ms']:.5f} "
                     f"ms, plain {tm['plain_ms']:.5f}, index_copy_ "
-                    f"{tm['library_ms']:.5f}, bound {tm['bound_ms']:.7f}")
+                    f"{tm['library_ms']:.5f}, bound {tm['bound_ms']:.7f}; "
+                    f"device time a call (CUDA graph) {tm_graph(tm)}")
                 if name.startswith("decode"):
                     results = dict(tm, max_abs_err=err)
     return results
@@ -1001,6 +1061,16 @@ _SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"\s*([^;]*);")
 
 
+def sass_functions(library: Path) -> list:
+    """(name, instructions) of every function in the built library, as
+    ``cuobjdump -sass`` shows it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return [tuple(f.split("\n", 1))
+            for f in re.split(r"\n\s*Function : ", sass)[1:]]
+
+
 def sass_ops_per_term(library: Path, kernel: str) -> tuple:
     """FP32 FLOP per (subgrid, pixel, visibility) term in ``kernel``'s
     loop over staged elements, as ``cuobjdump -sass`` shows the built
@@ -1011,11 +1081,8 @@ def sass_ops_per_term(library: Path, kernel: str) -> tuple:
     reads its table from global memory, checked), and phases here stay
     below 4 pi.  Returns (FLOP per term, counts of the opcodes on that
     path, the unroll factor)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    funcs = [f for f in re.split(r"\n\s*Function : ", sass)
-             if re.match(rf"\S*{kernel}", f)]
+    funcs = [text for name, text in sass_functions(library)
+             if re.match(rf"\S*{kernel}", name)]
     if len(funcs) != 1:
         raise AssertionError(f"{len(funcs)} SASS functions match {kernel!r}")
     ins = [(int(a, 16), op, args.strip()) for a, op, args in
@@ -1118,11 +1185,11 @@ def check_gridder(kernel, ref, dev, library: Path):
 # Shapes: the train path's (B 8, S 2048, 9 query heads on 3 kv heads,
 # hd 64, bf16, causal) and odd ones: fp32; GQA groups 1, 3 and 4; a
 # window; softcap; both; ragged S 1000 and 77; Sq != Skv both ways; hd
-# 16, 32 and 128.  fp32 within TOL.  bf16 within FLASH_BF16_TOL: beyond
-# the output's one bf16 rounding step (TOL), the plain oracle rounds its
-# probabilities to bf16 before p @ v (up to 2^-9 relative each) and the
-# kernel keeps them in fp32, which moves outputs of |v| ~ 4 by up to
-# ~2^-7 more.  An H100 measured 2^-6 in every bf16 case.  That bound is
+# 16, 32 and 128, 128 also with no window.  fp32 within TOL.  bf16 within
+# FLASH_BF16_TOL: beyond the output's one bf16 rounding step (TOL), the
+# plain oracle rounds its probabilities to bf16 before p @ v (up to 2^-9
+# relative each) and the kernel keeps them to fp32 precision (bf16 p_hi
+# + p_lo), which moves outputs of |v| ~ 4 by up to ~2^-7 more.  An H100 measured 2^-6 in every bf16 case.  That bound is
 # loose for the later rows, whose |o| averages over ~1000 keys to ~0.05,
 # so each bf16 output is also held, element by element, to the fp32
 # oracle on the same bf16 values: the kernel differs from it by one
@@ -1145,13 +1212,78 @@ FLASH_CASES = {
     "hd16 S130": (2, 130, 130, 3, 1, 16, None, None),
     "hd32 S256": (2, 256, 256, 4, 2, 32, None, None),
     "hd128 S300": (2, 300, 300, 4, 2, 128, 100, 30.0),
+    "hd128 S512 no window": (2, 512, 512, 4, 2, 128, None, None),
 }
+# bf16 only: q and k scaled by 3.5, so that |s| reaches ~50 (the online
+# softmax's running max jumps and alpha rescales the accumulator hard)
+FLASH_LARGE_SCORES = ("large scores B2 S1024 H9 KVH3 hd64",
+                      (2, 1024, 1024, 9, 3, 64, None, None), 3.5)
 
 
-def _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd, seed=7):
+def _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd, seed=7, amp=1.0):
     gen = torch.Generator(device=dev).manual_seed(seed)
-    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(dt)
-    return mk(b * h, sq, hd), mk(b * kvh, skv, hd), mk(b * kvh, skv, hd)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev)
+    q, k, v = mk(b * h, sq, hd), mk(b * kvh, skv, hd), mk(b * kvh, skv, hd)
+    return (amp * q).to(dt), (amp * k).to(dt), v.to(dt)
+
+
+def sass_opcodes(library: Path, kernel: str) -> list:
+    """The opcodes (without modifiers) of every function of the built
+    library whose name holds ``kernel``, as ``cuobjdump -sass`` shows
+    them: one set per function."""
+    return [{op.split(".")[0] for _, op, _ in _SASS.findall(text)}
+            for name, text in sass_functions(library) if kernel in name]
+
+
+def log_ptxas_usage(nvcc_log: str, kernel: str) -> None:
+    """Registers and spills of each kernel whose name holds ``kernel``,
+    from the ``-Xptxas -v`` lines nvcc printed while it built."""
+    name = None
+    for line in nvcc_log.splitlines():
+        if "wgmma" in line and kernel in line:      # e.g. serialised wgmmas
+            log(f"  ptxas: {line.strip()}")
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            width = re.search(r"ILi(\d+)E", name)
+            short = re.search(kernel + r"[a-z0-9]+_kernel", name)
+            log(f"  ptxas {short.group(0) if short else name} hd "
+                f"{width.group(1) if width else '?'}: "
+                f"{re.search(r'Used \d+ registers', line).group(0)}, "
+                f"{spill}")
+
+
+def check_flash_sass(library: Path) -> None:
+    """The bf16 flash kernels (one per head width) run on the tensor cores
+    fed by TMA: their SASS holds HGMMA and UTMALDG; the fp32 ones keep the
+    CUDA cores: no HGMMA."""
+    tc = sass_opcodes(library, "flash_attention_tc_kernel")
+    fp32 = sass_opcodes(library, "flash_attention_fp32_kernel")
+    log(f"  flash_attention SASS: {len(tc)} bf16 kernels, "
+        f"{sum('HGMMA' in f for f in tc)} with HGMMA, "
+        f"{sum('UTMALDG' in f for f in tc)} with UTMALDG; {len(fp32)} fp32 "
+        f"kernels, {sum('HGMMA' in f for f in fp32)} with HGMMA")
+    if not (len(tc) == len(fp32) == 4
+            and all({"HGMMA", "UTMALDG"} <= f for f in tc)
+            and not any("HGMMA" in f for f in fp32)):
+        raise AssertionError("the flash kernels' SASS is not what their "
+                             "design says")
+
+
+def check_flash_smem(lib, kernel) -> None:
+    """The shared memory each bf16 flash kernel launches with (the
+    library's ``pmt_flash_smem_bytes``) is what the wrapper's
+    ``smem_bytes`` checks against SMEM_LIMIT before a launch."""
+    got = {hd: lib.pmt_flash_smem_bytes(hd) for hd in kernel.HEAD_DIMS}
+    want = {hd: kernel.smem_bytes(hd, kernel.BLOCK_K, kernel.STAGES)
+            for hd in kernel.HEAD_DIMS}
+    log(f"  flash_attention bf16 shared memory by hd: the kernels {got}, "
+        f"the wrapper's smem_bytes {want} (limit {kernel.SMEM_LIMIT})")
+    if got != want:
+        raise AssertionError("smem_bytes disagrees with the kernel's tiling")
 
 
 def _backward_ms(ref, q, k, v, kw) -> float:
@@ -1168,58 +1300,73 @@ def _backward_ms(ref, q, k, v, kw) -> float:
     return time_ms(backward, iters=5, warmup=1)
 
 
-def check_flash(kernel, ref, ops, dev):
+def check_flash(kernel, ref, ops, dev, library: Path):
     """Phase 3f: the flash-attention kernel against ``flash_attention_ref``
-    on every case of FLASH_CASES; the op's gradients against the
-    oracle's; times at the train path's shapes."""
+    on every case of FLASH_CASES and, in bf16, FLASH_LARGE_SCORES; the
+    bf16 kernels' SASS; the op's gradients against the oracle's; times
+    at the train path's shapes."""
+    check_flash_sass(library)
     results = {}
-    for name, (b, sq, skv, h, kvh, hd, window, softcap) in \
-            FLASH_CASES.items():
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd)
-            kw = dict(causal=True, window=window, softcap=softcap,
-                      scale=1.0 / math.sqrt(hd))
-            got = kernel.flash_attention_cuda(q, k, v, **kw)
-            want = ref.flash_attention_ref(q, k, v, **kw)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            tol = TOL[dt] if dt == torch.float32 else FLASH_BF16_TOL
-            extra, rel = "", 0.0
-            if dt == torch.bfloat16:
-                # the same oracle in fp32 from the same bf16 values
-                exact = ref.flash_attention_ref(q.float(), k.float(),
-                                                v.float(), **kw)
-                # |err| over its bound, at the worst element (<= 1 passes)
-                rel = float(((got.float() - exact).abs() / (
-                    FLASH_BF16_REL * exact.abs() + FLASH_BF16_ATOL)).max())
-                extra = (f"; against the fp32 oracle {max_err(got, exact):.3g}"
-                         f", {rel:.3f} of its bound 2^-8 |o| + "
-                         f"{FLASH_BF16_ATOL:.0e}; the bf16 oracle against "
-                         f"it {max_err(want, exact):.3g}")
-                del exact
-            log(f"  flash_attention {name} {str(dt)[6:]}: max |err| "
-                f"{err:.3g} (tol {tol:.3g}){extra}")
-            if not (err <= tol and rel <= 1.0):
-                raise AssertionError("flash_attention disagrees with its "
-                                     "plain version")
-            if name.startswith("main") and dt == torch.bfloat16:
-                pairs = sq * (sq + 1) // 2
-                flops = 4 * b * h * hd * pairs
-                nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-                qh, kh, vh = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
-                tm = {
-                    "ms": time_ms(lambda: kernel.flash_attention_cuda(
-                        q, k, v, **kw), iters=10),
-                    "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-                        q, k, v, **kw), iters=5),
-                    "backward_plain_ms": _backward_ms(ref, q, k, v, kw),
-                    "library_ms": library_time(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, is_causal=True, enable_gqa=True,
-                            scale=kw["scale"])),
-                }
-                tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
-                results = dict(tm, max_abs_err=err)
+    large, large_case, amp = FLASH_LARGE_SCORES
+    cases = [(name, case, dt, 1.0) for name, case in FLASH_CASES.items()
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((large, large_case, torch.bfloat16, amp))
+    for name, (b, sq, skv, h, kvh, hd, window, softcap), dt, amp in cases:
+        q, k, v = _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd, amp=amp)
+        kw = dict(causal=True, window=window, softcap=softcap,
+                  scale=1.0 / math.sqrt(hd))
+        got = kernel.flash_attention_cuda(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[dt] if dt == torch.float32 else FLASH_BF16_TOL
+        extra, rel = "", 0.0
+        if dt == torch.bfloat16:
+            # the same oracle in fp32 from the same bf16 values
+            exact = ref.flash_attention_ref(q.float(), k.float(),
+                                            v.float(), **kw)
+            # |err| over its bound, at the worst element (<= 1 passes)
+            rel = float(((got.float() - exact).abs() / (
+                FLASH_BF16_REL * exact.abs() + FLASH_BF16_ATOL)).max())
+            extra = (f"; against the fp32 oracle {max_err(got, exact):.3g}"
+                     f", {rel:.3f} of its bound 2^-8 |o| + "
+                     f"{FLASH_BF16_ATOL:.0e}; the bf16 oracle against "
+                     f"it {max_err(want, exact):.3g}")
+            del exact
+        if amp != 1.0:
+            s0 = (q[0].float() @ k[0].float().T) * kw["scale"]
+            extra += f"; max |s| {float(s0.abs().max()):.1f} (head 0)"
+        log(f"  flash_attention {name} {str(dt)[6:]}: max |err| "
+            f"{err:.3g} (tol {tol:.3g}){extra}")
+        if not (err <= tol and rel <= 1.0):
+            raise AssertionError("flash_attention disagrees with its "
+                                 "plain version")
+        if name.startswith("main") and dt == torch.bfloat16:
+            pairs = sq * (sq + 1) // 2
+            flops = 4 * b * h * hd * pairs
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            qh, kh, vh = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
+            tm = {
+                "ms": time_ms(lambda: kernel.flash_attention_cuda(
+                    q, k, v, **kw), iters=10),
+                "plain_ms": time_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, **kw), iters=5),
+                "backward_plain_ms": _backward_ms(ref, q, k, v, kw),
+                "library_ms": library_time(
+                    lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True, enable_gqa=True,
+                        scale=kw["scale"])),
+            }
+            tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+            sdpa = tm["library_ms"]
+            log(f"  flash_attention {name} bf16: kernel {tm['ms']:.4f} ms, "
+                f"{flops / tm['ms'] / 1e9:.1f} TFLOP/s on {flops / 1e9:.2f} "
+                f"GFLOP, {tm['bound_ms'] / tm['ms']:.1%} of its bound "
+                f"{tm['bound_ms']:.4f} ms; SDPA " + (
+                    "unavailable" if sdpa is None else
+                    f"{sdpa:.4f} ms, the kernel {tm['ms'] / sdpa:.2f}x its "
+                    f"time"))
+            results = dict(tm, max_abs_err=err)
     # gradients: the op's backward is the oracle's VJP, so they agree to
     # the last bit up to the order of the card's sums (TOL)
     for dt in (torch.float32, torch.bfloat16):
@@ -1712,10 +1859,12 @@ def trace_serve(eng, cfg, Request, rng):
                                "prefill_attention_kernel"))
 
 
-def trace_summary(prof, wall: float, kernel_names) -> None:
+def trace_summary(prof, wall: float, kernel_names) -> tuple:
     """Print the device busy share of ``wall``, the launches issued, the
     ten costliest device rows, and the time per launch of each row whose
-    name holds one of ``kernel_names``."""
+    name holds one of ``kernel_names``.  Returns the device busy ms and
+    the device ms of those rows (None, None where the profiler saw no
+    device)."""
     from torch.autograd import DeviceType
     # Device rows only (kernels, copies): a host op's row repeats the
     # device time of the kernels it launched, so summing every row
@@ -1728,7 +1877,7 @@ def trace_summary(prof, wall: float, kernel_names) -> None:
     busy_us = sum(t for _, t, _ in rows)
     if busy_us <= 0:
         log("  trace: the profiler recorded no device time")
-        return
+        return None, None
     # kernel launches the host issued (cudaLaunchKernel and
     # cuLaunchKernelEx calls), and the device rows' executions (kernels,
     # copies, sets)
@@ -1741,10 +1890,14 @@ def trace_summary(prof, wall: float, kernel_names) -> None:
         f"{executed} device kernels and copies run")
     for key, t, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"    {t / 1e3:9.2f} ms  {n:6d} calls  {key[:90]}")
+    named_us = 0.0
     for key, t, n in rows:
         if any(name in key for name in kernel_names):
+            named_us += t
             log(f"  trace: {t / max(n, 1):.2f} us of device time per "
-                f"launch, {n} launches: {key[:70]}")
+                f"launch, {n} launches, {100 * t / busy_us:.1f}% of device "
+                f"time: {key[:70]}")
+    return busy_us / 1e3, named_us / 1e3
 
 
 # -- phase 5t: train at full width ---------------------------------------------
@@ -1802,20 +1955,12 @@ def _check_impls(model_mod, optim, cfg, params, batch, which) -> None:
                              "attention")
 
 
-def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
-               nvml, pmt):
-    """Phase 5t: full-width smollm-135m, bf16 compute on fp32 masters,
-    AdamW, ``remat="full"``, ``attn_impl="pallas"``, batch 8 x 2048 from
-    ``SyntheticLMDataset`` seed 0: one warm-up step, then TRAIN_STEPS
-    steps through ``make_measured_train_step`` under a ``PowerMonitor``
-    on ``Session(["cpuutil", "nvml"])``, with the flash launches counted
-    from 0.  Kernel against chunked attention at the initial weights,
-    and again at the trained ones; then one step traced; the reduced fp32 model's step on the card
-    against the CPU; a checkpoint restart on the card against the
-    uninterrupted run.  Returns the launch counts of the measured
-    steps."""
-    dev = torch.device("cuda")
-    kernels = {"flash_attention": fa_kernel}
+def train_cell(configs, train, optim, data, dev) -> tuple:
+    """Phase 5t's cell: full-width smollm-135m (``attn_impl="pallas"``,
+    ``remat="full"``), AdamW decaying over TRAIN_STEPS, batches 0 to
+    TRAIN_STEPS of ``SyntheticLMDataset`` seed 0 (8 x 2048) on ``dev``,
+    and the train state from seed 0.  Returns (cfg, ocfg, batches,
+    state).  ``in_turn.py`` runs the same cell on two checkouts."""
     cfg = configs.get_config("smollm-135m", attn_impl="pallas",
                              remat="full")
     ocfg = optim.OptimizerConfig(lr=3e-3, warmup_steps=5,
@@ -1827,14 +1972,19 @@ def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
                 for k, v in ds.batch(i).items()}
                for i in range(TRAIN_STEPS + 1)]
     state = train.init_train_state(cfg, ocfg, seed=0, device=dev)
-    _check_impls(model_mod, optim, cfg, state.params, batches[0],
-                 "the initial")
-    step_fn = train.make_train_step(cfg, ocfg)
-    t0 = time.perf_counter()
-    state, _ = step_fn(state, batches[0])
-    torch.cuda.synchronize()
-    log(f"  warm-up step in {time.perf_counter() - t0:.2f} s")
+    return cfg, ocfg, batches, state
 
+
+def measured_steps(train, pmt, nvml, fa_kernel, step_fn, state,
+                   batches) -> tuple:
+    """Phase 5t's measured run: steps 1 to TRAIN_STEPS through
+    ``make_measured_train_step`` under a ``PowerMonitor`` on
+    ``Session(["cpuutil", "nvml"])``, the wall clock and an NVML
+    ``EnergyMeter`` around them, the flash launches counted from 0.
+    Returns the state and a dict: losses, flash launches per step,
+    nvml joules per step through the session, wall s, meter joules and
+    method, the launch counts."""
+    kernels = {"flash_attention": fa_kernel}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     session = pmt.Session(["cpuutil", "nvml"])
     monitor = pmt.PowerMonitor(session=session)
@@ -1843,7 +1993,6 @@ def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
     reader = nvml.NvmlReader(0)
     try:
         meter = nvml.EnergyMeter(reader)
-        torch.cuda.reset_peak_memory_stats()
         losses, per_step, boxes = [], [], []
         zero_counts(kernels)
         meter.start()
@@ -1859,16 +2008,46 @@ def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
         launches = read_counts(kernels)
     finally:
         reader.close()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     step_j = [sum(r.joules for r in b.records if r.sensor == "nvml")
               for b in boxes]
     monitor.close()
     session.close()
+    return state, {"losses": losses, "per_step": per_step,
+                   "step_j": step_j, "wall": wall, "joules": joules,
+                   "method": meter.method, "launches": launches}
+
+
+def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
+               nvml, pmt):
+    """Phase 5t: ``train_cell``, bf16 compute on fp32 masters: one
+    warm-up step, then ``measured_steps``.  Kernel against chunked
+    attention at the initial weights, and again at the trained ones;
+    then one step traced; the reduced fp32 model's step on the card
+    against the CPU; a checkpoint restart on the card against the
+    uninterrupted run.  Returns the launch counts of the measured
+    steps."""
+    dev = torch.device("cuda")
+    cfg, ocfg, batches, state = train_cell(configs, train, optim, data, dev)
+    _check_impls(model_mod, optim, cfg, state.params, batches[0],
+                 "the initial")
+    step_fn = train.make_train_step(cfg, ocfg)
+    t0 = time.perf_counter()
+    state, _ = step_fn(state, batches[0])
+    torch.cuda.synchronize()
+    log(f"  warm-up step in {time.perf_counter() - t0:.2f} s")
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    state, run = measured_steps(train, pmt, nvml, fa_kernel, step_fn, state,
+                                batches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses, per_step, step_j = run["losses"], run["per_step"], run["step_j"]
+    wall, joules = run["wall"], run["joules"]
     log(f"  losses {' '.join(f'{x:.4f}' for x in losses)}")
     log(f"  {TRAIN_STEPS} steps of {tokens} tokens in {wall:.3f} s: "
         f"{TRAIN_STEPS * tokens / wall:.0f} tokens/s, "
         f"{wall / TRAIN_STEPS * 1e3:.1f} ms/step; card {joules:.1f} J "
-        f"({meter.method}): {joules / TRAIN_STEPS:.2f} J/step, "
+        f"({run['method']}): {joules / TRAIN_STEPS:.2f} J/step, "
         f"{joules / (TRAIN_STEPS * tokens) * 1e3:.4f} mJ/token, "
         f"{joules / wall:.1f} W; peak memory {peak:.2f} GiB")
     log(f"  flash launches per step {per_step} (expected "
@@ -1892,18 +2071,20 @@ def train_full(configs, model_mod, train, optim, data, ckpt, fa_kernel,
     trace_train(step_fn, state, batches[-1])
     del state, batches
     check_train_reference(configs, train, optim, data, ckpt)
-    return launches
+    return run["launches"]
 
 
-def trace_train(step_fn, state, batch) -> None:
-    """Where a train step's time goes: one step under ``torch.profiler``."""
+def trace_train(step_fn, state, batch) -> tuple:
+    """Where a train step's time goes: one step under ``torch.profiler``.
+    Returns the step's wall ms, the device busy ms and the flash
+    kernels' device ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trace_summary(prof, wall, ("flash_attention_kernel",))
+    return (wall * 1e3, *trace_summary(prof, wall, ("flash_attention_",)))
 
 
 def check_train_reference(configs, train, optim, data, ckpt) -> None:
@@ -2235,7 +2416,12 @@ def main() -> int:
     timings.update(check_gridder(grid_kernel, grid_ref, dev,
                                  build.library_path()))
     log(f"[3f] flash attention against its plain version {elapsed()}")
-    timings["flash_attention"] = check_flash(fa_kernel, fa_ref, fa_ops, dev)
+    if build.build_log:
+        log_ptxas_usage(build.build_log["flash_attention.cu"],
+                        "flash_attention_")
+    check_flash_smem(build.library(), fa_kernel)
+    timings["flash_attention"] = check_flash(fa_kernel, fa_ref, fa_ops, dev,
+                                             build.library_path())
     for name, t in timings.items():
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
@@ -2338,10 +2524,11 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                **{k: t[k] for k in keys}}
+        extras = ("graph_ms", "library_graph_ms", "backward_plain_ms")
+        row.update({k: t[k] for k in extras if k in t})
         if "fp8_e4m3" in t:
-            row["fp8_e4m3"] = {k: t["fp8_e4m3"][k] for k in keys}
-        if "backward_plain_ms" in t:
-            row["backward_plain_ms"] = t["backward_plain_ms"]
+            row["fp8_e4m3"] = {k: t["fp8_e4m3"][k] for k in keys + extras
+                               if k in t["fp8_e4m3"]}
         if name in quant_timings:
             row["quant_launches"] = quant_launches[f"{name} quant"]
             row["quant"] = {m: {k: quant_timings[name][m][k] for k in keys}

@@ -1,0 +1,124 @@
+"""Time the train path of two checkouts of this repo in turns on one card.
+
+    python3 in_turn.py OTHER_CHECKOUT
+
+Speeds measured on two machines cannot be compared (cards run under
+other power limits and hosts), so this runs, on one card, OTHER, this
+checkout, this checkout, OTHER, ROUNDS times over: 2 x ROUNDS pairs
+of OTHER and this checkout, each side first in half of them.  Each run
+is a fresh process that imports that checkout's ``repro_torch`` and
+builds its kernels, then measures with this checkout's
+``chip_smoke.py`` (its functions take the modules they drive):
+
+  * phase 3f's main case: the flash-attention kernel at the train
+    shape (B 8, S 2048, 9 query heads on 3 kv heads, hd 64, bf16,
+    causal), ``time_ms`` over 10 calls after 3;
+  * phase 5t's cell (``train_cell``): one warm-up step, then its
+    TRAIN_STEPS measured steps (``measured_steps``: wall clock and the
+    card's NVML joules);
+  * one more step traced (``trace_train``): device busy time and the
+    flash kernel's share of it.
+
+Prints one JSON line per run, then by checkout the median and quartiles
+of each number, and how many pairs this checkout won on step and kernel
+time.  Imports nothing of JAX; needs one card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ROUNDS = 5          # 10 pairs, as a claim of a gain needs
+
+CHILD = r"""
+import json, math, sys, time
+other, root = sys.argv[1], sys.argv[2]
+sys.path[:0] = [other + "/src", root]
+import torch
+import chip_smoke as smoke
+import repro_torch.core as pmt
+from repro_torch import configs
+from repro_torch.core.backends import nvml
+from repro_torch.data import pipeline as data
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.optim import optimizers as optim
+from repro_torch.train import steps as train
+
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build.library()
+
+b, sq, skv, h, kvh, hd, _, _ = smoke.FLASH_CASES["main B8 S2048 H9 KVH3 hd64"]
+q, k, v = smoke._flash_inputs(dev, torch.bfloat16, b, sq, skv, h, kvh, hd)
+kernel_ms = smoke.time_ms(lambda: fa_kernel.flash_attention_cuda(
+    q, k, v, causal=True, scale=1.0 / math.sqrt(hd)), iters=10)
+del q, k, v
+
+cfg, ocfg, batches, state = smoke.train_cell(configs, train, optim, data,
+                                             dev)
+step_fn = train.make_train_step(cfg, ocfg)
+state, _ = step_fn(state, batches[0])
+torch.cuda.synchronize()
+state, run = smoke.measured_steps(train, pmt, nvml, fa_kernel, step_fn,
+                                  state, batches)
+assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
+traced, busy, flash = smoke.trace_train(step_fn, state, batches[-1])
+n, wall = smoke.TRAIN_STEPS, run["wall"]
+print(json.dumps({
+    "checkout": other, "kernel_ms": kernel_ms, "step_ms": wall / n * 1e3,
+    "tokens_per_s": n * smoke.TRAIN_BATCH * smoke.TRAIN_SEQ / wall,
+    "j_per_step": run["joules"] / n, "watts": run["joules"] / wall,
+    "flash_per_step": run["per_step"][0], "traced_wall_ms": traced,
+    "busy_ms": busy, "flash_ms": flash, "flash_share": flash / busy,
+    "last_loss": run["losses"][-1]}))
+"""
+KEYS = ("kernel_ms", "step_ms", "tokens_per_s", "j_per_step", "watts",
+        "busy_ms", "flash_share")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("other", type=Path, help="the other checkout's root")
+    other = ap.parse_args().other.resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    order = [other, ROOT, ROOT, other]
+    runs = []
+    for _ in range(ROUNDS):
+        for checkout in order:
+            out = subprocess.run(
+                [sys.executable, "-c", CHILD, str(checkout), str(ROOT)],
+                capture_output=True, text=True, timeout=900)
+            if out.returncode:
+                print(out.stdout[-4000:] + out.stderr[-4000:],
+                      file=sys.stderr)
+                return 1
+            runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
+    for checkout in order[:2]:
+        mine = [r for r in runs if r["checkout"] == str(checkout)]
+        print(json.dumps({"checkout": str(checkout), "runs": len(mine), **{
+            key: {"median": statistics.median(r[key] for r in mine),
+                  "quartiles": statistics.quantiles(
+                      [r[key] for r in mine], n=4)[::2]}
+            for key in KEYS}}), flush=True)
+    # runs 4i, 4i+1 and 4i+2, 4i+3 are the pairs: (other, this), (this, other)
+    pairs = [(runs[i], runs[i + 1]) if runs[i]["checkout"] == str(other)
+             else (runs[i + 1], runs[i]) for i in range(0, len(runs), 2)]
+    print(json.dumps({"pairs": len(pairs), "this_faster": {
+        key: sum(mine[key] < theirs[key] for theirs, mine in pairs)
+        for key in ("step_ms", "kernel_ms")}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,14 +21,15 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -Xptxas -v: each kernel's registers and spills, into ``build_log``
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -53,6 +54,7 @@ SIGNATURES = {
                                     _F, _I, _I, _P],
     "pmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                             _F, _I, _P],
+    "pmt_flash_smem_bytes": [_I],
     "pmt_fma32": [_P, _P, _LL, _I, _P],
     "pmt_stream_triad": [_P, _P, _P, _LL, _F, _I, _P],
     "pmt_gemm": [_P, _P, _P, _I, _I, _I, _I, _P],
@@ -64,6 +66,7 @@ ERROR_STRING = "pmt_error_string"
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # set by the call that built
+build_log: Dict[str, str] = {}          # nvcc's output by source, likewise
 
 
 def _nvcc() -> str:
@@ -86,7 +89,7 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _build(out: Path) -> None:
+def _build(out: Path) -> Dict[str, str]:
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
@@ -97,11 +100,12 @@ def _build(out: Path) -> None:
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        errors = []
+        errors, logs = [], {}
         for src, proc in procs:
             log, _ = proc.communicate()
+            logs[src.name] = log.decode(errors="replace")
             if proc.returncode:
-                errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+                errors.append(f"{src.name}:\n{logs[src.name]}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         lib_tmp = Path(tmp) / "libkernels.so"
@@ -112,6 +116,7 @@ def _build(out: Path) -> None:
             raise RuntimeError("nvcc link failed:\n"
                                + link.stdout.decode(errors="replace"))
         os.replace(lib_tmp, out)        # atomic: readers see all or none
+    return logs
 
 
 def library_path() -> Path:
@@ -122,12 +127,12 @@ def library_path() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this tree's sources have
     not been built yet."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is None:
         out = library_path()
         if not out.exists():
             t0 = time.perf_counter()
-            _build(out)
+            build_log = _build(out)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():

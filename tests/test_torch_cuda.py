@@ -10,7 +10,7 @@ the quantizing scatters (codes and scales bit for bit); the quantized
 attention kernels hold the bf16 tolerance against their plain versions,
 which dequantize to the same float32 values.  Flash attention: TOL in
 fp32, and in bf16 2^-5 + 2e-5 (its plain oracle rounds the
-probabilities to bf16, the kernel keeps them in fp32).  The Fig. 2
+probabilities to bf16, the kernel keeps them to fp32 precision).  The Fig. 2
 kernels: STREAM and JACOBI2D exact, FMA32 within
 1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
 within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
@@ -324,22 +324,44 @@ FLASH_BF16_TOL = 2.0 ** -5 + 2e-5
 FLASH_BF16_REL, FLASH_BF16_ATOL = 2.0 ** -8, 2 * TOL[torch.float32]
 
 
-def _flash_inputs(card, dt, b, sq, skv, h, kvh, hd):
-    return (_randn(card, dt, b * h, sq, hd),
-            _randn(card, dt, b * kvh, skv, hd, seed=1),
+def _flash_inputs(card, dt, b, sq, skv, h, kvh, hd, amp=1.0):
+    """q, k, v; q and k times ``amp`` before the cast to ``dt``."""
+    f32 = torch.float32
+    return ((amp * _randn(card, f32, b * h, sq, hd)).to(dt),
+            (amp * _randn(card, f32, b * kvh, skv, hd, seed=1)).to(dt),
             _randn(card, dt, b * kvh, skv, hd, seed=2))
 
 
+def _chip_smoke():
+    """chip_smoke.py at the repo's root: its SASS reader and shared-memory
+    check serve these tests too."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (b, sq, skv, h, kvh, hd, window, softcap, amp); the last: q and k
+# scaled by 3.5, so scores reach |s| ~50, the running max jumps from tile
+# to tile and alpha rescales the accumulator hard
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", [(2, 256, 256, 9, 3, 64, None, None),
-                                  (1, 77, 77, 4, 2, 32, 20, 30.0),
-                                  (2, 100, 300, 4, 4, 128, None, None),
-                                  (1, 300, 100, 3, 1, 16, 250, None)])
+@pytest.mark.parametrize("case", [(2, 256, 256, 9, 3, 64, None, None, 1.0),
+                                  (1, 77, 77, 4, 2, 32, 20, 30.0, 1.0),
+                                  (2, 100, 300, 4, 4, 128, None, None, 1.0),
+                                  (1, 300, 100, 3, 1, 16, 250, None, 1.0),
+                                  (2, 512, 512, 4, 2, 128, None, None, 1.0),
+                                  (2, 1024, 1024, 9, 3, 64, None, None, 3.5)])
 def test_flash_attention_kernel_matches_plain(card, dt, case):
-    b, sq, skv, h, kvh, hd, window, softcap = case
-    q, k, v = _flash_inputs(card, dt, b, sq, skv, h, kvh, hd)
+    b, sq, skv, h, kvh, hd, window, softcap, amp = case
+    q, k, v = _flash_inputs(card, dt, b, sq, skv, h, kvh, hd, amp)
     kw = dict(causal=True, window=window, softcap=softcap,
               scale=hd ** -0.5)
+    if amp != 1.0:
+        assert float((q[0].float() @ k[0].float().T).abs().max()) \
+            * kw["scale"] > 40
     got = fa_kernel.flash_attention_cuda(q, k, v, **kw)
     want = fa_ref.flash_attention_ref(q, k, v, **kw)
     tol = TOL[dt] if dt == torch.float32 else FLASH_BF16_TOL
@@ -350,6 +372,22 @@ def test_flash_attention_kernel_matches_plain(card, dt, case):
                                            **kw)
         assert bool(((got.float() - exact).abs() <= FLASH_BF16_REL
                      * exact.abs() + FLASH_BF16_ATOL).all())
+
+
+def test_flash_attention_sass_runs_bf16_on_tensor_cores(card):
+    """The built library's bf16 flash kernels hold HGMMA (wgmma) and
+    UTMALDG (TMA loads); the fp32 ones no HGMMA (chip_smoke.py's check,
+    from ``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+    build.library()
+    _chip_smoke().check_flash_sass(build.library_path())
+
+
+def test_flash_attention_smem_bytes_is_the_kernels(card):
+    """The wrapper's ``smem_bytes`` equals the shared memory each bf16
+    kernel launches with (``pmt_flash_smem_bytes``, from ``tc::Tiles``)."""
+    from repro_torch.kernels import build
+    _chip_smoke().check_flash_smem(build.library(), fa_kernel)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

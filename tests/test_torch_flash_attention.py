@@ -169,3 +169,117 @@ def test_flash_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(x) for x in _inputs(6, 1, 8, 8, 2, 1, 16))
     with pytest.raises(ValueError, match="on the card"):
         fa_kernel.flash_attention_cuda(q[0], k[0], v[0])
+
+
+# -- the bf16 kernel's design (wgmma and TMA), its arithmetic on the CPU ------
+# The CUDA kernel runs only on the card (tests/test_torch_cuda.py holds it
+# there).  Here its arithmetic is emulated in plain torch, tile by tile:
+# bf16 q . k summed in fp32 and scaled after, the online softmax in log2
+# units, each p split into bf16 p_hi + p_lo, both multiplied with V
+# into the fp32 accumulator.  It must meet the gate chip_smoke.py holds
+# the kernel to, against the fp32 JAX oracle on the same bf16 values:
+# |o - exact| <= 2^-8 |exact| + 2 TOL[fp32] at every element.
+TOL_FP32 = 2e-5
+GATE_REL, GATE_ATOL = 2.0 ** -8, 2 * TOL_FP32
+
+
+def _tc_emulation(q, k, v, *, causal, window, softcap, scale, split=True):
+    """q (BH, Sq, hd), k/v (BKVH, Skv, hd), all bf16 -> bf16, in the
+    bf16 kernel's order of operations.  ``split=False`` rounds each p
+    once to bf16 instead."""
+    bh, sq, hd = q.shape
+    g = bh // k.shape[0]
+    kf = torch.repeat_interleave(k, g, dim=0).float()
+    vf = torch.repeat_interleave(v, g, dim=0).float()
+    log2e = 1.4426950408889634
+    m = torch.full((bh, sq), -2.0 ** 30)
+    l = torch.zeros((bh, sq))
+    acc = torch.zeros((bh, sq, hd))
+    rows = torch.arange(sq)[:, None]
+    bk = fa_kernel.BLOCK_K
+    for lo in range(0, k.shape[1], bk):
+        s = torch.einsum("hqd,hkd->hqk", q.float(), kf[:, lo:lo + bk])
+        if softcap is not None:
+            x = torch.tanh(s * scale / softcap) * softcap * log2e
+        else:
+            x = s * (scale * log2e)
+        cols = torch.arange(lo, lo + x.shape[-1])[None, :]
+        ok = torch.ones_like(x[0], dtype=torch.bool)
+        if causal:
+            ok &= rows >= cols
+        if window is not None:
+            ok &= rows - cols < window
+        x = torch.where(ok[None], x, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        p_hi = p.to(torch.bfloat16).float()
+        pv = p_hi @ vf[:, lo:lo + bk]
+        if split:
+            pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vf[:, lo:lo + bk]
+        acc = alpha[..., None] * acc + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+
+
+def _gate_excess(got, exact):
+    """max over elements of |got - exact| / (2^-8 |exact| + 2 TOL[fp32]):
+    at most 1 passes."""
+    return float(((got.float() - exact).abs()
+                  / (GATE_REL * exact.abs() + GATE_ATOL)).max())
+
+
+def _bf16_flat(seed, b, sq, skv, h, kvh, hd, amp=1.0):
+    rng = np.random.default_rng(seed)
+    mk = lambda n, s: torch.from_numpy(
+        rng.standard_normal((n, s, hd)).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = mk(b * h, sq), mk(b * kvh, skv), mk(b * kvh, skv)
+    return q * amp, k * amp, v
+
+
+@pytest.mark.parametrize("case", [
+    # (b, sq, skv, h, kvh, hd, window, softcap, amp)
+    (1, 256, 256, 6, 2, 64, None, None, 1.0),      # GQA 3
+    (1, 192, 192, 4, 4, 64, 48, 30.0, 1.0),        # window + softcap
+    (2, 77, 77, 3, 1, 32, 20, None, 1.0),          # ragged, window
+    (1, 100, 300, 4, 2, 16, None, None, 1.0),      # Sq < Skv
+    (1, 200, 130, 2, 1, 128, None, None, 1.0),     # Sq > Skv, hd 128
+    (1, 160, 160, 3, 1, 64, None, None, 3.5),      # |s| to ~50
+], ids=["gqa", "window-softcap", "ragged-hd32", "sq<skv-hd16",
+        "sq>skv-hd128", "large-scores"])
+def test_tc_design_meets_the_elementwise_gate(case):
+    b, sq, skv, h, kvh, hd, window, softcap, amp = case
+    q, k, v = _bf16_flat(40, b, sq, skv, h, kvh, hd, amp)
+    kw = dict(causal=True, window=window, softcap=softcap,
+              scale=1.0 / math.sqrt(hd))
+    got = _tc_emulation(q, k, v, **kw)
+    exact = np.array(jax_ref(*(jnp.asarray(t.float().numpy()) for t in (q, k, v)),
+                        **kw))
+    assert _gate_excess(got, torch.from_numpy(exact)) <= 1.0
+
+
+def test_tc_design_needs_p_split_in_two():
+    """p rounded once to bf16 (up to 2^-9 of each term) breaks the gate
+    by far where |o| is small, as rows averaging hundreds of keys are;
+    the p_hi + p_lo split (~2^-17) keeps it."""
+    q, k, v = _bf16_flat(41, 1, 512, 512, 2, 1, 64)
+    kw = dict(causal=True, window=None, softcap=None, scale=0.125)
+    exact = torch.from_numpy(np.array(jax_ref(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), **kw)))
+    assert _gate_excess(_tc_emulation(q, k, v, **kw), exact) <= 1.0
+    assert _gate_excess(_tc_emulation(q, k, v, split=False, **kw),
+                        exact) > 1.0
+
+
+def test_flash_bf16_tiling_fits_shared_memory():
+    for hd in fa_kernel.HEAD_DIMS:
+        need = fa_kernel.smem_bytes(hd, fa_kernel.BLOCK_K, fa_kernel.STAGES)
+        assert need <= fa_kernel.SMEM_LIMIT, hd
+
+
+def test_flash_cuda_wrapper_refuses_head_widths_it_has_no_kernel_for():
+    for hd in (8, 48, 96, 256):
+        q = torch.zeros((2, 4, hd), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="not supported"):
+            fa_kernel.flash_attention_cuda(q, q[:1], q[:1])
