@@ -248,11 +248,19 @@ def library_time(fn):
         return None
 
 
-def tm_graph(t: dict) -> str:
+def device_times(kernel_call, library_call, library_ms) -> dict:
+    """``graph_ms`` of a kernel call and, where the library call ran
+    (``library_ms`` not None), of that call too."""
+    return {"graph_ms": graph_ms(kernel_call),
+            "library_graph_ms": None if library_ms is None
+            else graph_ms(library_call)}
+
+
+def tm_graph(t: dict, library: str = "index_copy_") -> str:
     """The CUDA-graph device times of a timing dict, for the log."""
     lib = t.get("library_graph_ms")
     return (f"kernel {t['graph_ms']:.5f} ms" + ("" if lib is None else
-                                               f", index_copy_ {lib:.5f}"))
+                                               f", {library} {lib:.5f}"))
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -388,19 +396,43 @@ def check_decode(kernel, ref, dev, mode=None):
                 kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
                 mask = (torch.arange(c, device=dev)[None, :]
                         <= lens[:, None]).view(b, 1, 1, c)
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=True)
                 t = {
                     "ms": time_ms(lambda: kernel.decode_attention_cuda(
                         q, k, v, lens, **kw)),
                     "plain_ms": time_ms(lambda: ref.decode_attention_ref(
                         q, k, v, lens, **kw), iters=5),
-                    "library_ms": None if mode else library_time(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=mask, scale=scale,
-                            enable_gqa=True)),
+                    "library_ms": None if mode else library_time(sdpa),
                 }
                 t["bound_ms"], t["bound_by"] = bound(nbytes, flops, dt)
+                if not mode:
+                    t.update(device_times(lambda: kernel.decode_attention_cuda(
+                        q, k, v, lens, **kw), sdpa, t["library_ms"]))
+                    log(f"  decode_attention {name}: device time a call "
+                        f"(CUDA graph) {tm_graph(t, 'SDPA')}")
                 results = dict(t, max_abs_err=err)
     return results
+
+
+# Row 2's case on the serve path: one row's 32-token chunk over a 512-token
+# prefix of smollm-135m (3 kv heads of 64, 3 query heads each).
+PREFILL_SERVE = dict(b=1, t=32, c=1024, kvh=3, g=3, hd=64, offs=[512],
+                     ring=False, window=None, softcap=None)
+
+
+def prefill_sdpa(q, kx, vx, kc, vc, off: int, scale: float):
+    """One ``scaled_dot_product_attention`` call computing chunked
+    prefill for rows that all sit at ``off``: the chunk's queries over the
+    first ``off`` cache positions and the chunk's own keys, causal."""
+    b, kvh, t, g, hd = q.shape
+    qh = q.permute(0, 1, 3, 2, 4).reshape(b, kvh * g, t, hd)
+    kall = torch.cat([kc[:, :off].to(q.dtype), kx], 1).permute(0, 2, 1, 3)
+    vall = torch.cat([vc[:, :off].to(q.dtype), vx], 1).permute(0, 2, 1, 3)
+    mask = torch.ones((t, off + t), dtype=torch.bool, device=q.device)
+    mask[:, off:] = torch.tril(mask[:, off:])
+    return lambda: F.scaled_dot_product_attention(
+        qh, kall, vall, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
 def _prefill_inputs(dev, dt, b, t, c, kvh, g, hd, seed=3):
@@ -418,9 +450,7 @@ def check_prefill(kernel, ref, dev, mode=None):
             b=8, t=32, c=1024, kvh=3, g=3, hd=64,
             offs=[0, 1, 512, 1023, 32, 300, 700, 960], ring=False,
             window=None, softcap=None),
-        "serve path B1 T32 C1024 off512": dict(
-            b=1, t=32, c=1024, kvh=3, g=3, hd=64, offs=[512], ring=False,
-            window=None, softcap=None),
+        "serve path B1 T32 C1024 off512": PREFILL_SERVE,
         "ring C256 window256 wrapped": dict(
             b=8, t=32, c=256, kvh=3, g=3, hd=64,
             offs=[0, 5, 255, 256, 300, 1000, 64, 129], ring=True,
@@ -431,6 +461,26 @@ def check_prefill(kernel, ref, dev, mode=None):
             window=None, softcap=30.0),
         "odd B2 T17 C333 KVH2 G5 hd40": dict(
             b=2, t=17, c=333, kvh=2, g=5, hd=40, offs=[0, 200], ring=False,
+            window=None, softcap=None),
+        # bf16 runs split-KV (prefill_attention/kernel.py split_count: 8
+        # splits at B1 and B8, C1024); 80 = 5 shares of 16 keys ends on a
+        # share boundary with 3 empty splits after it
+        "split boundary B1 T32 C1024 off80": dict(
+            b=1, t=32, c=1024, kvh=3, g=3, hd=64, offs=[80], ring=False,
+            window=None, softcap=None),
+        "no cache phase B1 T32 C1024 off0": dict(
+            b=1, t=32, c=1024, kvh=3, g=3, hd=64, offs=[0], ring=False,
+            window=None, softcap=None),
+        "off >= C B2 T32 C256": dict(
+            b=2, t=32, c=256, kvh=3, g=3, hd=64, offs=[256, 700],
+            ring=False, window=None, softcap=None),
+        "uneven B8 T32 C1024": dict(
+            b=8, t=32, c=1024, kvh=3, g=3, hd=64,
+            offs=[0, 3, 1023, 1024, 5000, 16, 640, 81], ring=False,
+            window=None, softcap=None),
+        # rows of 36 bf16 are not whole 16-byte units: element loads
+        "odd B2 T9 C100 KVH1 G4 hd36": dict(
+            b=2, t=9, c=100, kvh=1, g=4, hd=36, offs=[50, 100], ring=False,
             window=None, softcap=None),
     }
     results = {}
@@ -463,25 +513,22 @@ def check_prefill(kernel, ref, dev, mode=None):
                     + t * kvh * 2 * hd * qel + 2 * q.numel() * qel + 4 * b
                 pairs = t * min(off, c) + t * (t + 1) // 2
                 flops = pairs * kvh * g * 4 * hd
-                h = kvh * g
-                qh = q.permute(0, 1, 3, 2, 4).reshape(b, h, t, hd)
-                kall = torch.cat([kc[:, :off].to(dt), kx], 1).permute(
-                    0, 2, 1, 3)
-                vall = torch.cat([vc[:, :off].to(dt), vx], 1).permute(
-                    0, 2, 1, 3)
-                mask = torch.ones((t, off + t), dtype=torch.bool, device=dev)
-                mask[:, off:] = torch.tril(mask[:, off:])
+                sdpa = prefill_sdpa(q, kx, vx, kc, vc, off, scale)
                 tm = {
                     "ms": time_ms(lambda: kernel.prefill_attention_cuda(
                         q, kx, vx, kc, vc, offs, **kw)),
                     "plain_ms": time_ms(lambda: ref.prefill_attention_ref(
                         q, kx, vx, kc, vc, offs, **kw), iters=5),
-                    "library_ms": None if mode else library_time(
-                        lambda: F.scaled_dot_product_attention(
-                            qh, kall, vall, attn_mask=mask, scale=scale,
-                            enable_gqa=True)),
+                    "library_ms": None if mode else library_time(sdpa),
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                if not mode:
+                    tm.update(device_times(
+                        lambda: kernel.prefill_attention_cuda(
+                            q, kx, vx, kc, vc, offs, **kw), sdpa,
+                        tm["library_ms"]))
+                    log(f"  prefill_attention {name}: device time a call "
+                        f"(CUDA graph) {tm_graph(tm, 'SDPA')}")
                 results = dict(tm, max_abs_err=err)
     return results
 
@@ -869,6 +916,13 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
         "window 20 softcap 10 ps8 T16": dict(
             p=70, ps=8, b=4, t=16, nb=16, kvh=3, g=3, hd=64,
             offs=[0, 8, 9, 100], window=20, softcap=10.0),
+        # split-KV at B8 (8 splits of the 1024 positions): offsets off
+        # every share boundary, at 0, at and past the table's end; rows 1
+        # and 3 dead (their table all scratch page 0)
+        "uneven B8 T32, dead rows": dict(
+            p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
+            offs=[17, 0, 1000, 1024, 1100, 31, 480, 255], window=None,
+            softcap=None, masked=(1, 3)),
     }
     results = {}
     for name, cs in cases.items():
@@ -881,7 +935,7 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
             q, kx, vx = mk(b, kvh, t, g, hd), mk(b, t, kvh, hd), \
                 mk(b, t, kvh, hd)
             kp, vp = mk(p, ps, kvh, hd), mk(p, ps, kvh, hd)
-            table = _page_table(dev, b, nb, p, 17)
+            table = _page_table(dev, b, nb, p, 17, cs.get("masked", ()))
             offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
             scale = 1.0 / math.sqrt(hd)
             kw = dict(window=cs["window"], softcap=cs["softcap"],
@@ -916,6 +970,12 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
                     "library_ms": None,
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                if not mode:
+                    tm["graph_ms"] = graph_ms(
+                        lambda: kernel.prefill_attention_paged_cuda(
+                            *args, **kw))
+                    log(f"  prefill_attention_paged {name}: device time a "
+                        f"call (CUDA graph) {tm_graph(tm)}")
                 log("  prefill_attention_paged: library none (no single "
                     "PyTorch call reads a paged cache)")
                 results = dict(tm, max_abs_err=err)
@@ -999,7 +1059,11 @@ def check_gemm(kernel, ref, dev):
     float32, in other orders (~1e-7 relative per sum at K = 8192)."""
     results = {}
     for name, (m, k, n) in (("main 8192^3", (8192, 8192, 8192)),
-                            ("odd 4097x1023x771", (4097, 1023, 771))):
+                            ("odd 4097x1023x771", (4097, 1023, 771)),
+                            ("K=1 333x1x257", (333, 1, 257)),
+                            # K % 16 = 8, M and N off the 128 tile,
+                            # rows whole 16-byte units in float32
+                            ("ragged 1000x1000x1028", (1000, 1000, 1028))):
         for dt in (torch.float32, torch.bfloat16):
             a = _randn(dev, m, k, seed=8, dtype=dt)
             b = _randn(dev, k, n, seed=9, dtype=dt)
@@ -1019,7 +1083,8 @@ def check_gemm(kernel, ref, dev):
                 t_bound = bound(el * (m * k + k * n) + 4.0 * m * n,
                                 2.0 * m * k * n, dt)
                 log(f"  gemm {name} {str(dt)[6:]}: kernel {ms:.3f} ms, "
-                    f"bound {t_bound[0]:.3f} ms ({t_bound[1]})")
+                    f"bound {t_bound[0]:.3f} ms ({t_bound[1]}), "
+                    f"{t_bound[0] / ms:.1%} of it")
                 if dt == torch.float32:
                     results = {
                         "ms": ms,
@@ -1029,6 +1094,10 @@ def check_gemm(kernel, ref, dev):
                                               iters=5, warmup=1),
                         "max_abs_err": err}
                     results["bound_ms"], results["bound_by"] = t_bound
+                    lib = results["library_ms"]
+                    log(f"  gemm {name} float32: torch.matmul (TF32 off) "
+                        f"{lib:.3f} ms, {t_bound[0] / lib:.1%} of the "
+                        f"bound; the kernel {ms / lib:.3f}x its time")
     return results
 
 
@@ -1237,23 +1306,18 @@ def sass_opcodes(library: Path, kernel: str) -> list:
 
 def log_ptxas_usage(nvcc_log: str, kernel: str) -> None:
     """Registers and spills of each kernel whose name holds ``kernel``,
-    from the ``-Xptxas -v`` lines nvcc printed while it built."""
-    name = None
+    and any ptxas line on its wgmmas (e.g. serialised ones), from the
+    ``-Xptxas -v`` lines nvcc printed while it built."""
     for line in nvcc_log.splitlines():
-        if "wgmma" in line and kernel in line:      # e.g. serialised wgmmas
+        if "wgmma" in line and kernel in line:
             log(f"  ptxas: {line.strip()}")
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1) if kernel in m.group(1) else None
-        elif name and "spill" in line:
-            spill = line.strip()
-        elif name and "Used" in line:
-            width = re.search(r"ILi(\d+)E", name)
-            short = re.search(kernel + r"[a-z0-9]+_kernel", name)
-            log(f"  ptxas {short.group(0) if short else name} hd "
-                f"{width.group(1) if width else '?'}: "
-                f"{re.search(r'Used \d+ registers', line).group(0)}, "
-                f"{spill}")
+    for name, regs, frame, stores, loads in ptxas_usage(nvcc_log, kernel):
+        width = re.search(r"ILi(\d+)E", name)
+        short = re.search(kernel + r"[a-z0-9]+_kernel", name)
+        log(f"  ptxas {short.group(0) if short else name} hd "
+            f"{width.group(1) if width else '?'}: Used {regs} registers, "
+            f"{frame} bytes stack frame, {stores} bytes spill stores, "
+            f"{loads} bytes spill loads")
 
 
 def check_flash_sass(library: Path) -> None:
@@ -1271,6 +1335,76 @@ def check_flash_sass(library: Path) -> None:
             and not any("HGMMA" in f for f in fp32)):
         raise AssertionError("the flash kernels' SASS is not what their "
                              "design says")
+
+
+def ptxas_usage(nvcc_log: str, kernel: str) -> list:
+    """(entry, registers, stack-frame bytes, spill-store bytes,
+    spill-load bytes) of every kernel whose name holds ``kernel``, from
+    nvcc's ``-Xptxas -v`` lines."""
+    rows, name, spill = [], None, (None, None, None)
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if name and m:
+            spill = tuple(int(x) for x in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            rows.append((name, int(m.group(1)), *spill))
+            name = None
+    return rows
+
+
+def nvcc_log(build, source: str) -> str:
+    """nvcc's ``-Xptxas -v`` output for one source of csrc/: the building
+    process's, or, where this process loaded a library built before, a
+    fresh compile of that source alone."""
+    if source in build.build_log:
+        return build.build_log[source]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-c", str(build.CSRC / source),
+             "-o", str(Path(tmp) / "x.o")], capture_output=True, text=True,
+            timeout=900, check=True)
+    return out.stdout + out.stderr
+
+
+# The kernels redesigned for Hopper in place of a first port: name in the
+# built library, source, how many instantiations, SASS that must be there
+# and SASS that must not.
+REDESIGNS = (
+    # bf16 chunked prefill on mma.sync: D 32, 64, 128 x contiguous, paged
+    ("prefill_tc_kernel", "prefill_attention.cu", 6, {"HMMA"}, set()),
+    # float32 GEMM on the CUDA cores: float32 and bf16 x 16-byte, ragged
+    ("gemm_kernel", "gemm.cu", 4, {"FFMA"}, {"HMMA", "HGMMA"}),
+)
+
+
+def check_redesigns(build) -> None:
+    """The bf16 prefill kernels run on the tensor cores (their SASS holds
+    HMMA), the GEMM kernels on the CUDA cores in float32 (FFMA, no HMMA
+    or HGMMA: no TF32), and none of them spills a byte (ptxas)."""
+    for kernel, source, count, must, must_not in REDESIGNS:
+        funcs = sass_opcodes(build.library_path(), kernel)
+        usage = ptxas_usage(nvcc_log(build, source), kernel)
+        for name, regs, frame, stores, loads in usage:
+            args = re.search(kernel + r"I(.*?)EEv", name)  # template args
+            log(f"  ptxas {kernel}<{args.group(1) if args else '?'}>: {regs} "
+                f"registers, {frame} B stack frame, {stores} B spill "
+                f"stores, {loads} B spill loads")
+        log(f"  {kernel} SASS: {len(funcs)} functions, "
+            f"{sum(must <= f for f in funcs)} with {sorted(must)}, "
+            f"{sum(bool(must_not & f) for f in funcs)} with any of "
+            f"{sorted(must_not)}")
+        if not (len(funcs) == len(usage) == count
+                and all(must <= f and not must_not & f for f in funcs)):
+            raise AssertionError(f"{kernel}'s SASS is not what its design "
+                                 f"says")
+        if any(stores or loads for _, _, _, stores, loads in usage):
+            raise AssertionError(f"{kernel} spills registers")
 
 
 def check_flash_smem(lib, kernel) -> None:
@@ -1856,7 +1990,8 @@ def trace_serve(eng, cfg, Request, rng):
                                "quant_scatter_kernel",
                                "quant_paged_scatter_kernel",
                                "decode_attention_kernel",
-                               "prefill_attention_kernel"))
+                               "prefill_attention_kernel",
+                               "prefill_tc_kernel"))
 
 
 def trace_summary(prof, wall: float, kernel_names) -> tuple:
@@ -2415,6 +2550,8 @@ def main() -> int:
     })
     timings.update(check_gridder(grid_kernel, grid_ref, dev,
                                  build.library_path()))
+    log("  the kernels redesigned for Hopper: SASS and ptxas")
+    check_redesigns(build)
     log(f"[3f] flash attention against its plain version {elapsed()}")
     if build.build_log:
         log_ptxas_usage(build.build_log["flash_attention.cu"],

@@ -10,6 +10,13 @@ is a fresh process that imports that checkout's ``repro_torch`` and
 builds its kernels, then measures with this checkout's
 ``chip_smoke.py`` (its functions take the modules they drive):
 
+  * phase 3b's GEMM at 8192^3 in float32 and ``torch.matmul`` (TF32
+    off) on the same inputs, ``time_ms`` over 10 calls after 2;
+  * phase 3's row 2 on the serve path (``PREFILL_SERVE``: B 1, a
+    32-token chunk over a 512-token prefix, 3 kv heads of 64, 3 query
+    heads each, bf16): the chunked-prefill kernel by ``time_ms`` (host
+    in the loop) and by ``graph_ms`` (100 calls in one CUDA graph: device
+    time), and its SDPA yardstick by ``graph_ms``;
   * phase 3f's main case: the flash-attention kernel at the train
     shape (B 8, S 2048, 9 query heads on 3 kv heads, hd 64, bf16,
     causal), ``time_ms`` over 10 calls after 3;
@@ -20,8 +27,7 @@ builds its kernels, then measures with this checkout's
     flash kernel's share of it.
 
 Prints one JSON line per run, then by checkout the median and quartiles
-of each number, and how many pairs this checkout won on step and kernel
-time.  Imports nothing of JAX; needs one card.
+of each number, and how many pairs this checkout won on each time.  Imports nothing of JAX; needs one card.
 """
 from __future__ import annotations
 
@@ -47,6 +53,8 @@ from repro_torch.core.backends import nvml
 from repro_torch.data import pipeline as data
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.prefill_attention import kernel as pa_kernel
 from repro_torch.optim import optimizers as optim
 from repro_torch.train import steps as train
 
@@ -54,6 +62,25 @@ dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 build.library()
+
+a = smoke._randn(dev, 8192, 8192, seed=8)
+b = smoke._randn(dev, 8192, 8192, seed=9)
+gemm_ms = smoke.time_ms(lambda: gemm_kernel.gemm_cuda(a, b), iters=10,
+                        warmup=2)
+matmul_ms = smoke.time_ms(lambda: torch.matmul(a, b), iters=10, warmup=2)
+del a, b
+
+cs = smoke.PREFILL_SERVE
+args = smoke._prefill_inputs(dev, torch.bfloat16, *(cs[x] for x in (
+    "b", "t", "c", "kvh", "g", "hd")))
+offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
+scale = 1.0 / math.sqrt(cs["hd"])
+prefill = lambda: pa_kernel.prefill_attention_cuda(*args, offs, scale=scale)
+prefill_ms = smoke.time_ms(prefill)
+prefill_graph_ms = smoke.graph_ms(prefill)
+sdpa_graph_ms = smoke.graph_ms(smoke.prefill_sdpa(*args, cs["offs"][0],
+                                                  scale))
+del args
 
 b, sq, skv, h, kvh, hd, _, _ = smoke.FLASH_CASES["main B8 S2048 H9 KVH3 hd64"]
 q, k, v = smoke._flash_inputs(dev, torch.bfloat16, b, sq, skv, h, kvh, hd)
@@ -72,15 +99,20 @@ assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
 traced, busy, flash = smoke.trace_train(step_fn, state, batches[-1])
 n, wall = smoke.TRAIN_STEPS, run["wall"]
 print(json.dumps({
-    "checkout": other, "kernel_ms": kernel_ms, "step_ms": wall / n * 1e3,
+    "checkout": other, "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
+    "prefill_ms": prefill_ms, "prefill_graph_ms": prefill_graph_ms,
+    "sdpa_graph_ms": sdpa_graph_ms, "kernel_ms": kernel_ms,
+    "step_ms": wall / n * 1e3,
     "tokens_per_s": n * smoke.TRAIN_BATCH * smoke.TRAIN_SEQ / wall,
     "j_per_step": run["joules"] / n, "watts": run["joules"] / wall,
     "flash_per_step": run["per_step"][0], "traced_wall_ms": traced,
     "busy_ms": busy, "flash_ms": flash, "flash_share": flash / busy,
     "last_loss": run["losses"][-1]}))
 """
-KEYS = ("kernel_ms", "step_ms", "tokens_per_s", "j_per_step", "watts",
-        "busy_ms", "flash_share")
+KEYS = ("gemm_ms", "matmul_ms", "prefill_ms", "prefill_graph_ms",
+        "sdpa_graph_ms", "kernel_ms", "step_ms", "tokens_per_s",
+        "j_per_step", "watts", "busy_ms", "flash_share")
+WON = ("gemm_ms", "prefill_ms", "prefill_graph_ms", "kernel_ms", "step_ms")
 
 
 def main() -> int:
@@ -116,7 +148,7 @@ def main() -> int:
              else (runs[i + 1], runs[i]) for i in range(0, len(runs), 2)]
     print(json.dumps({"pairs": len(pairs), "this_faster": {
         key: sum(mine[key] < theirs[key] for theirs, mine in pairs)
-        for key in ("step_ms", "kernel_ms")}}), flush=True)
+        for key in WON}}), flush=True)
     return 0
 
 

@@ -1,4 +1,6 @@
-"""Wrapper of the CUDA tiled GEMM (``csrc/gemm.cu``)."""
+"""Wrapper of the CUDA tiled GEMM (``csrc/gemm.cu``): float32 FMAs on
+the CUDA cores, 128 x 256 tiles, slabs of K double-buffered in shared
+memory."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +26,7 @@ def gemm_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous")
     (m, k), n = a.shape, b.shape[1]
-    if max(m, n, k) >= 2 ** 31 or m > 65535 * 128:
+    if max(m, n, k) >= 2 ** 31 or -(-m // 128) * -(-n // 128) >= 2 ** 31:
         raise ValueError(f"shape {(m, k, n)} is beyond the kernel's grid")
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     err = build.library().pmt_gemm(

@@ -1,10 +1,16 @@
-"""Wrappers of the CUDA chunked-prefill kernel
+"""Wrappers of the CUDA chunked-prefill kernels
 (``csrc/prefill_attention.cu``) over a contiguous cache and over page
 pools, each also over a quantized cache prefix: int8 / fp8_e4m3 codes
-with float32 row scales, dequantized in the kernel."""
+with float32 row scales, dequantized in the kernel.
+
+When q, the chunk and the cache are all bf16 and the heads are at most
+128 wide, the wrappers launch the tensor-core kernel, split over blocks
+along the cache (split-KV); the other dtypes take the CUDA-core kernel.
+"""
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +26,89 @@ quant_launches = 0          # prefill_attention_cuda over codes
 quant_paged_launches = 0    # prefill_attention_paged_cuda over codes
 
 _ROWS, _TILE = 16, 64     # packed query rows per block, keys per tile
+
+# The tensor-core kernel (``tc::prefill_tc_kernel``).
+TC_MAX_HD = 128           # widest hd / hdv it takes
+TC_MAX_WARPS = 8          # 16 packed query rows each
+TC_MAX_SPLITS = 8
+TC_KEYS_PER_SPLIT = 64    # fewest cache keys worth a split of their own
+
+# Split-KV tickets, one int32 per (row, kv head, row tile), zero between
+# launches (each launch leaves them at 0), by (device, stream): launches
+# on one stream run one after another.  A grown array replaces the old
+# one, which is kept, as a CUDA graph may have captured its address.
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_retired_tickets = []
+_sms: Dict[int, int] = {}
+
+
+def uses_tensor_cores(q_dtype, cache_dtype, hd: int, hdv: int) -> bool:
+    """Whether these inputs take the tensor-core kernel."""
+    return (q_dtype == cache_dtype == torch.bfloat16
+            and max(hd, hdv) <= TC_MAX_HD)
+
+
+def tc_warps(rows: int) -> int:
+    """Warps of a tensor-core block for ``rows`` = T * G packed query
+    rows: one per 16 rows, at most TC_MAX_WARPS."""
+    return max(1, min(math.ceil(rows / 16), TC_MAX_WARPS))
+
+
+def split_count(groups: int, c: int, sms: int = 132) -> int:
+    """Splits of the cache range for ``groups`` = B * KVH * row tiles
+    blocks' worth of rows over a cache of capacity ``c``: enough for two
+    blocks on each of the ``sms`` SMs, no more than one per
+    TC_KEYS_PER_SPLIT keys of the capacity (each row's own prefix lies
+    on the card, so the host sizes by the capacity), at most
+    TC_MAX_SPLITS: the last block folds every split's partial, so each
+    split past a few costs more than it saves."""
+    return max(1, min(math.ceil(2 * sms / groups),
+                      math.ceil(c / TC_KEYS_PER_SPLIT), TC_MAX_SPLITS))
+
+
+def split_range(start: int, limit: int, nsplit: int, s: int) -> tuple:
+    """Split ``s``'s cache keys [lo, hi) of the attendable range
+    [start, limit): shares of ceil(n / nsplit) rounded up to 16 keys, so
+    the last splits may be empty (the kernel's ``tc::split_range``)."""
+    n = limit - start
+    if n <= 0:
+        return 0, 0
+    per = ((n + nsplit - 1) // nsplit + 15) // 16 * 16
+    lo = min(start + s * per, limit)
+    return lo, min(lo + per, limit)
+
+
+def _tc_launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
+               c: int, hdv: int) -> torch.Tensor:
+    """Launch the tensor-core entry point ``entry``: its input pointers
+    ``ptrs``, then out, the split workspace and the tickets, then its
+    shape and option arguments ``scalars``, the split count and the
+    warps; ``c`` is the cache's capacity in positions."""
+    b, kvh, t, g, _ = q.shape
+    nwarps = tc_warps(t * g)
+    groups = b * kvh * math.ceil(t * g / (16 * nwarps))
+    dev = q.device
+    if dev.index not in _sms:
+        _sms[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    nsplit = split_count(groups, c, _sms[dev.index])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    tickets = _tickets.get(key)
+    if tickets is None or tickets.numel() < groups:
+        if tickets is not None:
+            _retired_tickets.append(tickets)
+        tickets = torch.zeros(max(groups, 4096), dtype=torch.int32,
+                              device=dev)
+        _tickets[key] = tickets
+    ws = torch.empty(groups * nsplit * 16 * nwarps * (hdv + 2)
+                     if nsplit > 1 else 0, dtype=torch.float32, device=dev)
+    out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=dev)
+    err = getattr(build.library(), entry)(
+        *ptrs, out.data_ptr(), ws.data_ptr() if nsplit > 1 else None,
+        tickets.data_ptr(), *scalars, nsplit, nwarps, stream)
+    build.check(err, entry[4:])
+    return out
 
 
 def smem_bytes(hd: int, hdv: int) -> int:
@@ -78,14 +167,22 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                          f"a block has")
     qd = build.dtype_code(q.dtype)
     cd, ksp, vsp = cache_codes(k_cache, k_scale, v_scale, (b, c, kvh))
-    out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=q.device)
-    err = build.library().pmt_prefill_attention(
-        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-        k_cache.data_ptr(), v_cache.data_ptr(), ksp, vsp, offs.data_ptr(),
-        out.data_ptr(), b, t, c, kvh, g, hd, hdv, float(scale), int(ring),
-        int(window or 0), float(softcap or 0.0), qd, cd,
-        torch.cuda.current_stream().cuda_stream)
-    build.check(err, "prefill_attention")
+    opts = (float(scale), int(ring), int(window or 0), float(softcap or 0.0))
+    if uses_tensor_cores(q.dtype, k_cache.dtype, hd, hdv):
+        out = _tc_launch(
+            "pmt_prefill_attention_tc", q,
+            (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+             k_cache.data_ptr(), v_cache.data_ptr(), offs.data_ptr()),
+            (b, t, c, kvh, g, hd, hdv, *opts), c, hdv)
+    else:
+        out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype,
+                          device=q.device)
+        err = build.library().pmt_prefill_attention(
+            q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), ksp, vsp,
+            offs.data_ptr(), out.data_ptr(), b, t, c, kvh, g, hd, hdv,
+            *opts, qd, cd, torch.cuda.current_stream().cuda_stream)
+        build.check(err, "prefill_attention")
     if k_scale is None:
         launches += 1
     else:
@@ -147,14 +244,25 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                          f"a block has")
     qd = build.dtype_code(q.dtype)
     cd, ksp, vsp = cache_codes(k_pool, k_scale, v_scale, (p, ps, kvh))
-    out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=q.device)
-    err = build.library().pmt_prefill_attention_paged(
-        q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp, page_table.data_ptr(),
-        offs.data_ptr(), out.data_ptr(), b, t, page_table.shape[1], ps, kvh,
-        g, hd, hdv, float(scale), int(window or 0), float(softcap or 0.0),
-        qd, cd, torch.cuda.current_stream().cuda_stream)
-    build.check(err, "prefill_attention_paged")
+    nb = page_table.shape[1]
+    opts = (float(scale), int(window or 0), float(softcap or 0.0))
+    if uses_tensor_cores(q.dtype, k_pool.dtype, hd, hdv):
+        out = _tc_launch(
+            "pmt_prefill_attention_paged_tc", q,
+            (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+             k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
+             offs.data_ptr()),
+            (b, t, nb, ps, kvh, g, hd, hdv, *opts), nb * ps, hdv)
+    else:
+        out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype,
+                          device=q.device)
+        err = build.library().pmt_prefill_attention_paged(
+            q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
+            k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp,
+            page_table.data_ptr(), offs.data_ptr(), out.data_ptr(), b, t,
+            nb, ps, kvh, g, hd, hdv, *opts, qd, cd,
+            torch.cuda.current_stream().cuda_stream)
+        build.check(err, "prefill_attention_paged")
     if k_scale is None:
         paged_launches += 1
     else:

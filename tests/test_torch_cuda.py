@@ -179,6 +179,91 @@ def test_paged_prefill_kernel_matches_plain(card, dt, ps, window, softcap):
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
 
 
+# -- the bf16 tensor-core prefill kernel: split-KV edges --------------------
+# (b, t, c, kvh, g, hd, offs): a prefix ending on a split boundary (80 =
+# 5 shares of 16 keys of 8 splits at B1 C1024), no cache phase, offsets
+# at and past C, B8 with uneven offsets (8 splits), hd 36 (rows not whole
+# 16-byte units: element loads), hd 128 and hd 16.
+
+TC_CASES = {
+    "split boundary": (1, 32, 1024, 3, 3, 64, [80]),
+    "no cache phase": (1, 32, 1024, 3, 3, 64, [0]),
+    "off >= C": (2, 32, 256, 3, 3, 64, [256, 700]),
+    "uneven B8": (8, 32, 1024, 3, 3, 64, [0, 3, 1023, 1024, 5000, 16, 640,
+                                          81]),
+    "hd36": (2, 9, 100, 1, 4, 36, [50, 100]),
+    "hd128": (2, 20, 300, 2, 4, 128, [299, 31]),
+    "hd16 T70": (2, 70, 200, 1, 2, 16, [150, 0]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_split_kv_edges_match_plain(card, dt, case):
+    b, t, c, kvh, g, hd, offs = TC_CASES[case]
+    qg = _randn(card, dt, b, kvh, t, g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    kc = _randn(card, dt, b, c, kvh, hd, seed=3)
+    vc = _randn(card, dt, b, c, kvh, hd, seed=4)
+    offs = torch.tensor(offs, dtype=torch.int32, device=card)
+    kw = dict(scale=hd ** -0.5)
+    got = pa_kernel.prefill_attention_cuda(qg, kx, vx, kc, vc, offs, **kw)
+    want = pa_ref.prefill_attention_ref(qg, kx, vx, kc, vc, offs, **kw)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_uneven_offsets_and_dead_rows(card, dt):
+    """B8 over 8 splits of 1024 positions, offsets off every share
+    boundary, at 0, at and past the table's end; rows 1 and 3 dead (their
+    table all on the scratch page 0)."""
+    b, t, kvh, g, hd, p, ps, nb = 8, 32, 3, 3, 64, 513, 16, 64
+    qg = _randn(card, dt, b, kvh, t, g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    k = _randn(card, dt, p, ps, kvh, hd, seed=3)
+    v = _randn(card, dt, p, ps, kvh, hd, seed=4)
+    table = _table(card, b, nb, p)
+    table[1] = table[3] = 0
+    offs = torch.tensor([17, 0, 1000, 1024, 1100, 31, 480, 255],
+                        dtype=torch.int32, device=card)
+    got = pa_kernel.prefill_attention_paged_cuda(qg, kx, vx, k, v, table,
+                                                 offs, scale=0.125)
+    want = pa_ref.prefill_attention_paged_ref(qg, kx, vx, k, v, table, offs,
+                                              scale=0.125)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+def test_prefill_tc_kernel_is_deterministic_and_leaves_tickets_at_0(card):
+    """The last split to arrive folds the partials in split order, so two
+    launches give the same bits; each leaves its tickets at 0."""
+    b, t, c, kvh, g, hd = 1, 32, 1024, 3, 3, 64
+    dt = torch.bfloat16
+    args = (_randn(card, dt, b, kvh, t, g, hd),
+            _randn(card, dt, b, t, kvh, hd, seed=1),
+            _randn(card, dt, b, t, kvh, hd, seed=2),
+            _randn(card, dt, b, c, kvh, hd, seed=3),
+            _randn(card, dt, b, c, kvh, hd, seed=4),
+            torch.tensor([700], dtype=torch.int32, device=card))
+    first = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
+    again = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
+    assert torch.equal(first, again)
+    key = (card.index if card.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    assert int(pa_kernel._tickets[key].abs().sum()) == 0
+
+
+def test_redesigned_kernels_sass_and_spills(card):
+    """chip_smoke.py's gate: the bf16 prefill kernels hold HMMA, the GEMM
+    kernels FFMA and neither HMMA nor HGMMA, and ptxas spills nothing in
+    either."""
+    from repro_torch.kernels import build
+    build.library()
+    _chip_smoke().check_redesigns(build)
+
+
 # -- quantized caches (int8 / fp8_e4m3 codes with float32 row scales) --------
 
 MODES = ("int8", "fp8_e4m3")
@@ -460,7 +545,8 @@ def test_stream_kernel_is_exact(card, dt, shape):
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mkn", [(256, 512, 384), (257, 131, 129),
-                                 (1, 7, 300)])
+                                 (1, 7, 300), (333, 1, 257),
+                                 (1000, 1000, 1028)])
 def test_gemm_kernel_matches_plain(card, dt, mkn):
     """float32 sums of exact products in another order: 1e-5 of max
     |out|.  TF32 off, so the plain version is float32 too."""
