@@ -11,12 +11,19 @@ Phases, in order; any failure exits nonzero:
      call doing the same work, and the least time the card could take;
      the four scatters (contiguous, paged, and their quantizing twins)
      also with the host out of the loop: 100 calls in one CUDA graph,
-     the kernel and, where there is one, its ``index_copy_`` yardstick.
+     the kernel and, where there is one, its ``index_copy_`` yardstick;
+     likewise flash-decode (rows 3 and 7, SDPA beside row 3), also at
+     its split-KV edges (one long row alone, every row at 0, a wrapped
+     ring, ranges ending on split shares, a paged batch of dead rows:
+     exactly 0), its shared memory held to the wrapper's ``smem_bytes``,
+     and its split count swept 1..16 at B1 and B8 (rows 3, 7).
      3b. the same for the six Fig. 2 kernels (FMA32, STREAM, GRIDDER,
      DEGRIDDER, GEMM, JACOBI2D) at the Fig. 2 path's shapes and at odd
      ones, with the gridder pair's adjoint identity on the card and its
      bound from the FP32 operations counted in the built loop
-     (``cuobjdump -sass``).
+     (``cuobjdump -sass``); the kernels redesigned for Hopper (bf16
+     prefill on ``mma.sync``, the f32 GEMM and flash-decode on the CUDA
+     cores) gated on their SASS and on 0 bytes of ptxas spill.
      The three paged kernels (paged cache_update, decode and prefill
      attention) the same way, at the paged serve path's shapes and at
      odd ones (page sizes 8 and 24, shuffled pages, a window, softcap,
@@ -28,7 +35,8 @@ Phases, in order; any failure exits nonzero:
      rows and +-1e4 extremes, no NaN, real pages untouched where rows
      are masked; the four attention kernels over codes and row scales
      against their plain versions with the same tolerances and cases as
-     above; each timed with its byte bound at code width.
+     above; each timed with its byte bound at code width (the decode
+     kernel's also in a CUDA graph).
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
@@ -343,15 +351,36 @@ def _decode_inputs(dev, dt, b, c, kvh, g, hd, seed=2):
     return q, k, v
 
 
+def decode_sdpa(q, k, v, lens, scale: float):
+    """Row 3's yardstick: SDPA over the whole cache with a (B, 1, 1, C)
+    mask of the attendable slots, GQA."""
+    b, kvh, g, hd = q.shape
+    c = k.shape[1]
+    qh = q.view(b, kvh * g, 1, hd)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(c, device=q.device)[None, :]
+            <= lens[:, None]).view(b, 1, 1, c)
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=True)
+
+
+# Row 3's case on the serve path: 8 decode rows of smollm-135m (3 kv
+# heads of 64, 3 query heads each) over a 1024-slot cache.
+DECODE_SERVE = dict(b=8, c=1024, kvh=3, g=3, hd=64,
+                    lens=[0, 1, 511, 1023, 37, 300, 700, 1000])
+
+
 def check_decode(kernel, ref, dev, mode=None):
     """Tolerance TOL of q's dtype.  With ``mode`` the cache holds that
     mode's codes and row scales (quantized from the same values), which
-    kernel and plain version dequantize to the same float32 values."""
+    kernel and plain version dequantize to the same float32 values.  The
+    split-KV edges: one long row alone, every row at 0, a ring wrapped
+    past a 1024-slot cache, and ranges that end on the shares of 8
+    splits (16 keys each at 128 keys: 79 leaves three splits empty, 128
+    one key in the fifth)."""
     cases = {
-        "main B8 C1024 KVH3 G3 hd64": dict(
-            b=8, c=1024, kvh=3, g=3, hd=64,
-            lens=[0, 1, 511, 1023, 37, 300, 700, 1000], ring=False,
-            softcap=None),
+        "main B8 C1024 KVH3 G3 hd64": dict(DECODE_SERVE, ring=False,
+                                           softcap=None),
         "ring C256 wrapped": dict(
             b=8, c=256, kvh=3, g=3, hd=64,
             lens=[0, 1, 100, 255, 256, 300, 1000, 5000], ring=True,
@@ -363,6 +392,20 @@ def check_decode(kernel, ref, dev, mode=None):
         "odd B3 C1000 KVH2 G4 hd48": dict(
             b=3, c=1000, kvh=2, g=4, hd=48, lens=[0, 999, 517],
             ring=False, softcap=None),
+        "split B1 C1024 one row at 1023": dict(
+            b=1, c=1024, kvh=3, g=3, hd=64, lens=[1023], ring=False,
+            softcap=None),
+        "split B8 C1024 every row at 0": dict(
+            b=8, c=1024, kvh=3, g=3, hd=64, lens=[0] * 8, ring=False,
+            softcap=None),
+        "split ring C1024 wrapped": dict(
+            b=8, c=1024, kvh=3, g=3, hd=64,
+            lens=[1022, 1023, 1024, 1025, 1500, 2047, 3000, 5000],
+            ring=True, softcap=None),
+        "split share boundaries": dict(
+            b=8, c=1024, kvh=3, g=3, hd=64,
+            lens=[15, 16, 79, 127, 128, 255, 256, 1023], ring=False,
+            softcap=None),
     }
     results = {}
     for name, cs in cases.items():
@@ -392,12 +435,7 @@ def check_decode(kernel, ref, dev, mode=None):
                 nbytes = keys * kvh * 2 * (hd * el + (4 if mode else 0)) \
                     + 2 * q.numel() * q.element_size() + 4 * b
                 flops = keys * kvh * g * 4 * hd
-                qh = q.view(b, kvh * g, 1, hd)
-                kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
-                mask = (torch.arange(c, device=dev)[None, :]
-                        <= lens[:, None]).view(b, 1, 1, c)
-                sdpa = lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, attn_mask=mask, scale=scale, enable_gqa=True)
+                sdpa = decode_sdpa(q, k, v, lens, scale)
                 t = {
                     "ms": time_ms(lambda: kernel.decode_attention_cuda(
                         q, k, v, lens, **kw)),
@@ -406,11 +444,10 @@ def check_decode(kernel, ref, dev, mode=None):
                     "library_ms": None if mode else library_time(sdpa),
                 }
                 t["bound_ms"], t["bound_by"] = bound(nbytes, flops, dt)
-                if not mode:
-                    t.update(device_times(lambda: kernel.decode_attention_cuda(
-                        q, k, v, lens, **kw), sdpa, t["library_ms"]))
-                    log(f"  decode_attention {name}: device time a call "
-                        f"(CUDA graph) {tm_graph(t, 'SDPA')}")
+                t.update(device_times(lambda: kernel.decode_attention_cuda(
+                    q, k, v, lens, **kw), sdpa, t["library_ms"]))
+                log(f"  decode_attention {mode or ''} {name}: device time a "
+                    f"call (CUDA graph) {tm_graph(t, 'SDPA')}")
                 results = dict(t, max_abs_err=err)
     return results
 
@@ -799,18 +836,36 @@ def check_paged_cache_update(kernel, ref, dev):
     return results
 
 
+# Row 7's case on the paged serve path: 8 rows of 64 pages of 16 tokens
+# in a 513-page pool; row 7 dead, its table masked to page 0, its
+# position past it.
+PAGED_DECODE_SERVE = dict(p=513, ps=16, b=8, nb=64, kvh=3, g=3, hd=64,
+                          masked=(7,), lens=[0, 1, 15, 16, 511, 1023, 700,
+                                             1500])
+
+
+def _paged_decode_inputs(dev, dt, cs):
+    """q, the two pools, the page table and lens of a paged decode case."""
+    p, ps, b, nb, kvh, g, hd = (cs[x] for x in ("p", "ps", "b", "nb", "kvh",
+                                                "g", "hd"))
+    gen = torch.Generator(device=dev).manual_seed(14)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dt)
+    q, kp, vp = mk(b, kvh, g, hd), mk(p, ps, kvh, hd), mk(p, ps, kvh, hd)
+    table = _page_table(dev, b, nb, p, 15, cs["masked"])
+    lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lens
+
+
 def check_paged_decode(kernel, ref, dev, mode=None):
     """Tolerance TOL.  A row with no attendable key (a windowed dead row
     past its table) must give 0, the TPU kernel's value; the plain
     version, which folds every page, gives the mean of the values
-    there.  With ``mode`` the pools hold codes and the scale pools page
-    with them."""
+    there.  The split-KV edge: a batch whose rows are all dead gives
+    exactly 0 everywhere.  With ``mode`` the pools hold codes and the
+    scale pools page with them."""
     cases = {
-        # row 7: a dead row, table masked to page 0, position past it
         "main P513 ps16 B8 NB64 KVH3 G3 hd64": dict(
-            p=513, ps=16, b=8, nb=64, kvh=3, g=3, hd=64, masked=(7,),
-            lens=[0, 1, 15, 16, 511, 1023, 700, 1500], window=None,
-            softcap=None),
+            PAGED_DECODE_SERVE, window=None, softcap=None),
         "softcap 30 ps8": dict(
             p=513, ps=8, b=8, nb=64, kvh=3, g=3, hd=64, masked=(),
             lens=[0, 7, 8, 9, 100, 300, 511, 900], window=None,
@@ -822,19 +877,17 @@ def check_paged_decode(kernel, ref, dev, mode=None):
         "window 33 softcap 20 ps8 B3 NB7 hd40": dict(
             p=25, ps=8, b=3, nb=7, kvh=2, g=5, hd=40, masked=(2,),
             lens=[40, 55, 60], window=33, softcap=20.0),
+        "split every row dead window 16": dict(
+            p=513, ps=16, b=8, nb=64, kvh=3, g=3, hd=64, masked=(0, 5),
+            lens=[1040, 1100, 1500, 2000, 3000, 1039, 5000, 4096],
+            window=16, softcap=None),
     }
     results = {}
     for name, cs in cases.items():
         for dt in (torch.float32, torch.bfloat16):
             p, ps, b, nb, kvh, g, hd = (cs[x] for x in ("p", "ps", "b", "nb",
                                                         "kvh", "g", "hd"))
-            gen = torch.Generator(device=dev).manual_seed(14)
-            mk = lambda *sh: torch.randn(sh, generator=gen,
-                                         device=dev).to(dt)
-            q, kp, vp = mk(b, kvh, g, hd), mk(p, ps, kvh, hd), \
-                mk(p, ps, kvh, hd)
-            table = _page_table(dev, b, nb, p, 15, cs["masked"])
-            lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
+            q, kp, vp, table, lens = _paged_decode_inputs(dev, dt, cs)
             scale = 1.0 / math.sqrt(hd)
             kw = dict(window=cs["window"], softcap=cs["softcap"],
                       scale=scale)
@@ -852,7 +905,7 @@ def check_paged_decode(kernel, ref, dev, mode=None):
             none = [i for i, (n, f) in enumerate(zip(cs["lens"], first))
                     if f > min(n, c - 1)]
             some = [i for i in range(b) if i not in none]
-            err = max_err(got[some], want[some])
+            err = max_err(got[some], want[some]) if some else 0.0
             zero = max_err(got[none], torch.zeros_like(got[none])) \
                 if none else 0.0
             log(f"  decode_attention_paged {mode or ''} {name} "
@@ -888,10 +941,74 @@ def check_paged_decode(kernel, ref, dev, mode=None):
                     "library_ms": None,
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
-                log("  decode_attention_paged: library none (no single "
-                    "PyTorch call reads a paged cache)")
+                tm.update(device_times(
+                    lambda: kernel.decode_attention_paged_cuda(
+                        q, kp, vp, table, lens, **kw), None, None))
+                log(f"  decode_attention_paged {mode or ''} {name}: device "
+                    f"time a call (CUDA graph) {tm_graph(tm)}; library "
+                    f"none (no single PyTorch call reads a paged cache)")
                 results = dict(tm, max_abs_err=err)
     return results
+
+
+def check_decode_smem(lib, kernel) -> None:
+    """The shared memory the decode kernel launches with (the library's
+    ``pmt_decode_smem_bytes``) is the wrapper's ``smem_bytes``, at every
+    head width the kernel takes."""
+    widths = [(64, 64), (48, 48), (40, 40), (64, 32), (128, 128),
+              (96, 200), (256, 256), (512, 512), (320, 512)]
+    got = {w: lib.pmt_decode_smem_bytes(*w) for w in widths}
+    want = {w: kernel.smem_bytes(*w) for w in widths}
+    log(f"  decode_attention shared memory by (hd, hdv): the kernel {got}, "
+        f"the wrapper's smem_bytes {want}")
+    if got != want:
+        raise AssertionError("decode smem_bytes disagrees with the kernel")
+
+
+def sweep_decode_splits(kernel, ref, dev) -> None:
+    """Print the device time a call (CUDA graph) of rows 3 and 7 at each
+    split count 1..KERNEL_SPLITS, bf16: row 3's main case at B1 (one row
+    at 1023) and B8, row 7's at B8; each count also held to the plain
+    version at TOL.  MAX_SPLITS, the wrapper's cap, comes from it."""
+    dt = torch.bfloat16
+    one = dict(DECODE_SERVE, b=1, lens=[1023])
+    scale = 1.0 / math.sqrt(DECODE_SERVE["hd"])
+    calls = {}
+    for name, cs in (("row 3 B1", one), ("row 3 B8", DECODE_SERVE)):
+        q, k, v = _decode_inputs(dev, dt, *(cs[x] for x in (
+            "b", "c", "kvh", "g", "hd")))
+        lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
+        calls[name] = (
+            lambda q=q, k=k, v=v, lens=lens: kernel.decode_attention_cuda(
+                q, k, v, lens, scale=scale),
+            ref.decode_attention_ref(q, k, v, lens, scale=scale), None)
+    q, kp, vp, table, lens = _paged_decode_inputs(dev, dt,
+                                                  PAGED_DECODE_SERVE)
+    calls["row 7 B8"] = (
+        lambda: kernel.decode_attention_paged_cuda(q, kp, vp, table, lens,
+                                                   scale=scale),
+        ref.decode_attention_paged_ref(q, kp, vp, table, lens, scale=scale),
+        list(PAGED_DECODE_SERVE["masked"]))
+    picked = kernel.split_count
+    times = {}
+    try:
+        for name, (call, want, dead) in calls.items():
+            times[name] = {}
+            for n in range(1, kernel.KERNEL_SPLITS + 1):
+                kernel.split_count = lambda *_, n=n: n
+                got = call()
+                live = [i for i in range(got.shape[0])
+                        if i not in (dead or [])]
+                err = max_err(got[live], want[live])
+                if not err <= TOL[dt]:
+                    raise AssertionError(f"decode at {n} splits disagrees "
+                                         f"with its plain version: {err}")
+                times[name][n] = graph_ms(call)
+    finally:
+        kernel.split_count = picked
+    for name, by_n in times.items():
+        log(f"  decode splits {name}: " + ", ".join(
+            f"{n}: {ms:.5f}" for n, ms in by_n.items()) + " ms (CUDA graph)")
 
 
 def check_paged_prefill(kernel, ref, dev, mode=None):
@@ -1380,13 +1497,17 @@ REDESIGNS = (
     ("prefill_tc_kernel", "prefill_attention.cu", 6, {"HMMA"}, set()),
     # float32 GEMM on the CUDA cores: float32 and bf16 x 16-byte, ragged
     ("gemm_kernel", "gemm.cu", 4, {"FFMA"}, {"HMMA", "HGMMA"}),
+    # flash-decode on the CUDA cores, split-KV: float32, bf16, int8, fp8
+    # caches x contiguous, paged x D 64, 128, 256, 512
+    ("decode_attention_kernel", "decode_attention.cu", 32, {"FFMA"},
+     {"HMMA", "HGMMA"}),
 )
 
 
 def check_redesigns(build) -> None:
     """The bf16 prefill kernels run on the tensor cores (their SASS holds
-    HMMA), the GEMM kernels on the CUDA cores in float32 (FFMA, no HMMA
-    or HGMMA: no TF32), and none of them spills a byte (ptxas)."""
+    HMMA), the GEMM and flash-decode kernels on the CUDA cores in float32
+    (FFMA, no HMMA or HGMMA), and none of them spills a byte (ptxas)."""
     for kernel, source, count, must, must_not in REDESIGNS:
         funcs = sass_opcodes(build.library_path(), kernel)
         usage = ptxas_usage(nvcc_log(build, source), kernel)
@@ -1729,14 +1850,12 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
                       prefill_chunk=32, cache_dtype=torch.bfloat16,
                       session=session)
     rng = np.random.default_rng(0)
-    warm = [Request(prompt=rng.integers(0, cfg.vocab_size, 40).tolist(),
-                    max_new_tokens=4) for _ in range(2)]
+    warm, prompts = serve_workload(cfg, Request, rng)
     eng.generate(warm)
     torch.cuda.synchronize()
-    lengths = rng.permutation(np.linspace(64, 700, 16).astype(int))
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lengths]
-    log(f"  prompts {int(lengths.min())}-{int(lengths.max())} tokens, "
-        f"64 new tokens each")
+    lengths = [len(p) for p in prompts]
+    log(f"  prompts {min(lengths)}-{max(lengths)} tokens, 64 new tokens "
+        f"each")
     reader = nvml.NvmlReader(0)
     try:
         log(f"  NVML: {reader.name()}, enforced power limit "
@@ -1751,6 +1870,17 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
     session.close()
     return runs[0][0], prompts, runs[0][1], \
         eng.stats()["kv_cache"]["bytes_per_token"]
+
+
+def serve_workload(cfg, Request, rng) -> tuple:
+    """Phase 5's requests, drawn from ``rng``: two short warm-up requests,
+    and the 16 prompts (64-700 tokens, shuffled) that a timed run serves
+    with 64 new tokens each."""
+    warm = [Request(prompt=rng.integers(0, cfg.vocab_size, 40).tolist(),
+                    max_new_tokens=4) for _ in range(2)]
+    lengths = rng.permutation(np.linspace(64, 700, 16).astype(int))
+    return warm, [rng.integers(0, cfg.vocab_size, n).tolist()
+                  for n in lengths]
 
 
 def served_run(eng, Request, prompts, kernels, meter, index, session,
@@ -2518,6 +2648,8 @@ def main() -> int:
         "decode_attention_paged": check_paged_decode(da_kernel, da_ref,
                                                      dev),
     }
+    check_decode_smem(build.library(), da_kernel)
+    sweep_decode_splits(da_kernel, da_ref, dev)
     log(f"[3q] quantized caches (int8, fp8_e4m3): the quantizing scatters "
         f"bit for bit, the attention kernels over codes {elapsed()}")
     quant_timings = {
@@ -2537,7 +2669,9 @@ def main() -> int:
                                for m in MODES}
     for name, by_mode in quant_timings.items():
         for mode, t in by_mode.items():
-            log(f"  {name} {mode}: kernel {t['ms']:.4f} ms, plain "
+            graph = f" ({t['graph_ms']:.5f} in a CUDA graph)" \
+                if "graph_ms" in t else ""
+            log(f"  {name} {mode}: kernel {t['ms']:.4f} ms{graph}, plain "
                 f"{t['plain_ms']:.4f} ms, library none, bound "
                 f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
@@ -2668,7 +2802,9 @@ def main() -> int:
                                if k in t["fp8_e4m3"]}
         if name in quant_timings:
             row["quant_launches"] = quant_launches[f"{name} quant"]
-            row["quant"] = {m: {k: quant_timings[name][m][k] for k in keys}
+            row["quant"] = {m: {k: quant_timings[name][m][k]
+                                for k in keys + extras
+                                if k in quant_timings[name][m]}
                             for m in MODES}
         rows.append(row)
     log(f"[7] results {elapsed()}")

@@ -1,4 +1,4 @@
-"""Time the train path of two checkouts of this repo in turns on one card.
+"""Time two checkouts of this repo in turns on one card.
 
     python3 in_turn.py OTHER_CHECKOUT
 
@@ -17,6 +17,15 @@ builds its kernels, then measures with this checkout's
     heads each, bf16): the chunked-prefill kernel by ``time_ms`` (host
     in the loop) and by ``graph_ms`` (100 calls in one CUDA graph: device
     time), and its SDPA yardstick by ``graph_ms``;
+  * phase 3's rows 3 and 7 on the serve path (``DECODE_SERVE``: 8 decode
+    rows over a 1024-slot cache, 3 kv heads of 64, 3 query heads each,
+    bf16; ``PAGED_DECODE_SERVE``: the same over 64 pages of 16 a row,
+    one row dead): the flash-decode kernel, contiguous and paged, in bf16
+    and over int8 codes (rows 3q, 7q), by ``graph_ms``, and row 3's SDPA
+    yardstick by ``graph_ms``;
+  * phase 5's serve cell (full-width smollm-135m, 8 slots, max_len 1024,
+    chunk 32, bf16; ``serve_workload``'s 16 requests, 64 new tokens
+    each) served once after its warm-up: wall seconds and tokens/s;
   * phase 3f's main case: the flash-attention kernel at the train
     shape (B 8, S 2048, 9 query heads on 3 kv heads, hd 64, bf16,
     causal), ``time_ms`` over 10 calls after 3;
@@ -45,6 +54,7 @@ CHILD = r"""
 import json, math, sys, time
 other, root = sys.argv[1], sys.argv[2]
 sys.path[:0] = [other + "/src", root]
+import numpy as np
 import torch
 import chip_smoke as smoke
 import repro_torch.core as pmt
@@ -52,10 +62,13 @@ from repro_torch import configs
 from repro_torch.core.backends import nvml
 from repro_torch.data import pipeline as data
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel
+from repro_torch.models import model as model_mod
 from repro_torch.optim import optimizers as optim
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.train import steps as train
 
 dev = torch.device("cuda")
@@ -82,6 +95,43 @@ sdpa_graph_ms = smoke.graph_ms(smoke.prefill_sdpa(*args, cs["offs"][0],
                                                   scale))
 del args
 
+cs = smoke.DECODE_SERVE
+q, k, v = smoke._decode_inputs(dev, torch.bfloat16, *(cs[x] for x in (
+    "b", "c", "kvh", "g", "hd")))
+lens = torch.tensor(cs["lens"], dtype=torch.int32, device=dev)
+scale = 1.0 / math.sqrt(cs["hd"])
+decode_graph_ms = smoke.graph_ms(lambda: da_kernel.decode_attention_cuda(
+    q, k, v, lens, scale=scale))
+decode_sdpa_graph_ms = smoke.graph_ms(smoke.decode_sdpa(q, k, v, lens,
+                                                        scale))
+(kq, ks), (vq, vs) = smoke.quantized("int8", k, v)
+quant_decode_graph_ms = smoke.graph_ms(lambda: da_kernel.decode_attention_cuda(
+    q, kq, vq, lens, scale=scale, k_scale=ks, v_scale=vs))
+q, k, v, table, lens = smoke._paged_decode_inputs(dev, torch.bfloat16,
+                                                  smoke.PAGED_DECODE_SERVE)
+paged_decode_graph_ms = smoke.graph_ms(
+    lambda: da_kernel.decode_attention_paged_cuda(q, k, v, table, lens,
+                                                  scale=scale))
+(kq, ks), (vq, vs) = smoke.quantized("int8", k, v)
+quant_paged_decode_graph_ms = smoke.graph_ms(
+    lambda: da_kernel.decode_attention_paged_cuda(
+        q, kq, vq, table, lens, scale=scale, k_scale=ks, v_scale=vs))
+del q, k, v, kq, vq
+
+scfg = configs.get_config("smollm-135m")
+eng = ServeEngine(scfg, model_mod.init_params(scfg, seed=0, device="cuda"),
+                  batch_size=8, max_len=1024, prefill_chunk=32,
+                  cache_dtype=torch.bfloat16)
+warm, prompts = smoke.serve_workload(scfg, Request, np.random.default_rng(0))
+eng.generate(warm)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+done = eng.generate([Request(prompt=p, max_new_tokens=64) for p in prompts])
+torch.cuda.synchronize()
+serve_s = time.perf_counter() - t0
+serve_tokens_per_s = sum(len(r.out) for r in done) / serve_s
+del eng, done
+
 b, sq, skv, h, kvh, hd, _, _ = smoke.FLASH_CASES["main B8 S2048 H9 KVH3 hd64"]
 q, k, v = smoke._flash_inputs(dev, torch.bfloat16, b, sq, skv, h, kvh, hd)
 kernel_ms = smoke.time_ms(lambda: fa_kernel.flash_attention_cuda(
@@ -101,7 +151,13 @@ n, wall = smoke.TRAIN_STEPS, run["wall"]
 print(json.dumps({
     "checkout": other, "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
     "prefill_ms": prefill_ms, "prefill_graph_ms": prefill_graph_ms,
-    "sdpa_graph_ms": sdpa_graph_ms, "kernel_ms": kernel_ms,
+    "sdpa_graph_ms": sdpa_graph_ms, "decode_graph_ms": decode_graph_ms,
+    "decode_sdpa_graph_ms": decode_sdpa_graph_ms,
+    "paged_decode_graph_ms": paged_decode_graph_ms,
+    "quant_decode_graph_ms": quant_decode_graph_ms,
+    "quant_paged_decode_graph_ms": quant_paged_decode_graph_ms,
+    "serve_s": serve_s, "serve_tokens_per_s": serve_tokens_per_s,
+    "kernel_ms": kernel_ms,
     "step_ms": wall / n * 1e3,
     "tokens_per_s": n * smoke.TRAIN_BATCH * smoke.TRAIN_SEQ / wall,
     "j_per_step": run["joules"] / n, "watts": run["joules"] / wall,
@@ -110,9 +166,14 @@ print(json.dumps({
     "last_loss": run["losses"][-1]}))
 """
 KEYS = ("gemm_ms", "matmul_ms", "prefill_ms", "prefill_graph_ms",
-        "sdpa_graph_ms", "kernel_ms", "step_ms", "tokens_per_s",
-        "j_per_step", "watts", "busy_ms", "flash_share")
-WON = ("gemm_ms", "prefill_ms", "prefill_graph_ms", "kernel_ms", "step_ms")
+        "sdpa_graph_ms", "decode_graph_ms", "decode_sdpa_graph_ms",
+        "paged_decode_graph_ms", "quant_decode_graph_ms",
+        "quant_paged_decode_graph_ms", "serve_s", "serve_tokens_per_s",
+        "kernel_ms", "step_ms", "tokens_per_s", "j_per_step", "watts",
+        "busy_ms", "flash_share")
+WON = ("gemm_ms", "prefill_ms", "prefill_graph_ms", "decode_graph_ms",
+       "paged_decode_graph_ms", "quant_decode_graph_ms",
+       "quant_paged_decode_graph_ms", "serve_s", "kernel_ms", "step_ms")
 
 
 def main() -> int:

@@ -41,11 +41,12 @@ SIGNATURES = {
     "pmt_quant_cache_update": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "pmt_quant_paged_cache_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      _I, _I, _I, _I, _I, _P],
-    "pmt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, _F, _I, _F, _I, _I, _P],
-    "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _I, _F, _I, _F, _I, _I,
-                                   _P],
+    "pmt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
+                                   _I, _I, _I, _P],
+    "pmt_decode_smem_bytes": [_I, _I],
     "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _I,
                               _P],

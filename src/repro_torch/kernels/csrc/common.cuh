@@ -1,7 +1,7 @@
 // Helpers shared by the port's CUDA kernels: element conversion, warp
-// reductions, the online-softmax fold of one key tile that the decode
-// and chunked-prefill attention kernels both run, and the tile loads
-// that dequantize the code types of quantized caches (int8_t and
+// reductions, the online-softmax fold of one key tile that the
+// chunked-prefill attention kernel's CUDA-core path runs, and the tile
+// loads that dequantize the code types of quantized caches (int8_t and
 // __nv_fp8_e4m3, one float32 scale per row) as they stage a tile.
 #pragma once
 

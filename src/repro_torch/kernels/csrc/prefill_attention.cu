@@ -344,7 +344,7 @@ __host__ __device__ inline size_t smem_bytes(int D, int nwarps) {
 
 // Split s's keys [lo, hi) of the cache range [start, limit): shares of
 // ceil(n / nsplit) rounded up to 16 keys, so the last splits may be empty.
-// (prefill_attention/kernel.py split_range is the same function.)
+// (kernels/split_kv.py split_range is the same function.)
 __device__ __forceinline__ void split_range(int start, int limit, int nsplit, int s, int& lo,
                                             int& hi) {
   const int n = limit - start;

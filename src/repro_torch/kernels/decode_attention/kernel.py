@@ -1,14 +1,17 @@
 """Wrappers of the CUDA flash-decode kernel (``csrc/decode_attention.cu``)
 over a contiguous cache and over page pools, each also over quantized
 caches: int8 / fp8_e4m3 codes with float32 row scales, dequantized in
-the kernel."""
+the kernel.  The kernel splits each row's keys over blocks (split-KV);
+the wrappers pick the split count and hand it a workspace and the
+tickets of ``split_kv``."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_kv
 
 # Launches of each kernel since its count was last set to 0.
 # The quantized launches (``k_scale`` given) count apart from the others.
@@ -17,16 +20,73 @@ paged_launches = 0          # decode_attention_paged_cuda
 quant_launches = 0          # decode_attention_cuda over codes
 quant_paged_launches = 0    # decode_attention_paged_cuda over codes
 
-# Shared-memory budget of one block on the H100 (227 KB usable).
+# Shared-memory budget of one block on the H100 (227 KB usable); the
+# prefill wrappers check theirs against it.
 SMEM_LIMIT = 232448
-_TILE = 64          # keys per tile, as in the source
+WIDTHS = (64, 128, 256, 512)   # the kernel's head widths D, as the source
+WARPS = 4
+MAX_SPLITS = 8            # the split count's cap
+KERNEL_SPLITS = 16        # the most the kernel takes (its fold's registers)
+KEYS_PER_SPLIT = 64       # fewest keys of the capacity worth a split
 
 
-def smem_bytes(g: int, hd: int, hdv: int) -> int:
-    """Dynamic shared memory of one block, plus its static row table and
-    the two row-scale arrays of a quantized tile."""
-    return 4 * (g * hd + _TILE * (hd + 1) + _TILE * hdv + g * _TILE
-                + g * hdv + 3 * g + 3 * _TILE)
+def width(hd: int, hdv: int) -> int:
+    """The kernel's head width D for these heads: the smallest of WIDTHS
+    that holds both (0 where none does)."""
+    return next((d for d in WIDTHS if max(hd, hdv) <= d), 0)
+
+
+def heads_per_block(hd: int, hdv: int) -> int:
+    """Query heads a block takes: 4, or 2 at D 512, where a lane holds
+    two chunks of a row."""
+    return 2 if width(hd, hdv) == 512 else 4
+
+
+def smem_bytes(hd: int, hdv: int) -> int:
+    """Dynamic shared memory of one block (the library's
+    ``pmt_decode_smem_bytes``): the warps' partials and weights, the
+    block's max and sum, the fold's weights, for its query heads.  G is
+    split over blocks of ``heads_per_block``, so it does not enter; at
+    most 16,624 B (hdv 512), under the 48 KB a launch takes without
+    opting in."""
+    h = heads_per_block(hd, hdv)
+    return 4 * h * (WARPS * (hdv + 2) + WARPS + 2 + KERNEL_SPLITS)
+
+
+def split_count(groups: int, c: int, sms: int = 132) -> int:
+    """Splits of each row's keys for ``groups`` = B * KVH * head groups
+    blocks' worth of rows over a cache of capacity ``c``
+    (``split_kv.split_count``): at most MAX_SPLITS, none shorter than
+    KEYS_PER_SPLIT keys of the capacity."""
+    return split_kv.split_count(groups, c, sms, KEYS_PER_SPLIT, MAX_SPLITS)
+
+
+def _check_heads(hd: int, hdv: int) -> None:
+    if not width(hd, hdv):
+        raise ValueError(f"hd={hd}, hdv={hdv}: the kernel takes heads up "
+                         f"to {WIDTHS[-1]} wide")
+
+
+def _launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
+            c: int, hdv: int) -> torch.Tensor:
+    """Launch ``entry`` with its input pointers ``ptrs``, then out, the
+    split workspace and the tickets, then its shape and option arguments
+    ``scalars``, the split count and the stream; ``c`` is the cache's
+    capacity in positions.  Returns the output."""
+    b, kvh, g, hd = q.shape
+    heads = heads_per_block(hd, hdv)
+    groups = b * kvh * math.ceil(g / heads)
+    dev = q.device
+    nsplit = split_count(groups, c, split_kv.sm_count(dev))
+    tickets, stream = split_kv.tickets(dev, groups)
+    ws = torch.empty(groups * nsplit * heads * (hdv + 2) if nsplit > 1
+                     else 0, dtype=torch.float32, device=dev)
+    out = torch.empty((b, kvh, g, hdv), dtype=q.dtype, device=dev)
+    err = getattr(build.library(), entry)(
+        *ptrs, out.data_ptr(), ws.data_ptr() if nsplit > 1 else None,
+        tickets.data_ptr(), *scalars, nsplit, stream)
+    build.check(err, entry[4:])
+    return out
 
 
 def cache_codes(kv: torch.Tensor, k_scale, v_scale, rows: tuple):
@@ -82,18 +142,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty cache")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    if smem_bytes(g, hd, hdv) > SMEM_LIMIT:
-        raise ValueError(f"G={g}, hd={hd}, hdv={hdv} need more shared "
-                         f"memory than a block has")
+    _check_heads(hd, hdv)
     qd = build.dtype_code(q.dtype)
     kd, ksp, vsp = cache_codes(k, k_scale, v_scale, (b, c, kvh))
-    out = torch.empty((b, kvh, g, hdv), dtype=q.dtype, device=q.device)
-    err = build.library().pmt_decode_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp, lens.data_ptr(),
-        out.data_ptr(), b, c, kvh, g, hd, hdv, float(scale), int(ring),
-        float(softcap or 0.0), qd, kd,
-        torch.cuda.current_stream().cuda_stream)
-    build.check(err, "decode_attention")
+    out = _launch("pmt_decode_attention", q,
+                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
+                   lens.data_ptr()),
+                  (b, c, kvh, g, hd, hdv, float(scale), int(ring),
+                   float(softcap or 0.0), qd, kd), c, hdv)
     if k_scale is None:
         launches += 1
     else:
@@ -142,19 +198,16 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("window must be > 0")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    if smem_bytes(g, hd, hdv) > SMEM_LIMIT:
-        raise ValueError(f"G={g}, hd={hd}, hdv={hdv} need more shared "
-                         f"memory than a block has")
+    _check_heads(hd, hdv)
     qd = build.dtype_code(q.dtype)
     kd, ksp, vsp = cache_codes(k_pool, k_scale, v_scale, (p, ps, kvh))
-    out = torch.empty((b, kvh, g, hdv), dtype=q.dtype, device=q.device)
-    err = build.library().pmt_decode_attention_paged(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp,
-        page_table.data_ptr(), lens.data_ptr(), out.data_ptr(), b,
-        page_table.shape[1], ps, kvh, g, hd, hdv, float(scale),
-        int(window or 0), float(softcap or 0.0), qd, kd,
-        torch.cuda.current_stream().cuda_stream)
-    build.check(err, "decode_attention_paged")
+    nb = page_table.shape[1]
+    out = _launch("pmt_decode_attention_paged", q,
+                  (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ksp,
+                   vsp, page_table.data_ptr(), lens.data_ptr()),
+                  (b, nb, ps, kvh, g, hd, hdv, float(scale),
+                   int(window or 0), float(softcap or 0.0), qd, kd),
+                  nb * ps, hdv)
     if k_scale is None:
         paged_launches += 1
     else:

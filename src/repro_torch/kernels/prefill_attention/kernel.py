@@ -10,11 +10,11 @@ along the cache (split-KV); the other dtypes take the CUDA-core kernel.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, split_kv
 from repro_torch.kernels.decode_attention.kernel import SMEM_LIMIT, \
     cache_codes
 
@@ -33,14 +33,6 @@ TC_MAX_WARPS = 8          # 16 packed query rows each
 TC_MAX_SPLITS = 8
 TC_KEYS_PER_SPLIT = 64    # fewest cache keys worth a split of their own
 
-# Split-KV tickets, one int32 per (row, kv head, row tile), zero between
-# launches (each launch leaves them at 0), by (device, stream): launches
-# on one stream run one after another.  A grown array replaces the old
-# one, which is kept, as a CUDA graph may have captured its address.
-_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
-_retired_tickets = []
-_sms: Dict[int, int] = {}
-
 
 def uses_tensor_cores(q_dtype, cache_dtype, hd: int, hdv: int) -> bool:
     """Whether these inputs take the tensor-core kernel."""
@@ -56,26 +48,11 @@ def tc_warps(rows: int) -> int:
 
 def split_count(groups: int, c: int, sms: int = 132) -> int:
     """Splits of the cache range for ``groups`` = B * KVH * row tiles
-    blocks' worth of rows over a cache of capacity ``c``: enough for two
-    blocks on each of the ``sms`` SMs, no more than one per
-    TC_KEYS_PER_SPLIT keys of the capacity (each row's own prefix lies
-    on the card, so the host sizes by the capacity), at most
-    TC_MAX_SPLITS: the last block folds every split's partial, so each
-    split past a few costs more than it saves."""
-    return max(1, min(math.ceil(2 * sms / groups),
-                      math.ceil(c / TC_KEYS_PER_SPLIT), TC_MAX_SPLITS))
-
-
-def split_range(start: int, limit: int, nsplit: int, s: int) -> tuple:
-    """Split ``s``'s cache keys [lo, hi) of the attendable range
-    [start, limit): shares of ceil(n / nsplit) rounded up to 16 keys, so
-    the last splits may be empty (the kernel's ``tc::split_range``)."""
-    n = limit - start
-    if n <= 0:
-        return 0, 0
-    per = ((n + nsplit - 1) // nsplit + 15) // 16 * 16
-    lo = min(start + s * per, limit)
-    return lo, min(lo + per, limit)
+    blocks' worth of rows over a cache of capacity ``c``
+    (``split_kv.split_count``): at most TC_MAX_SPLITS, none shorter than
+    TC_KEYS_PER_SPLIT keys of the capacity."""
+    return split_kv.split_count(groups, c, sms, TC_KEYS_PER_SPLIT,
+                                TC_MAX_SPLITS)
 
 
 def _tc_launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
@@ -88,19 +65,8 @@ def _tc_launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
     nwarps = tc_warps(t * g)
     groups = b * kvh * math.ceil(t * g / (16 * nwarps))
     dev = q.device
-    if dev.index not in _sms:
-        _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    nsplit = split_count(groups, c, _sms[dev.index])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    key = (dev.index, stream)
-    tickets = _tickets.get(key)
-    if tickets is None or tickets.numel() < groups:
-        if tickets is not None:
-            _retired_tickets.append(tickets)
-        tickets = torch.zeros(max(groups, 4096), dtype=torch.int32,
-                              device=dev)
-        _tickets[key] = tickets
+    nsplit = split_count(groups, c, split_kv.sm_count(dev))
+    tickets, stream = split_kv.tickets(dev, groups)
     ws = torch.empty(groups * nsplit * 16 * nwarps * (hdv + 2)
                      if nsplit > 1 else 0, dtype=torch.float32, device=dev)
     out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype, device=dev)

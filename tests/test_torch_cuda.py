@@ -20,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import quant  # noqa: E402
+from repro_torch.kernels import quant, split_kv  # noqa: E402
 from repro_torch.kernels.cache_update import kernel as cu_kernel  # noqa: E402
 from repro_torch.kernels.cache_update import ops as cu_ops  # noqa: E402
 from repro_torch.kernels.cache_update import ref as cu_ref  # noqa: E402
@@ -235,6 +235,15 @@ def test_paged_prefill_kernel_uneven_offsets_and_dead_rows(card, dt):
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
 
 
+def _ticket_sum(card):
+    """The split-KV tickets of the current stream, summed: 0 between
+    launches."""
+    key = (card.index if card.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream().cuda_stream)
+    return int(split_kv._tickets[key].abs().sum())
+
+
 def test_prefill_tc_kernel_is_deterministic_and_leaves_tickets_at_0(card):
     """The last split to arrive folds the partials in split order, so two
     launches give the same bits; each leaves its tickets at 0."""
@@ -249,16 +258,123 @@ def test_prefill_tc_kernel_is_deterministic_and_leaves_tickets_at_0(card):
     first = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
     again = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
     assert torch.equal(first, again)
-    key = (card.index if card.index is not None
-           else torch.cuda.current_device(),
-           torch.cuda.current_stream().cuda_stream)
-    assert int(pa_kernel._tickets[key].abs().sum()) == 0
+    assert _ticket_sum(card) == 0
+
+
+def _decode_serve_inputs(card, dt=torch.bfloat16):
+    """Row 3's serve-path case: B8 C1024 KVH3 G3 hd64."""
+    b, c, kvh, g, hd = 8, 1024, 3, 3, 64
+    lens = torch.tensor([0, 1, 511, 1023, 37, 300, 700, 1000],
+                        dtype=torch.int32, device=card)
+    return (_randn(card, dt, b, kvh, g, hd), _randn(card, dt, b, c, kvh, hd,
+                                                   seed=1),
+            _randn(card, dt, b, c, kvh, hd, seed=2), lens)
+
+
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_decode_kernel_is_deterministic_and_leaves_tickets_at_0(card, mode):
+    """The last split to arrive folds the partials in split order, so
+    repeated launches give the same bits, contiguous and paged; each
+    leaves its tickets at 0."""
+    q, k, v, lens = _decode_serve_inputs(card)
+    kw = dict(scale=0.125)
+    if mode:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = (
+            quant.quantize(x, mode) for x in (k, v))
+    first = da_kernel.decode_attention_cuda(q, k, v, lens, **kw)
+    for _ in range(3):
+        assert torch.equal(da_kernel.decode_attention_cuda(q, k, v, lens,
+                                                           **kw), first)
+    assert _ticket_sum(card) == 0
+    table = torch.arange(64, dtype=torch.int32, device=card).repeat(8, 1)
+    table += 64 * torch.arange(8, dtype=torch.int32, device=card)[:, None]
+    pool = lambda x: x.reshape(8 * 64, 16, *x.shape[2:])
+    pk = dict(kw)
+    if mode:
+        pk = dict(scale=0.125, k_scale=pool(kw["k_scale"]),
+                  v_scale=pool(kw["v_scale"]))
+    paged = da_kernel.decode_attention_paged_cuda(q, pool(k), pool(v), table,
+                                                  lens, **pk)
+    assert torch.equal(da_kernel.decode_attention_paged_cuda(
+        q, pool(k), pool(v), table, lens, **pk), paged)
+    # the pages are the contiguous cache's rows: the same function
+    assert float((paged.float() - first.float()).abs().max()) \
+        <= TOL[torch.bfloat16]
+    assert _ticket_sum(card) == 0
+
+
+def test_decode_kernel_cuda_graph_replay_equals_eager(card):
+    """The split workspace and the tickets are capturable: a CUDA graph
+    of the call, replayed on new lens and q, gives the eager call's
+    bits, and leaves the tickets at 0."""
+    q, k, v, lens = _decode_serve_inputs(card)
+    call = lambda: da_kernel.decode_attention_cuda(q, k, v, lens,
+                                                   scale=0.125)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    lens.copy_(torch.tensor([1023, 5, 64, 0, 900, 128, 79, 512],
+                            dtype=torch.int32))
+    q.copy_(_randn(card, torch.bfloat16, *q.shape, seed=9))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    assert _ticket_sum(card) == 0
+
+
+@pytest.mark.parametrize("mode", [None, "fp8_e4m3"])
+def test_paged_decode_kernel_all_dead_batch_gives_0(card, mode):
+    """Every row's window starts past its table's end: no split has a key
+    and the output is exactly 0 (the plain version gives the mean)."""
+    b, kvh, g, hd, p, ps, nb = 8, 3, 3, 64, 200, 16, 8
+    q = _randn(card, torch.bfloat16, b, kvh, g, hd)
+    k = _randn(card, torch.bfloat16, p, ps, kvh, hd, seed=1)
+    v = _randn(card, torch.bfloat16, p, ps, kvh, hd, seed=2)
+    kw = dict(window=16, scale=0.125)
+    if mode:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = (
+            quant.quantize(x, mode) for x in (k, v))
+    lens = torch.tensor([nb * ps + 15 + i * 40 for i in range(b)],
+                        dtype=torch.int32, device=card)
+    table = _table(card, b, nb, p)
+    out = da_kernel.decode_attention_paged_cuda(q, k, v, table, lens, **kw)
+    assert torch.equal(out, torch.zeros_like(out))
+    assert _ticket_sum(card) == 0
+
+
+@pytest.mark.parametrize("hd,offset", [(36, 0), (20, 0), (64, 1)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_decode_kernel_element_path_matches_plain(card, dt, hd, offset):
+    """Rows that are not whole 8-element chunks (hd 36, 20) or start off
+    their loads' alignment (a cache one element into its storage) are
+    read element by element into the same registers."""
+    b, c, kvh, g = 3, 300, 2, 5
+    q = _randn(card, dt, b, kvh, g, hd)
+    store = _randn(card, dt, 2, b * c * kvh * hd + offset, seed=1)
+    k = store[0, offset:].view(b, c, kvh, hd)
+    v = store[1, offset:].view(b, c, kvh, hd)
+    lens = torch.tensor([0, 150, 299], dtype=torch.int32, device=card)
+    got = da_kernel.decode_attention_cuda(q, k, v, lens, scale=0.2)
+    want = da_ref.decode_attention_ref(q, k, v, lens, scale=0.2)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+def test_decode_smem_bytes_is_the_kernels(card):
+    """The wrapper's ``smem_bytes`` equals the shared memory the decode
+    kernel launches with (``pmt_decode_smem_bytes``)."""
+    from repro_torch.kernels import build
+    _chip_smoke().check_decode_smem(build.library(), da_kernel)
 
 
 def test_redesigned_kernels_sass_and_spills(card):
     """chip_smoke.py's gate: the bf16 prefill kernels hold HMMA, the GEMM
-    kernels FFMA and neither HMMA nor HGMMA, and ptxas spills nothing in
-    either."""
+    and flash-decode kernels FFMA and neither HMMA nor HGMMA, and ptxas
+    spills nothing in any of them."""
     from repro_torch.kernels import build
     build.library()
     _chip_smoke().check_redesigns(build)

@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.prefill_attention import ref as jax_pa  # noqa: E402
+from repro_torch.kernels import split_kv  # noqa: E402
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.prefill_attention import ref as pa_ref  # noqa: E402
 
@@ -51,7 +52,7 @@ def _tc_emulation(q, kx, vx, kc, vc, offs, *, ring=False, window=None,
             q2 = q[b, h].reshape(t * g, hd).float()
             parts = []
             for s in range(nsplit):
-                lo, hi = pa_kernel.split_range(start, limit, nsplit, s)
+                lo, hi = split_kv.split_range(start, limit, nsplit, s)
                 tiles = [(True, x) for x in range(lo, hi, KT)]
                 if s == nsplit - 1:
                     tiles += [(False, x) for x in range(0, t, KT)]
@@ -254,7 +255,7 @@ def test_split_range_covers_the_range_once(start, limit, nsplit):
     each a multiple of 16 keys but the last non-empty one; a prefix that
     ends on a share boundary (80 = 5 x 16) leaves the later splits
     empty; an empty range gives nothing to any split."""
-    spans = [pa_kernel.split_range(start, limit, nsplit, s)
+    spans = [split_kv.split_range(start, limit, nsplit, s)
              for s in range(nsplit)]
     keys = [k for lo, hi in spans for k in range(lo, hi)]
     assert keys == list(range(start, max(start, limit)))
