@@ -19,11 +19,14 @@ Phases, in order; any failure exits nonzero:
      and its split count swept 1..16 at B1 and B8 (rows 3, 7).
      3b. the same for the six Fig. 2 kernels (FMA32, STREAM, GRIDDER,
      DEGRIDDER, GEMM, JACOBI2D) at the Fig. 2 path's shapes and at odd
-     ones, with the gridder pair's adjoint identity on the card and its
-     bound from the FP32 operations counted in the built loop
+     ones (STREAM also at a ragged length and one element off its
+     alignment, exactly; the gridder pair also with phases at 4 pi), with
+     the gridder pair's adjoint identity on the card and its bound from
+     the FP32 operations and SFU instructions counted in the built loop
      (``cuobjdump -sass``); the kernels redesigned for Hopper (bf16
      prefill on ``mma.sync``, the f32 GEMM and flash-decode on the CUDA
-     cores) gated on their SASS and on 0 bytes of ptxas spill.
+     cores, the STREAM triad, the gridder's phasor on the SFU) gated on
+     their SASS and on 0 bytes of ptxas spill.
      The three paged kernels (paged cache_update, decode and prefill
      attention) the same way, at the paged serve path's shapes and at
      odd ones (page sizes 8 and 24, shuffled pages, a window, softcap,
@@ -134,6 +137,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,           # dense tensor-core bf16
               torch.float32: 67e12}             # fp32 outside tensor cores
+# SFU (MUFU) instructions a second: 16 a clock an SM (CUDA C++
+# Programming Guide, compute capability 9.0) x 132 SMs x 1.98 GHz, the
+# clock the data sheet's 67 TFLOP/s implies
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # Tolerances of kernel against plain version on the same inputs.  Both
 # compute in fp32 from the same values; they differ in summation order
 # (~1e-6 on outputs of order 1, hence 2e-5 in fp32) and, in bf16, by at
@@ -1139,14 +1146,31 @@ def check_fma32(kernel, ref, dev):
     return results
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element into its
+    storage: off the 16-byte alignment of the vector loads."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = store[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_stream(kernel, ref, dev):
-    """Exact: kernel and plain version round the same two operations."""
+    """Exact: kernel and plain version round the same two operations.
+    Cases: the Fig. 2 shape; odd shapes, whose length is no multiple of
+    the vector or of the unrolled trip (the masked tail and the
+    element-wise end); inputs one element off their alignment (the
+    element-wise path)."""
     results = {}
-    for name, shape in (("main 16384x16384", (16384, 16384)),
-                        ("odd 1001x777", (1001, 777))):
+    for name, shape, shift in (("main 16384x16384", (16384, 16384), False),
+                               ("odd 1001x777", (1001, 777), False),
+                               ("ragged 1x1048589", (1, 2 ** 20 + 13), False),
+                               ("misaligned 1001x777", (1001, 777), True)):
         for dt in (torch.float32, torch.bfloat16):
             a = _randn(dev, *shape, seed=6, dtype=dt)
             b = _randn(dev, *shape, seed=7, dtype=dt)
+            if shift:
+                a, b = misaligned(a), misaligned(b)
             got = kernel.stream_triad_cuda(a, b, 2.5)
             want = ref.stream_triad_ref(a, b, 2.5)
             torch.cuda.synchronize()
@@ -1257,16 +1281,19 @@ def sass_functions(library: Path) -> list:
             for f in re.split(r"\n\s*Function : ", sass)[1:]]
 
 
-def sass_ops_per_term(library: Path, kernel: str) -> tuple:
-    """FP32 FLOP per (subgrid, pixel, visibility) term in ``kernel``'s
-    loop over staged elements, as ``cuobjdump -sass`` shows the built
-    library: FFMA counts 2, FMUL and FADD 1.  The loop is the widest
-    backward branch whose span holds no barrier; the path through it is
-    the one this run's data takes: every forward branch inside it skips
-    sincosf's slow path (argument reduction for |phase| >= 105615, which
-    reads its table from global memory, checked), and phases here stay
-    below 4 pi.  Returns (FLOP per term, counts of the opcodes on that
-    path, the unroll factor)."""
+def sass_ops_per_term(library: Path, kernel: str, marker: str) -> tuple:
+    """FP32 FLOP and SFU (MUFU) instructions per (subgrid, pixel,
+    visibility) term in ``kernel``'s loop over staged elements, as
+    ``cuobjdump -sass`` shows the built library: FFMA counts 2, FMUL and
+    FADD 1.  The loop is the widest backward branch whose span holds no
+    barrier; the path through it is the one this run's data takes: every
+    forward branch inside it skips sincosf's slow path (argument
+    reduction for |phase| >= 105615, which reads its table from global
+    memory, checked), and phases here stay below 4 pi.  The terms on the
+    path are counted by ``marker``, an opcode each term runs once: F2I
+    (sincosf's quadrant) in the degridder, MUFU.SIN in the gridder.
+    Returns (FLOP per term, MUFU per term, counts of the opcodes on that
+    path, terms on it)."""
     funcs = [text for name, text in sass_functions(library)
              if re.match(rf"\S*{kernel}", name)]
     if len(funcs) != 1:
@@ -1285,7 +1312,7 @@ def sass_ops_per_term(library: Path, kernel: str) -> tuple:
              if not any(op.startswith("BAR") for a, op, _ in ins
                         if lo <= a <= hi)]
     lo, hi = max(loops, key=lambda span: span[1] - span[0])
-    counts, i = {}, at[lo]
+    counts, terms, i = {}, 0, at[lo]
     while ins[i][0] <= hi:
         a, op, args = ins[i]
         to = target(args) if op == "BRA" else None
@@ -1297,30 +1324,69 @@ def sass_ops_per_term(library: Path, kernel: str) -> tuple:
             continue
         key = op.split(".")[0]
         counts[key] = counts.get(key, 0) + 1
+        terms += op == marker or op.startswith(marker + ".")
         i += 1
-    unroll = counts.get("F2I", 0)       # one per sincosf's quadrant
-    if unroll < 1:
-        raise AssertionError(f"{kernel}: no sincosf in its loop")
+    if terms < 1:
+        raise AssertionError(f"{kernel}: no {marker} in its loop")
     flop = 2 * counts.get("FFMA", 0) + counts.get("FMUL", 0) \
         + counts.get("FADD", 0)
-    return flop / unroll, counts, unroll
+    return flop / terms, counts.get("MUFU", 0) / terms, counts, terms
+
+
+def gridder_extremes(dev, p: int, s: int, v: int,
+                     reach: float = 2.0) -> tuple:
+    """(lm, uv) whose phases reach 2 pi reach (4 pi at the default, the
+    Fig. 2 range): lm at the four corners +-0.5, on the edges and just
+    inside the corners, the rest uniform in [-0.5, 0.5]; uv a quarter at
+    +-reach (|phase| = 2 pi reach exactly at a corner), a quarter just
+    inside +-reach (non-integer turns near it), a quarter at +-reach in
+    one coordinate, the rest uniform in [-reach, reach]."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    lm = torch.rand((p, 2), generator=g, device=dev) - 0.5
+    edge = [[x, y] for x in (-0.5, 0.5) for y in (-0.5, 0.5)] \
+        + [[0.5, 0.0], [-0.5, 0.0], [0.0, 0.5], [0.0, -0.5]] \
+        + [[x * 0.4999, y * 0.49993] for x in (-1, 1) for y in (-1, 1)]
+    lm[: len(edge)] = torch.tensor(edge, device=dev)
+    uv = 2.0 * reach * torch.rand((s, v, 2), generator=g, device=dev) - reach
+    sign = torch.sign(uv[:, : v // 4])
+    uv[:, : v // 4] = reach * sign
+    near = torch.rand((s, v // 4, 2), generator=g, device=dev)
+    uv[:, v // 4: v // 2] = torch.sign(uv[:, v // 4: v // 2]) * (
+        reach - 1e-3 * near)
+    uv[:, v // 2: 3 * v // 4, 0] = reach * torch.sign(
+        uv[:, v // 2: 3 * v // 4, 0])
+    return lm, uv
 
 
 def check_gridder(kernel, ref, dev, library: Path):
-    """Tolerance rtol 1e-4, atol 2e-3 (the JAX tests' own): sincosf and
-    torch's sin/cos round differently, and the complex sums (up to ~200
-    in magnitude at V = 2048) run in other orders.  The pair must be
-    adjoint on the card within 1e-3 relative.  Bound: bytes of each
-    array once, and the FP32 operations per term counted in the built
-    loop, over 67 TFLOP/s."""
+    """Tolerance rtol 1e-4, atol 2e-3 (the JAX tests' own): the phasors
+    (the gridder's an unreduced __sincosf on the SFU, the degridder's
+    accurate sincosf) and torch's sin/cos round differently, and the
+    complex sums (up to ~200 in magnitude at V = 2048) run in other
+    orders.  The pair must be adjoint on the card within 1e-3 relative.
+    Cases: the Fig. 2 size, an odd one, phases at 4 pi (uv at +-2, the
+    Fig. 2 range: ``gridder_extremes``) and at 32 pi (uv at +-16, the
+    widest the gridder is held to), at V 2048.  Bound: bytes of each array once,
+    the FP32 operations per term counted in the built loop over 67
+    TFLOP/s, and its SFU instructions per term over SFU_OPS_PER_S: the
+    largest of the three."""
     results = {}
     for name, (p, s, v) in (("main P1024 S1024 V2048", (1024, 1024, 2048)),
-                            ("odd P1000 S3 V1999", (1000, 3, 1999))):
+                            ("odd P1000 S3 V1999", (1000, 3, 1999)),
+                            ("extremes P1100 S3 V2048", (1100, 3, 2048)),
+                            ("wide P1100 S3 V2048 uv16", (1100, 3, 2048))):
         g = torch.Generator(device=dev).manual_seed(11)
         lm = torch.rand((p, 2), generator=g, device=dev) - 0.5
         uv = 4.0 * torch.rand((s, v, 2), generator=g, device=dev) - 2.0
         vis = torch.randn((s, v, 2), generator=g, device=dev)
         sub = torch.randn((s, p, 2), generator=g, device=dev)
+        if name.startswith(("extremes", "wide")):
+            reach = 16.0 if name.startswith("wide") else 2.0
+            lm, uv = gridder_extremes(dev, p, s, v, reach)
+            turns = (lm[None, :, None, :] * uv[:, None, :, :]).sum(-1)
+            top = 2 * math.pi * float(turns.abs().max())
+            log(f"  {name}: max |phase| {top:.6g} (2 pi x {reach:g} = "
+                f"{2 * math.pi * reach:.6g})")
         got = {"gridder": kernel.gridder_cuda(lm, uv, vis),
                "degridder": kernel.degridder_cuda(lm, uv, sub)}
         want = {"gridder": ref.gridder_ref(lm, uv, vis),
@@ -1346,24 +1412,40 @@ def check_gridder(kernel, ref, dev, library: Path):
             raise AssertionError("the card's gridder pair is not adjoint")
         if name.startswith("main"):
             nbytes = 4.0 * (2 * p + 4 * s * v + 2 * s * p)
-            for k, fn, plain in (
+            terms = float(s) * v * p
+            for k, fn, plain, symbol, marker in (
                     ("gridder", lambda: kernel.gridder_cuda(lm, uv, vis),
-                     lambda: ref.gridder_ref(lm, uv, vis)),
+                     lambda: ref.gridder_ref(lm, uv, vis),
+                     "14gridder_kernel", "MUFU.SIN"),
                     ("degridder", lambda: kernel.degridder_cuda(lm, uv, sub),
-                     lambda: ref.degridder_ref(lm, uv, sub))):
-                per_term, counts, unroll = sass_ops_per_term(
-                    library, rf"{len(k) + 7}{k}_kernelILb1E")
-                log(f"  {k}: {per_term:g} FP32 FLOP per term in its built "
-                    f"loop (unrolled {unroll}x; per term: "
-                    f"{counts.get('FFMA', 0) / unroll:g} FFMA, "
-                    f"{counts.get('FMUL', 0) / unroll:g} FMUL, "
-                    f"{counts.get('FADD', 0) / unroll:g} FADD; "
-                    f"{sum(counts.values()) / unroll:g} instructions)")
-                results[k] = {"ms": time_ms(fn), "plain_ms": time_ms(
+                     lambda: ref.degridder_ref(lm, uv, sub),
+                     "16degridder_kernelILb1E", "F2I")):
+                per_term, sfu, counts, n = sass_ops_per_term(
+                    library, symbol, marker)
+                log(f"  {k}: {per_term:g} FP32 FLOP and {sfu:g} MUFU per "
+                    f"term in its built loop ({n:g} terms a trip, counted "
+                    f"by {marker}; per term: "
+                    f"{counts.get('FFMA', 0) / n:g} FFMA, "
+                    f"{counts.get('FMUL', 0) / n:g} FMUL, "
+                    f"{counts.get('FADD', 0) / n:g} FADD; "
+                    f"{sum(counts.values()) / n:g} instructions)")
+                t = {"ms": time_ms(fn), "plain_ms": time_ms(
                     plain, iters=2, warmup=1), "library_ms": None,
-                    "max_abs_err": errs[k], "ops_per_term": per_term}
-                results[k]["bound_ms"], results[k]["bound_by"] = bound(
-                    nbytes, per_term * s * v * p, torch.float32)
+                    "max_abs_err": errs[k], "ops_per_term": per_term,
+                    "sfu_per_term": sfu,
+                    "bound_fp32_ms": per_term * terms / PEAK_FLOPS[
+                        torch.float32] * 1e3,
+                    "bound_sfu_ms": sfu * terms / SFU_OPS_PER_S * 1e3,
+                    "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+                t["bound_ms"] = max(t["bound_fp32_ms"], t["bound_sfu_ms"],
+                                    t["bound_bytes_ms"])
+                t["bound_by"] = "bytes" if t["bound_ms"] == t[
+                    "bound_bytes_ms"] else "operations"
+                log(f"  {k}: bound {t['bound_ms']:.5f} ms, the largest of "
+                    f"FP32 {t['bound_fp32_ms']:.5f}, SFU "
+                    f"{t['bound_sfu_ms']:.5f}, bytes "
+                    f"{t['bound_bytes_ms']:.5f}")
+                results[k] = t
     return results
 
 
@@ -1501,13 +1583,18 @@ REDESIGNS = (
     # caches x contiguous, paged x D 64, 128, 256, 512
     ("decode_attention_kernel", "decode_attention.cu", 32, {"FFMA"},
      {"HMMA", "HGMMA"}),
+    # the STREAM triad, unrolled 16-byte loads: float32, bf16
+    ("stream_triad_kernel", "stream.cu", 2, {"LDG", "STG"}, set()),
+    # the gridder, its phasor on the SFU (MUFU.SIN, MUFU.COS)
+    ("14gridder_kernel", "gridder.cu", 1, {"MUFU", "FFMA"}, set()),
 )
 
 
 def check_redesigns(build) -> None:
     """The bf16 prefill kernels run on the tensor cores (their SASS holds
     HMMA), the GEMM and flash-decode kernels on the CUDA cores in float32
-    (FFMA, no HMMA or HGMMA), and none of them spills a byte (ptxas)."""
+    (FFMA, no HMMA or HGMMA), the gridder's phasor on the SFU (MUFU), and
+    none of them, nor the STREAM triad, spills a byte (ptxas)."""
     for kernel, source, count, must, must_not in REDESIGNS:
         funcs = sass_opcodes(build.library_path(), kernel)
         usage = ptxas_usage(nvcc_log(build, source), kernel)
@@ -2769,11 +2856,12 @@ def main() -> int:
         reader.close()
     probe_host_sensors(pmt, fma_kernel.fma32_cuda)
     for name in ("gridder", "degridder"):
-        counted = timings[name]["ops_per_term"]
-        if counted != fig2.GRIDDER_OPS_PER_TERM:
-            log(f"  note: {name}'s built loop does {counted:g} FP32 FLOP per "
-                f"term; launch/fig2.py bounds its row with "
-                f"{fig2.GRIDDER_OPS_PER_TERM}")
+        counted = (timings[name]["ops_per_term"],
+                   timings[name]["sfu_per_term"])
+        if counted != fig2.PHASOR_OPS[name.upper()]:
+            log(f"  note: {name}'s built loop does {counted[0]:g} FP32 FLOP "
+                f"and {counted[1]:g} MUFU per term; launch/fig2.py bounds "
+                f"its row with {fig2.PHASOR_OPS[name.upper()]}")
     fig2_kernels = {"fma32": fma_kernel, "stream_triad": st_kernel,
                     "gridder": grid_kernel, "degridder": grid_kernel,
                     "gemm": gemm_kernel, "jacobi2d": jac_kernel}
@@ -2795,7 +2883,9 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                **{k: t[k] for k in keys}}
-        extras = ("graph_ms", "library_graph_ms", "backward_plain_ms")
+        extras = ("graph_ms", "library_graph_ms", "backward_plain_ms",
+                  "ops_per_term", "sfu_per_term", "bound_fp32_ms",
+                  "bound_sfu_ms", "bound_bytes_ms")
         row.update({k: t[k] for k in extras if k in t})
         if "fp8_e4m3" in t:
             row["fp8_e4m3"] = {k: t["fp8_e4m3"][k] for k in keys + extras

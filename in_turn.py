@@ -12,6 +12,11 @@ builds its kernels, then measures with this checkout's
 
   * phase 3b's GEMM at 8192^3 in float32 and ``torch.matmul`` (TF32
     off) on the same inputs, ``time_ms`` over 10 calls after 2;
+  * phase 3b's STREAM triad at 16384^2 in float32 (s = 2) and
+    ``torch.add(a, b, alpha=2)`` on the same inputs, ``time_ms`` in the
+    order kernel, add, add, kernel (and their ratio);
+  * phase 3b's GRIDDER and DEGRIDDER at P 1024, S 1024, V 2048 with
+    phase 6's ranges (lm in [-0.5, 0.5], uv in [-2, 2]), ``time_ms``;
   * phase 3's row 2 on the serve path (``PREFILL_SERVE``: B 1, a
     32-token chunk over a 512-token prefix, 3 kv heads of 64, 3 query
     heads each, bf16): the chunked-prefill kernel by ``time_ms`` (host
@@ -65,7 +70,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.gridder import kernel as grid_kernel
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel
+from repro_torch.kernels.stream import kernel as st_kernel
 from repro_torch.models import model as model_mod
 from repro_torch.optim import optimizers as optim
 from repro_torch.serve.engine import Request, ServeEngine
@@ -82,6 +89,24 @@ gemm_ms = smoke.time_ms(lambda: gemm_kernel.gemm_cuda(a, b), iters=10,
                         warmup=2)
 matmul_ms = smoke.time_ms(lambda: torch.matmul(a, b), iters=10, warmup=2)
 del a, b
+
+a = smoke._randn(dev, 16384, 16384, seed=6)
+b = smoke._randn(dev, 16384, 16384, seed=7)
+# kernel, add, add, kernel: each the mean of its two
+triad = lambda: st_kernel.stream_triad_cuda(a, b, 2.0)
+add = lambda: torch.add(a, b, alpha=2.0)
+t = [smoke.time_ms(f) for f in (triad, add, add, triad)]
+stream_ms, add_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+del a, b
+
+g = torch.Generator(device=dev).manual_seed(11)
+lm = torch.rand((1024, 2), generator=g, device=dev) - 0.5
+uv = 4.0 * torch.rand((1024, 2048, 2), generator=g, device=dev) - 2.0
+vis = torch.randn((1024, 2048, 2), generator=g, device=dev)
+sub = torch.randn((1024, 1024, 2), generator=g, device=dev)
+gridder_ms = smoke.time_ms(lambda: grid_kernel.gridder_cuda(lm, uv, vis))
+degridder_ms = smoke.time_ms(lambda: grid_kernel.degridder_cuda(lm, uv, sub))
+del lm, uv, vis, sub
 
 cs = smoke.PREFILL_SERVE
 args = smoke._prefill_inputs(dev, torch.bfloat16, *(cs[x] for x in (
@@ -150,6 +175,9 @@ traced, busy, flash = smoke.trace_train(step_fn, state, batches[-1])
 n, wall = smoke.TRAIN_STEPS, run["wall"]
 print(json.dumps({
     "checkout": other, "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
+    "stream_ms": stream_ms, "add_ms": add_ms,
+    "stream_over_add": stream_ms / add_ms, "gridder_ms": gridder_ms,
+    "degridder_ms": degridder_ms,
     "prefill_ms": prefill_ms, "prefill_graph_ms": prefill_graph_ms,
     "sdpa_graph_ms": sdpa_graph_ms, "decode_graph_ms": decode_graph_ms,
     "decode_sdpa_graph_ms": decode_sdpa_graph_ms,
@@ -165,13 +193,16 @@ print(json.dumps({
     "busy_ms": busy, "flash_ms": flash, "flash_share": flash / busy,
     "last_loss": run["losses"][-1]}))
 """
-KEYS = ("gemm_ms", "matmul_ms", "prefill_ms", "prefill_graph_ms",
+KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
+        "gridder_ms",
+        "degridder_ms", "prefill_ms", "prefill_graph_ms",
         "sdpa_graph_ms", "decode_graph_ms", "decode_sdpa_graph_ms",
         "paged_decode_graph_ms", "quant_decode_graph_ms",
         "quant_paged_decode_graph_ms", "serve_s", "serve_tokens_per_s",
         "kernel_ms", "step_ms", "tokens_per_s", "j_per_step", "watts",
         "busy_ms", "flash_share")
-WON = ("gemm_ms", "prefill_ms", "prefill_graph_ms", "decode_graph_ms",
+WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "prefill_ms",
+       "prefill_graph_ms", "decode_graph_ms",
        "paged_decode_graph_ms", "quant_decode_graph_ms",
        "quant_paged_decode_graph_ms", "serve_s", "kernel_ms", "step_ms")
 

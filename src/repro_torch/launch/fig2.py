@@ -53,11 +53,21 @@ from repro_torch.kernels.stream.ops import stream_triad
 # H100 SXM data sheet: HBM rate, and fp32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
-# FP32 FLOP per (subgrid, pixel, visibility) term of the gridder loops
+# The SFU's rate (MUFU.SIN, MUFU.COS, ...): 16 a clock an SM (CUDA C++
+# Programming Guide, arithmetic throughput, compute capability 9.0) x
+# 132 SMs x 1.98 GHz, the boost clock the data sheet's 67 TFLOP/s implies
+# (67e12 / (132 x 128 lanes x 2 FLOP)).
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# FP32 FLOP per (subgrid, pixel, visibility) term of the degridder's loop
 # as compiled for sm_90a: 12 of the dot, the 2 pi scale and the complex
-# multiply-add, 24 of one accurate sincosf (11 FFMA, 2 FMUL).  chip_smoke.py
-# counts them from cuobjdump -sass of the built library.
+# multiply-add, 24 of one accurate sincosf (11 FFMA, 2 FMUL).
 GRIDDER_OPS_PER_TERM = 36
+# Per row, (FP32 FLOP, SFU instructions) per term of its loop as compiled
+# for sm_90a; chip_smoke.py counts both from cuobjdump -sass of the built
+# library.  GRIDDER's phasor runs on the SFU: FMUL + FFMA of the phase
+# (lm scaled by 2 pi once), the FMUL.RZ of __sincosf's scaling to turns,
+# 4 FFMA of the multiply-add (12 FLOP), and MUFU.SIN + MUFU.COS.
+PHASOR_OPS = {"GRIDDER": (12, 2), "DEGRIDDER": (GRIDDER_OPS_PER_TERM, 0)}
 ROW_NAMES = ("SLEEP", "FMA32", "STREAM", "GRIDDER", "DEGRIDDER", "GEMM",
              "JACOBI2D")
 # (FMA32 shape, iters), STREAM shape, gridder (P, S, V), GEMM (M, K, N),
@@ -85,16 +95,23 @@ class Row:
     meter_joules: Optional[float] = None
     card_method: Optional[str] = None    # NvmlSensor.method
     ops: Optional[float] = None      # FP32 operations per call, if not flops
+    sfu: float = 0.0                 # SFU instructions per call
 
     @property
     def bound_s(self) -> float:
-        """Least time the card could take for one call."""
-        return max(self._ops / FP32_FLOPS, self.nbytes / HBM_BYTES_PER_S)
+        """Least time the card could take for one call: the largest of
+        its FP32 operations, SFU instructions and bytes over their
+        rates."""
+        return max(self._ops_s, self.nbytes / HBM_BYTES_PER_S)
 
     @property
     def bound_by(self) -> str:
-        return ("operations" if self._ops / FP32_FLOPS
+        return ("operations" if self._ops_s
                 >= self.nbytes / HBM_BYTES_PER_S else "bytes")
+
+    @property
+    def _ops_s(self) -> float:
+        return max(self._ops / FP32_FLOPS, self.sfu / SFU_OPS_PER_S)
 
     @property
     def _ops(self) -> float:
@@ -116,7 +133,8 @@ def _sync(device: torch.device) -> None:
 def _workloads(device: torch.device, sizes: dict, seed: int):
     """(name, make) pairs in row order; ``make()`` builds a row's inputs
     and returns (call, flops per call, bytes per call, FP32 operations
-    per call or None where they are the flops).  Inputs are made one row
+    per call or None where they are the flops, SFU instructions per
+    call).  Inputs are made one row
     at a time, so at most one row's arrays live on the card."""
     rng = np.random.default_rng(seed)
 
@@ -132,12 +150,12 @@ def _workloads(device: torch.device, sizes: dict, seed: int):
         shape, iters = sizes["fma32"]
         x = tensor(shape)
         return (lambda: fma32(x, iters=iters), 2.0 * x.numel() * iters,
-                8.0 * x.numel(), None)
+                8.0 * x.numel(), None, 0.0)
 
     def make_stream():
         a, b = tensor(sizes["stream"]), tensor(sizes["stream"])
         return (lambda: stream_triad(a, b, scalar=2.0), 2.0 * a.numel(),
-                12.0 * a.numel(), None)
+                12.0 * a.numel(), None, 0.0)
 
     def make_gridder(adjoint):
         # the JAX bench's ranges: lm in [-0.5, 0.5], uv in [-2, 2]
@@ -152,20 +170,21 @@ def _workloads(device: torch.device, sizes: dict, seed: int):
         # The JAX bench's 8 FLOP per term, so GFLOP/s/W compares with the
         # paper's; each array's bytes counted once (the JAX bench's
         # ``4.0 * (S*V*4 + S*P*2) * 4`` counts the 4-byte width twice).
+        flop, sfu = PHASOR_OPS["DEGRIDDER" if adjoint else "GRIDDER"]
         return (call, 8.0 * s * v * p, 4.0 * (2 * p + 4 * s * v + 2 * s * p),
-                float(GRIDDER_OPS_PER_TERM) * s * v * p)
+                float(flop) * s * v * p, float(sfu) * s * v * p)
 
     def make_gemm():
         m, k, n = sizes["gemm"]
         a, b = tensor((m, k)), tensor((k, n))
         return (lambda: gemm(a, b), 2.0 * m * k * n,
-                4.0 * (m * k + k * n + m * n), None)
+                4.0 * (m * k + k * n + m * n), None, 0.0)
 
     def make_jacobi2d():
         x = tensor(sizes["jacobi2d"])
         h, w = x.shape
         return (lambda: jacobi2d(x), 5.0 * max(h - 2, 0) * max(w - 2, 0),
-                8.0 * x.numel(), None)
+                8.0 * x.numel(), None, 0.0)
 
     return [("FMA32", make_fma32), ("STREAM", make_stream),
             ("GRIDDER", lambda: make_gridder(False)),
@@ -175,7 +194,8 @@ def _workloads(device: torch.device, sizes: dict, seed: int):
 
 def _measure(session, name: str, device: torch.device,
              body: Callable[[], int], meter, flops: float,
-             nbytes: float, ops: Optional[float] = None) -> Row:
+             nbytes: float, ops: Optional[float] = None,
+             sfu: float = 0.0) -> Row:
     """Run ``body`` (which returns its count of calls) inside one region,
     fenced, and make its row; ``meter`` (start/stop), if given, reads the
     same window."""
@@ -189,7 +209,7 @@ def _measure(session, name: str, device: torch.device,
     host = ms.by_sensor("cpuutil")
     row = Row(name=name, calls=calls, seconds=host.seconds,
               host_watts=host.watts, flops=flops, nbytes=nbytes,
-              meter_joules=meter_j, ops=ops)
+              meter_joules=meter_j, ops=ops, sfu=sfu)
     if any(m.sensor == "nvml" for m in ms):
         card = ms.by_sensor("nvml")
         row.card_watts, row.card_joules = card.watts, card.joules
@@ -219,7 +239,7 @@ def run(device=None, smoke: bool = False, seed: int = 0,
         rows.append(_measure(session, "SLEEP", device, sleep, meter, 0.0,
                              0.0))
         for name, make in _workloads(device, sizes, seed):
-            call, flops, nbytes, ops = make()
+            call, flops, nbytes, ops, sfu = make()
             call()                                  # warm up (and build)
             _sync(device)
             t0 = time.perf_counter()
@@ -242,7 +262,7 @@ def run(device=None, smoke: bool = False, seed: int = 0,
                 return calls
 
             rows.append(_measure(session, name, device, body, meter, flops,
-                                 nbytes, ops))
+                                 nbytes, ops, sfu))
             del call, body                  # free this row's inputs
     return rows
 

@@ -13,8 +13,8 @@ fp32, and in bf16 2^-5 + 2e-5 (its plain oracle rounds the
 probabilities to bf16, the kernel keeps them to fp32 precision).  The Fig. 2
 kernels: STREAM and JACOBI2D exact, FMA32 within
 1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
-within rtol 1e-4 and atol 2e-3 (the JAX tests' own), their pair adjoint
-within 1e-3 relative.
+within rtol 1e-4 and atol 2e-3 (the JAX tests' own; also with phases at
+4 pi), their pair adjoint within 1e-3 relative.
 """
 import pytest
 
@@ -43,6 +43,7 @@ from repro_torch.kernels.gridder import ops as grid_ops  # noqa: E402
 from repro_torch.kernels.gridder import ref as grid_ref  # noqa: E402
 from repro_torch.kernels.jacobi2d import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jacobi2d import ref as jac_ref  # noqa: E402
+from repro_torch.kernels.stream import kernel as st_kernel  # noqa: E402
 from repro_torch.kernels.stream import ops as st_ops  # noqa: E402
 from repro_torch.kernels.stream import ref as st_ref  # noqa: E402
 
@@ -660,6 +661,50 @@ def test_stream_kernel_is_exact(card, dt, shape):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,shift", [(2 ** 20 + 13, False),
+                                     (4 * 4 * 256 * 132 * 8 + 37, False),
+                                     (333 * 257, True), (2 ** 20 + 13, True)])
+def test_stream_kernel_ragged_and_misaligned_is_exact(card, dt, n, shift):
+    """Lengths that are no multiple of the vector or of the 128 x 2-vector
+    tile (the masked tail, the element-wise end), and inputs one element
+    into their storage (off the 16-byte alignment: the element-wise
+    path)."""
+    a = _randn(card, dt, n)
+    b = _randn(card, dt, n, seed=1)
+    if shift:
+        misaligned = _chip_smoke().misaligned
+        a, b = misaligned(a), misaligned(b)
+        assert a.data_ptr() % 16 and b.data_ptr() % 16
+    before = st_kernel.launches
+    got = st_ops.stream_triad(a, b, scalar=2.5)
+    assert st_kernel.launches == before + 1
+    assert torch.equal(got, st_ref.stream_triad_ref(a, b, 2.5))
+
+
+def test_stream_kernel_cuda_graph_replay_equals_eager(card):
+    """The triad captured in a CUDA graph and replayed on new inputs gives
+    the eager call's bits (one block per tile: the grid depends on the
+    length alone)."""
+    a = _randn(card, torch.float32, 1001, 777)
+    b = _randn(card, torch.float32, 1001, 777, seed=1)
+    call = lambda: st_kernel.stream_triad_cuda(a, b, 2.5)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    a.copy_(_randn(card, torch.float32, 1001, 777, seed=2))
+    b.copy_(_randn(card, torch.float32, 1001, 777, seed=3))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+    assert torch.equal(out, st_ref.stream_triad_ref(a, b, 2.5))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mkn", [(256, 512, 384), (257, 131, 129),
                                  (1, 7, 300), (333, 1, 257),
                                  (1000, 1000, 1028)])
@@ -689,8 +734,9 @@ def test_jacobi2d_kernel_is_exact(card, shape):
 @pytest.mark.parametrize("psv", [(256, 4, 512), (1000, 3, 1999), (97, 5, 33),
                                  (1, 1, 1)])
 def test_gridder_kernels_match_plain_and_are_adjoint(card, psv):
-    """Accurate sincosf against torch's sin and cos, sums in other
-    orders: the JAX tests' rtol 1e-4, atol 2e-3."""
+    """The gridder's SFU phasor and the degridder's accurate sincosf
+    against torch's sin and cos, sums in other orders: the JAX tests'
+    rtol 1e-4, atol 2e-3."""
     p, s, v = psv
     lm = _randn(card, torch.float32, p, 2).clamp(-0.5, 0.5)
     uv = 2.0 * _randn(card, torch.float32, s, v, 2, seed=1).clamp(-1, 1)
@@ -708,3 +754,40 @@ def test_gridder_kernels_match_plain_and_are_adjoint(card, psv):
     lhs = float((g.double() * sub.double()).sum())
     rhs = float((vis.double() * gt.double()).sum())
     assert abs(lhs - rhs) / max(abs(lhs), 1e-3) < 1e-3
+
+
+def _gridder_pair_at_reach(card, psv, reach):
+    p, s, v = psv
+    lm, uv = _chip_smoke().gridder_extremes(card, p, s, v, reach)
+    turns = (lm[None, :, None, :] * uv[:, None, :, :]).sum(-1)
+    assert float(turns.abs().max()) == reach
+    vis = _randn(card, torch.float32, s, v, 2, seed=2)
+    sub = _randn(card, torch.float32, s, p, 2, seed=3)
+    g = grid_ops.gridder(lm, uv, vis)
+    gt = grid_ops.degridder(lm, uv, sub)
+    torch.testing.assert_close(g, grid_ref.gridder_ref(lm, uv, vis),
+                               rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(gt, grid_ref.degridder_ref(lm, uv, sub),
+                               rtol=1e-4, atol=2e-3)
+    lhs = float((g.double() * sub.double()).sum())
+    rhs = float((vis.double() * gt.double()).sum())
+    assert abs(lhs - rhs) / max(abs(lhs), 1e-3) < 1e-3
+
+
+@pytest.mark.parametrize("psv", [(1100, 3, 2048), (37, 2, 2048)])
+def test_gridder_kernels_at_phase_extremes(card, psv):
+    """Phases at 4 pi, the Fig. 2 range: lm at the corners +-0.5 (and on
+    the edges, just inside the corners), uv at +-2 and just inside +-2
+    (non-integer turns near +-4 pi), V 2048.  The gridder's phasor is an
+    unreduced __sincosf on lm scaled by 2 pi; it stays within the JAX
+    tests' rtol 1e-4, atol 2e-3 of its plain version, and adjoint with the
+    degridder within 1e-3."""
+    _gridder_pair_at_reach(card, psv, 2.0)
+
+
+@pytest.mark.parametrize("psv", [(1100, 3, 2048), (37, 2, 2048)])
+def test_gridder_kernels_at_wide_phases(card, psv):
+    """As above with uv at +-16 (phases up to 32 pi, 16 turns), outside
+    the interval on which CUDA states __sincosf's error: the widest range
+    the gridder is held to, at the same tolerance."""
+    _gridder_pair_at_reach(card, psv, 16.0)

@@ -73,8 +73,9 @@ def test_card_columns_from_rows():
                     card_watts=450.0, card_joules=135.0,
                     flops=8.0 * s * v * p,
                     nbytes=4.0 * (2 * p + 4 * s * v + 2 * s * p),
-                    ops=36.0 * s * v * p)
-    degrid = dataclasses.replace(grid, name="DEGRIDDER")
+                    ops=12.0 * s * v * p, sfu=2.0 * s * v * p)
+    degrid = dataclasses.replace(grid, name="DEGRIDDER",
+                                 ops=36.0 * s * v * p, sfu=0.0)
     lines = {line.split()[0]: line
              for line in fig2.format_rows([sleep, row, stream, grid, degrid,
                                            gemm, jac])}
@@ -93,14 +94,22 @@ def test_card_columns_from_rows():
     model = pmt.EnergyModel().step_watts(2.0 * n * iters, 8.0 * n, 0.0,
                                          0.0041)
     assert fma[9] == f"{model:.1f}"
-    # gridder rows: 8 FLOP per term for the rate, 36 FP32 operations per
-    # term for the bound
+    # gridder rows: 8 FLOP per term for the rate; for the bound, the
+    # GRIDDER's 12 FP32 FLOP and 2 SFU instructions per term (the SFU
+    # bounds it: 2 / (16 x 132 x 1.98e9) s a term against 12 / 67e12),
+    # the DEGRIDDER's 36 FP32 FLOP per term
     g = lines["GRIDDER"].split()
     assert g[5:7] == [f"{8.0 * s * v * p / 0.003 / 1e12:.2f}", "TFLOP/s"]
     assert grid.bound_by == "operations"
-    assert grid.bound_s == pytest.approx(36.0 * s * v * p / 67e12)
+    sfu_s = 2.0 * s * v * p / (16 * 132 * 1.98e9)
+    assert sfu_s > 12.0 * s * v * p / 67e12
+    assert grid.bound_s == pytest.approx(sfu_s)
     assert g[7] == f"{100 * grid.bound_s / 0.003:.1f}%"
-    assert lines["DEGRIDDER"].split()[1:] == g[1:]
+    d = lines["DEGRIDDER"].split()
+    assert degrid.bound_by == "operations"
+    assert degrid.bound_s == pytest.approx(36.0 * s * v * p / 67e12)
+    assert d[1:7] == g[1:7]
+    assert d[7] == f"{100 * degrid.bound_s / 0.003:.1f}%"
 
 
 def test_gridder_rows_count_each_array_once():
@@ -110,7 +119,7 @@ def test_gridder_rows_count_each_array_once():
     p, s, v = fig2.SMOKE["gridder"]
     work = dict(fig2._workloads(torch.device("cpu"), fig2.SMOKE, 0))
     for name in ("GRIDDER", "DEGRIDDER"):
-        call, flops, nbytes, ops = work[name]()
+        call, flops, nbytes, ops, sfu = work[name]()
         out = call()
         assert out.dtype == torch.float32
         assert out.shape == ((s, p, 2) if name == "GRIDDER" else (s, v, 2))
@@ -118,4 +127,28 @@ def test_gridder_rows_count_each_array_once():
         assert nbytes == 4.0 * (2 * p + 2 * s * v + 2 * s * v + 2 * s * p)
         # the JAX bench's count is 4x this, less the lm array it leaves out
         assert 4.0 * (s * v * 4 + s * p * 2) * 4 == 4 * (nbytes - 8.0 * p)
-        assert ops == fig2.GRIDDER_OPS_PER_TERM * s * v * p
+        assert (ops, sfu) == tuple(n * s * v * p
+                                   for n in fig2.PHASOR_OPS[name])
+
+
+@pytest.mark.parametrize("name,flop,sfu", [("GRIDDER", 12, 2),
+                                           ("DEGRIDDER", 36, 0)])
+def test_phasor_counts_per_row(name, flop, sfu):
+    """GRIDDER's loop runs its phasor on the SFU (12 FP32 FLOP and 2 MUFU
+    a term); DEGRIDDER keeps the accurate sincosf, 36 FP32 FLOP a term and
+    no SFU.  Each row's bound is the larger pipe's, so neither reads over
+    its loop's work."""
+    assert fig2.PHASOR_OPS[name] == (flop, sfu)
+    assert fig2.GRIDDER_OPS_PER_TERM == 36
+    p, s, v = fig2.FULL["gridder"]
+    terms = s * v * p
+    row = fig2.Row(name=name, calls=1, seconds=1.0, host_watts=1.0,
+                   flops=8.0 * terms,
+                   nbytes=4.0 * (2 * p + 4 * s * v + 2 * s * p),
+                   ops=float(flop) * terms, sfu=float(sfu) * terms)
+    assert row.bound_by == "operations"
+    assert row.bound_s == pytest.approx(max(flop * terms / 67e12,
+                                            sfu * terms / fig2.SFU_OPS_PER_S))
+    # 16 a clock an SM x 132 SMs at the clock 67 TFLOP/s implies
+    assert fig2.SFU_OPS_PER_S == pytest.approx(16 * 67e12 / (128 * 2),
+                                               rel=2e-3)

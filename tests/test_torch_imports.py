@@ -74,7 +74,7 @@ _IMPORT = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "in_turn.py"]))
 def test_source_has_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.findall(text), f"{path} imports JAX or repro"
