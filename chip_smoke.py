@@ -19,13 +19,15 @@ Phases, in order; any failure exits nonzero:
      and its split count swept 1..16 at B1 and B8 (rows 3, 7).
      3b. the same for the six Fig. 2 kernels (FMA32, STREAM, GRIDDER,
      DEGRIDDER, GEMM, JACOBI2D) at the Fig. 2 path's shapes and at odd
-     ones (STREAM also at a ragged length and one element off its
-     alignment, exactly; the gridder pair also with phases at 4 pi), with
-     the gridder pair's adjoint identity on the card and its bound from
-     the FP32 operations and SFU instructions counted in the built loop
-     (``cuobjdump -sass``); the kernels redesigned for Hopper (bf16
-     prefill on ``mma.sync``, the f32 GEMM and flash-decode on the CUDA
-     cores, the STREAM triad, the gridder's phasor on the SFU) gated on
+     ones (STREAM and JACOBI2D also at ragged sizes and one element off
+     their alignment, exactly, JACOBI2D beside ``x.clone()``; the gridder
+     pair also one float off its alignment and with phases at 4 pi and
+     32 pi), with the gridder pair's adjoint identity on the card and its
+     bound from the FP32 operations and SFU instructions counted in the
+     built loop (``cuobjdump -sass``); the kernels redesigned for Hopper
+     (bf16 prefill on ``mma.sync``, the f32 GEMM and flash-decode on the
+     CUDA cores, the STREAM triad, the gridder's and the degridder's
+     phasor on the SFU, JACOBI2D's 16-byte loads and stores) gated on
      their SASS and on 0 bytes of ptxas spill.
      The three paged kernels (paged cache_update, decode and prefill
      attention) the same way, at the paged serve path's shapes and at
@@ -1243,27 +1245,55 @@ def check_gemm(kernel, ref, dev):
 
 
 def check_jacobi2d(kernel, ref, dev):
-    """Exact: the same sum in the same order, boundary cells copied."""
+    """Exact: the same sum in the same order, boundary cells copied; x
+    unchanged.  Cases: the Fig. 2 shape; odd ones (W % 4 != 0: the
+    element path); edges of the kernel's strips of ROWS rows and of its
+    warps' 128 columns; x one element into its storage (off the 16-byte
+    alignment: the element path at W % 4 == 0).  Times ``x.clone()``
+    beside the kernel (``copy_ms``): it moves the same 8 bytes a cell but
+    does not compute this function, so it is a ceiling, not the library
+    column."""
     results = {}
-    for name, shape in (("main 16384x16384", (16384, 16384)),
-                        ("odd 1001x777", (1001, 777)),
-                        ("thin 2x9", (2, 9))):
+    rows = kernel.ROWS
+    for name, shape, shift in (
+            ("main 16384x16384", (16384, 16384), False),
+            ("odd 1001x777", (1001, 777), False),
+            ("thin 2x9", (2, 9), False),
+            ("one 1x1", (1, 1), False),
+            (f"strips {rows + 1}x129", (rows + 1, 129), False),
+            (f"strips {2 * rows + 1}x513", (2 * rows + 1, 513), False),
+            (f"strips {rows - 1}x128", (rows - 1, 128), False),
+            (f"strips {rows}x516", (rows, 516), False),
+            ("misaligned 1001x780", (1001, 780), True),
+            ("misaligned 1001x777", (1001, 777), True)):
         x = _randn(dev, *shape, seed=10)
+        if shift:
+            x = misaligned(x)
+        keep = x.clone()
         got = kernel.jacobi2d_cuda(x)
         want = ref.jacobi2d_ref(x)
         torch.cuda.synchronize()
         err = max_err(got, want)
         log(f"  jacobi2d {name}: max |err| {err} (must be 0)")
-        if err != 0.0:
-            raise AssertionError("jacobi2d disagrees with its plain version")
+        if err != 0.0 or not torch.equal(x, keep):
+            raise AssertionError("jacobi2d disagrees with its plain version "
+                                 "or wrote x")
         if name.startswith("main"):
             n = x.numel()
+            # kernel, clone, clone, kernel: each the mean of its two
+            t = [time_ms(f) for f in (lambda: kernel.jacobi2d_cuda(x),
+                                      x.clone, x.clone,
+                                      lambda: kernel.jacobi2d_cuda(x))]
             results = {
-                "ms": time_ms(lambda: kernel.jacobi2d_cuda(x)),
+                "ms": (t[0] + t[3]) / 2, "copy_ms": (t[1] + t[2]) / 2,
                 "plain_ms": time_ms(lambda: ref.jacobi2d_ref(x)),
                 "library_ms": None, "max_abs_err": err}
             results["bound_ms"], results["bound_by"] = bound(
                 8.0 * n, 5.0 * n, torch.float32)
+            log(f"  jacobi2d {name}: kernel {results['ms']:.5f} ms, "
+                f"x.clone() {results['copy_ms']:.5f} ms (the kernel "
+                f"{results['ms'] / results['copy_ms']:.4f}x), bound "
+                f"{results['bound_ms']:.5f} ms")
     return results
 
 
@@ -1286,14 +1316,11 @@ def sass_ops_per_term(library: Path, kernel: str, marker: str) -> tuple:
     visibility) term in ``kernel``'s loop over staged elements, as
     ``cuobjdump -sass`` shows the built library: FFMA counts 2, FMUL and
     FADD 1.  The loop is the widest backward branch whose span holds no
-    barrier; the path through it is the one this run's data takes: every
-    forward branch inside it skips sincosf's slow path (argument
-    reduction for |phase| >= 105615, which reads its table from global
-    memory, checked), and phases here stay below 4 pi.  The terms on the
-    path are counted by ``marker``, an opcode each term runs once: F2I
-    (sincosf's quadrant) in the degridder, MUFU.SIN in the gridder.
-    Returns (FLOP per term, MUFU per term, counts of the opcodes on that
-    path, terms on it)."""
+    barrier; it must hold no forward branch (each trip runs every
+    instruction of its body, checked).  The terms in it are counted by
+    ``marker``, an opcode each term runs once (MUFU.SIN in the gridder and
+    the degridder).  Returns (FLOP per term, MUFU per term, counts of the
+    opcodes in the loop, terms in it)."""
     funcs = [text for name, text in sass_functions(library)
              if re.match(rf"\S*{kernel}", name)]
     if len(funcs) != 1:
@@ -1312,20 +1339,15 @@ def sass_ops_per_term(library: Path, kernel: str, marker: str) -> tuple:
              if not any(op.startswith("BAR") for a, op, _ in ins
                         if lo <= a <= hi)]
     lo, hi = max(loops, key=lambda span: span[1] - span[0])
-    counts, terms, i = {}, 0, at[lo]
-    while ins[i][0] <= hi:
-        a, op, args = ins[i]
+    counts, terms = {}, 0
+    for a, op, args in ins[at[lo]:at[hi] + 1]:
         to = target(args) if op == "BRA" else None
         if to is not None and to > a:
-            if not any(o.startswith("LDG") for b, o, _ in ins if a < b < to):
-                raise AssertionError(f"{kernel}: the branch at {a:#x} skips "
-                                     f"more than sincosf's slow path")
-            i = at[to]
-            continue
+            raise AssertionError(f"{kernel}: a forward branch at {a:#x} "
+                                 f"inside its loop")
         key = op.split(".")[0]
         counts[key] = counts.get(key, 0) + 1
         terms += op == marker or op.startswith(marker + ".")
-        i += 1
     if terms < 1:
         raise AssertionError(f"{kernel}: no {marker} in its loop")
     flop = 2 * counts.get("FFMA", 0) + counts.get("FMUL", 0) \
@@ -1360,19 +1382,21 @@ def gridder_extremes(dev, p: int, s: int, v: int,
 
 def check_gridder(kernel, ref, dev, library: Path):
     """Tolerance rtol 1e-4, atol 2e-3 (the JAX tests' own): the phasors
-    (the gridder's an unreduced __sincosf on the SFU, the degridder's
-    accurate sincosf) and torch's sin/cos round differently, and the
-    complex sums (up to ~200 in magnitude at V = 2048) run in other
-    orders.  The pair must be adjoint on the card within 1e-3 relative.
-    Cases: the Fig. 2 size, an odd one, phases at 4 pi (uv at +-2, the
-    Fig. 2 range: ``gridder_extremes``) and at 32 pi (uv at +-16, the
-    widest the gridder is held to), at V 2048.  Bound: bytes of each array once,
-    the FP32 operations per term counted in the built loop over 67
+    (both kernels' an unreduced __sincosf on the SFU) and torch's sin/cos
+    round differently, and the complex sums (up to ~200 in magnitude at
+    V = 2048) run in other orders.  The pair must be adjoint on the card
+    within 1e-3 relative.  Cases: the Fig. 2 size, an odd one, the odd
+    one with every input one float into its storage (``misaligned``: off
+    the 8-byte alignment of a float2 load), phases at 4 pi (uv at +-2,
+    the Fig. 2 range: ``gridder_extremes``) and at 32 pi (uv at +-16, the
+    widest the pair is held to), at V 2048.  Bound: bytes of each array
+    once, the FP32 operations per term counted in the built loop over 67
     TFLOP/s, and its SFU instructions per term over SFU_OPS_PER_S: the
     largest of the three."""
     results = {}
     for name, (p, s, v) in (("main P1024 S1024 V2048", (1024, 1024, 2048)),
                             ("odd P1000 S3 V1999", (1000, 3, 1999)),
+                            ("misaligned P1000 S3 V1999", (1000, 3, 1999)),
                             ("extremes P1100 S3 V2048", (1100, 3, 2048)),
                             ("wide P1100 S3 V2048 uv16", (1100, 3, 2048))):
         g = torch.Generator(device=dev).manual_seed(11)
@@ -1387,6 +1411,10 @@ def check_gridder(kernel, ref, dev, library: Path):
             top = 2 * math.pi * float(turns.abs().max())
             log(f"  {name}: max |phase| {top:.6g} (2 pi x {reach:g} = "
                 f"{2 * math.pi * reach:.6g})")
+        if name.startswith("misaligned"):
+            lm, uv, vis, sub = map(misaligned, (lm, uv, vis, sub))
+            if not all(t.data_ptr() % 8 for t in (lm, uv, vis, sub)):
+                raise AssertionError("the misaligned inputs are aligned")
         got = {"gridder": kernel.gridder_cuda(lm, uv, vis),
                "degridder": kernel.degridder_cuda(lm, uv, sub)}
         want = {"gridder": ref.gridder_ref(lm, uv, vis),
@@ -1419,7 +1447,7 @@ def check_gridder(kernel, ref, dev, library: Path):
                      "14gridder_kernel", "MUFU.SIN"),
                     ("degridder", lambda: kernel.degridder_cuda(lm, uv, sub),
                      lambda: ref.degridder_ref(lm, uv, sub),
-                     "16degridder_kernelILb1E", "F2I")):
+                     "16degridder_kernel", "MUFU.SIN")):
                 per_term, sfu, counts, n = sass_ops_per_term(
                     library, symbol, marker)
                 log(f"  {k}: {per_term:g} FP32 FLOP and {sfu:g} MUFU per "
@@ -1585,16 +1613,32 @@ REDESIGNS = (
      {"HMMA", "HGMMA"}),
     # the STREAM triad, unrolled 16-byte loads: float32, bf16
     ("stream_triad_kernel", "stream.cu", 2, {"LDG", "STG"}, set()),
-    # the gridder, its phasor on the SFU (MUFU.SIN, MUFU.COS)
+    # the gridder and the degridder, their phasor on the SFU (MUFU.SIN,
+    # MUFU.COS)
     ("14gridder_kernel", "gridder.cu", 1, {"MUFU", "FFMA"}, set()),
+    ("16degridder_kernel", "gridder.cu", 1, {"MUFU", "FFMA"}, set()),
+    # JACOBI2D's strip walk: 16-byte loads and stores (the 16-byte path)
+    # and the element path
+    ("jacobi2d_kernel", "jacobi2d.cu", 2, {"LDG", "STG"}, set()),
 )
 
 
 def check_redesigns(build) -> None:
     """The bf16 prefill kernels run on the tensor cores (their SASS holds
     HMMA), the GEMM and flash-decode kernels on the CUDA cores in float32
-    (FFMA, no HMMA or HGMMA), the gridder's phasor on the SFU (MUFU), and
-    none of them, nor the STREAM triad, spills a byte (ptxas)."""
+    (FFMA, no HMMA or HGMMA), the gridder's and the degridder's phasor on
+    the SFU (MUFU), JACOBI2D's 16-byte path loads and stores 16 bytes an
+    instruction (LDG and STG with a .128 width), and none of them, nor
+    the STREAM triad, spills a byte (ptxas)."""
+    wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
+             if ".128" in op}
+            for name, text in sass_functions(build.library_path())
+            if "jacobi2d_kernelILi4E" in name]
+    log(f"  jacobi2d_kernel<4> SASS: opcodes with a .128 width "
+        f"{[sorted(f) for f in wide]}")
+    if not (len(wide) == 1 and {"LDG", "STG"} <= wide[0]):
+        raise AssertionError("jacobi2d's 16-byte path does not load and "
+                             "store 16 bytes an instruction")
     for kernel, source, count, must, must_not in REDESIGNS:
         funcs = sass_opcodes(build.library_path(), kernel)
         usage = ptxas_usage(nvcc_log(build, source), kernel)
@@ -2884,6 +2928,7 @@ def main() -> int:
                "replaces": replaces, "launches": launches[name],
                **{k: t[k] for k in keys}}
         extras = ("graph_ms", "library_graph_ms", "backward_plain_ms",
+                  "copy_ms",
                   "ops_per_term", "sfu_per_term", "bound_fp32_ms",
                   "bound_sfu_ms", "bound_bytes_ms")
         row.update({k: t[k] for k in extras if k in t})

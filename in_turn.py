@@ -17,6 +17,9 @@ builds its kernels, then measures with this checkout's
     order kernel, add, add, kernel (and their ratio);
   * phase 3b's GRIDDER and DEGRIDDER at P 1024, S 1024, V 2048 with
     phase 6's ranges (lm in [-0.5, 0.5], uv in [-2, 2]), ``time_ms``;
+  * phase 3b's JACOBI2D at 16384^2 in float32 and ``x.clone()`` (the
+    same 8 bytes a cell moved, not the same function: a ceiling),
+    ``time_ms`` in the order kernel, clone, clone, kernel;
   * phase 3's row 2 on the serve path (``PREFILL_SERVE``: B 1, a
     32-token chunk over a 512-token prefix, 3 kv heads of 64, 3 query
     heads each, bf16): the chunked-prefill kernel by ``time_ms`` (host
@@ -71,6 +74,7 @@ from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 from repro_torch.kernels.gridder import kernel as grid_kernel
+from repro_torch.kernels.jacobi2d import kernel as jac_kernel
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel
 from repro_torch.kernels.stream import kernel as st_kernel
 from repro_torch.models import model as model_mod
@@ -107,6 +111,12 @@ sub = torch.randn((1024, 1024, 2), generator=g, device=dev)
 gridder_ms = smoke.time_ms(lambda: grid_kernel.gridder_cuda(lm, uv, vis))
 degridder_ms = smoke.time_ms(lambda: grid_kernel.degridder_cuda(lm, uv, sub))
 del lm, uv, vis, sub
+
+x = smoke._randn(dev, 16384, 16384, seed=10)
+jacobi = lambda: jac_kernel.jacobi2d_cuda(x)
+t = [smoke.time_ms(f) for f in (jacobi, x.clone, x.clone, jacobi)]
+jacobi2d_ms, copy_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+del x
 
 cs = smoke.PREFILL_SERVE
 args = smoke._prefill_inputs(dev, torch.bfloat16, *(cs[x] for x in (
@@ -177,7 +187,8 @@ print(json.dumps({
     "checkout": other, "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
     "stream_ms": stream_ms, "add_ms": add_ms,
     "stream_over_add": stream_ms / add_ms, "gridder_ms": gridder_ms,
-    "degridder_ms": degridder_ms,
+    "degridder_ms": degridder_ms, "jacobi2d_ms": jacobi2d_ms,
+    "copy_ms": copy_ms,
     "prefill_ms": prefill_ms, "prefill_graph_ms": prefill_graph_ms,
     "sdpa_graph_ms": sdpa_graph_ms, "decode_graph_ms": decode_graph_ms,
     "decode_sdpa_graph_ms": decode_sdpa_graph_ms,
@@ -194,15 +205,14 @@ print(json.dumps({
     "last_loss": run["losses"][-1]}))
 """
 KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
-        "gridder_ms",
-        "degridder_ms", "prefill_ms", "prefill_graph_ms",
-        "sdpa_graph_ms", "decode_graph_ms", "decode_sdpa_graph_ms",
-        "paged_decode_graph_ms", "quant_decode_graph_ms",
-        "quant_paged_decode_graph_ms", "serve_s", "serve_tokens_per_s",
-        "kernel_ms", "step_ms", "tokens_per_s", "j_per_step", "watts",
-        "busy_ms", "flash_share")
-WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "prefill_ms",
-       "prefill_graph_ms", "decode_graph_ms",
+        "gridder_ms", "degridder_ms", "jacobi2d_ms", "copy_ms",
+        "prefill_ms", "prefill_graph_ms", "sdpa_graph_ms", "decode_graph_ms",
+        "decode_sdpa_graph_ms", "paged_decode_graph_ms",
+        "quant_decode_graph_ms", "quant_paged_decode_graph_ms", "serve_s",
+        "serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
+        "j_per_step", "watts", "busy_ms", "flash_share")
+WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
+       "prefill_ms", "prefill_graph_ms", "decode_graph_ms",
        "paged_decode_graph_ms", "quant_decode_graph_ms",
        "quant_paged_decode_graph_ms", "serve_s", "kernel_ms", "step_ms")
 

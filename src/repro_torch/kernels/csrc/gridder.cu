@@ -65,38 +65,42 @@
 //  - Staging reads floats one at a time (any 4-byte alignment works);
 //    bytes do not bound this kernel.
 //
-// The degridder (first port): one visibility a thread and the accurate
-// sincosf, 36 FP32 FLOP a term (chip_smoke.py counts them in the built
-// loop); its redesign can take phasor() with lm scaled by TWO_PI.
+// The degridder (redesigned for Hopper) mirrors the gridder:
+//  - VPT visibilities a thread, DTHREADS apart (coalesced loads of uv and
+//    stores of out), their (u, v) and re/im sums in registers; 256
+//    threads x 8 visibilities make a block of 2048, and __launch_bounds__
+//    caps registers at 64 (4 blocks an SM).  The Fig. 2 grid (one block a
+//    subgrid) is 1024 blocks, 1.94 waves of 528.
+//  - The block stages its subgrid's pixels as one float4 each, (2 pi l,
+//    2 pi m, sub re, sub im): lm scaled by float32(2 pi) as the gridder
+//    scales it, so a term's phase is the gridder's to the bit.  Staging
+//    reads one float at a time (any 4-byte alignment works: a float2
+//    load of a view one float into its storage would fault), and one
+//    broadcast LDS.128 serves VPT terms.
+//  - A term's phase (2 pi l) u + (2 pi m) v is one FMUL and one FFMA, its
+//    phasor phasor(), and the conjugate sums 4 FFMA: 12 FP32 FLOP and 2
+//    MUFU a term, the gridder's count and bound (the SFU's).  Held to the
+//    same range: phases up to 32 pi at rtol 1e-4, atol 2e-3.
+//  - What bounds it: the SFU, as the gridder.  Timed by kernel_variants.py
+//    on an H100 80GB HBM3 at 700 W (10 rounds, medians): this design
+//    1.1121 ms (in turns with the first port, 1.1202 against 2.9232: one
+//    visibility a thread, the accurate sincosf, float2 loads).  Variants
+//    timed the same way and not kept: 64 and 128 threads 1.1163, 1.1152;
+//    512 threads 2.1704 (a block of 4096 visibilities leaves half its
+//    threads idle at V = 2048); 4 visibilities a thread 1.1431, 1.1456 at
+//    128 threads; (u, v) scaled by 2 pi in place of lm, at 128 threads
+//    1.1172 beside 1.1097 for 256 threads in another run (the same count,
+//    but a phase up to 2 ulps from the reference's at 4 pi).
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // degridder visibilities per block
 constexpr int CHUNK = 512;    // staged elements per trip: 8 KB of shared memory
 constexpr float TWO_PI = 6.28318530717958647692f;  // float32(2 pi), as the reference rounds it
 constexpr int GTHREADS = 128;  // gridder threads per block
 constexpr int PIX = 8;         // gridder pixels per thread
-
-// Copy n (re, im) pairs to shared memory: two pairs per 16-byte load
-// when `VEC` (src 16-byte aligned and n even, as the launch ensures),
-// else one pair per 8-byte load.
-template <bool VEC>
-__device__ __forceinline__ void stage(float2* __restrict__ dst, const float2* __restrict__ src,
-                                      int n) {
-  if (VEC) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (int i = threadIdx.x; i < n / 2; i += THREADS) d4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += THREADS) dst[i] = src[i];
-  }
-}
-
-__device__ __forceinline__ float phase_of(float2 lm, float2 uv) {
-  return TWO_PI * (lm.x * uv.x + lm.y * uv.y);
-}
+constexpr int DTHREADS = 256;  // degridder threads per block
+constexpr int VPT = 8;         // degridder visibilities per thread
 
 // exp(i phase) of a term, its phase in radians, on the SFU.
 __device__ __forceinline__ void phasor(float phase, float* sn, float* cs) {
@@ -151,50 +155,52 @@ __global__ void __launch_bounds__(GTHREADS, 1024 / GTHREADS)
   }
 }
 
-// Grid (S, ceil(V / THREADS)); thread = visibility.
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-    degridder_kernel(const float2* __restrict__ lm, const float2* __restrict__ uv,
-                     const float2* __restrict__ sub, float2* __restrict__ out, int P, int V) {
-  __shared__ __align__(16) float2 s_lm[CHUNK];
-  __shared__ __align__(16) float2 s_sub[CHUNK];
+// Grid (S, ceil(V / (DTHREADS * VPT))); a thread's visibilities are
+// DTHREADS apart.
+__global__ void __launch_bounds__(DTHREADS, 1024 / DTHREADS)
+    degridder_kernel(const float* __restrict__ lm, const float* __restrict__ uv,
+                     const float* __restrict__ sub, float2* __restrict__ out, int P, int V) {
+  __shared__ float4 s_p[CHUNK];  // (2 pi l, 2 pi m, sub re, sub im) of each staged pixel
   const long long s = blockIdx.x;
-  const int v = blockIdx.y * THREADS + threadIdx.x;
-  const float2 w = v < V ? uv[s * V + v] : make_float2(0.f, 0.f);
-  const float2* sub_s = sub + s * P;
-  float re = 0.f, im = 0.f;
+  const int v0 = blockIdx.y * (DTHREADS * VPT) + threadIdx.x;
+  const float* uv_s = uv + 2 * s * V;
+  float u[VPT], w[VPT], re[VPT], im[VPT];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = v0 + k * DTHREADS;
+    u[k] = v < V ? uv_s[2LL * v] : 0.f;
+    w[k] = v < V ? uv_s[2LL * v + 1] : 0.f;
+    re[k] = im[k] = 0.f;
+  }
+  const float* sub_s = sub + 2 * s * P;
   for (int c0 = 0; c0 < P; c0 += CHUNK) {
     const int n = min(CHUNK, P - c0);
+    __syncthreads();  // every lane is done with the previous chunk
+    for (int i = threadIdx.x; i < n; i += DTHREADS) {
+      const long long e = 2LL * (c0 + i);
+      s_p[i] = make_float4(lm[e] * TWO_PI, lm[e + 1] * TWO_PI, sub_s[e], sub_s[e + 1]);
+    }
     __syncthreads();
-    stage<VEC>(s_lm, lm + c0, n);
-    stage<VEC>(s_sub, sub_s + c0, n);
-    __syncthreads();
-#pragma unroll 4
+#pragma unroll 1
     for (int j = 0; j < n; ++j) {
-      const float2 xy = s_lm[j], g = s_sub[j];
-      float sn, cs;
-      sincosf(phase_of(xy, w), &sn, &cs);
-      // (g.re + i g.im) (cs - i sn)
-      re = fmaf(g.x, cs, re);
-      re = fmaf(g.y, sn, re);
-      im = fmaf(g.y, cs, im);
-      im = fmaf(-g.x, sn, im);
+      const float4 g = s_p[j];
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        float sn, cs;
+        phasor(__fmaf_rn(g.x, u[k], __fmul_rn(g.y, w[k])), &sn, &cs);
+        // (g.re + i g.im) (cs - i sn)
+        re[k] = fmaf(g.z, cs, re[k]);
+        re[k] = fmaf(g.w, sn, re[k]);
+        im[k] = fmaf(g.w, cs, im[k]);
+        im[k] = fmaf(-g.z, sn, im[k]);
+      }
     }
   }
-  if (v < V) out[s * V + v] = make_float2(re, im);
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-using Kernel = void (*)(const float2*, const float2*, const float2*, float2*, int, int);
-
-int launch(Kernel kernel, int S, int threads_axis, const void* a, const void* b, const void* c,
-           void* out, int P, int V, void* stream) {
-  const dim3 grid(S, (threads_axis + THREADS - 1) / THREADS);
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(a), static_cast<const float2*>(b),
-      static_cast<const float2*>(c), static_cast<float2*>(out), P, V);
-  return static_cast<int>(cudaGetLastError());
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = v0 + k * DTHREADS;
+    if (v < V) out[s * V + v] = make_float2(re[k], im[k]);
+  }
 }
 
 }  // namespace
@@ -216,9 +222,9 @@ extern "C" int pmt_gridder(const void* lm, const void* uv, const void* vis, void
 extern "C" int pmt_degridder(const void* lm, const void* uv, const void* sub, void* out, int S,
                              int P, int V, void* stream) {
   if (S == 0 || V == 0) return 0;
-  // a subgrid's chunks start 16-byte aligned, and hold an even count,
-  // when P is even
-  const bool vec = P % 2 == 0 && aligned16(lm) && aligned16(sub);
-  const Kernel k = vec ? static_cast<Kernel>(degridder_kernel<true>) : degridder_kernel<false>;
-  return launch(k, S, V, lm, uv, sub, out, P, V, stream);
+  const dim3 grid(S, (V + DTHREADS * VPT - 1) / (DTHREADS * VPT));
+  degridder_kernel<<<grid, DTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(lm), static_cast<const float*>(uv), static_cast<const float*>(sub),
+      static_cast<float2*>(out), P, V);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -9,7 +9,11 @@ from repro_torch.kernels import build
 gridder_launches = 0
 degridder_launches = 0
 
-_MAX_TILES = 65535 * 256      # gridDim.y limit times the block's threads
+# gridDim.y's limit times the elements of the thread axis a block covers:
+# the gridder's 128 threads x 8 pixels, the degridder's 256 threads x 8
+# visibilities (csrc/gridder.cu)
+_MAX_PIXELS = 65535 * 128 * 8
+_MAX_VISIBILITIES = 65535 * 256 * 8
 
 
 def _check(name: str, lm: torch.Tensor, uv: torch.Tensor,
@@ -37,13 +41,13 @@ def _check(name: str, lm: torch.Tensor, uv: torch.Tensor,
 def gridder_cuda(lm: torch.Tensor, uv: torch.Tensor,
                  vis: torch.Tensor) -> torch.Tensor:
     """lm (P, 2), uv (S, V, 2), vis (S, V, 2): contiguous float32 on the
-    card.  Returns new subgrids (S, P, 2).  The phasor is an unreduced
-    ``__sincosf`` (``csrc/gridder.cu``): the kernel is held to the plain
-    version's rtol 1e-4, atol 2e-3 for |l u + m v| up to 16 turns (phases
-    up to 32 pi); wider phases are not tested."""
+    card, at any 4-byte alignment.  Returns new subgrids (S, P, 2).  The
+    phasor is an unreduced ``__sincosf`` (``csrc/gridder.cu``): the kernel
+    is held to the plain version's rtol 1e-4, atol 2e-3 for |l u + m v|
+    up to 16 turns (phases up to 32 pi); wider phases are not tested."""
     global gridder_launches
     s, p, v = _check("gridder", lm, uv, vis, "V")
-    if p > _MAX_TILES:
+    if p > _MAX_PIXELS:
         raise ValueError(f"P = {p} is beyond the kernel's grid")
     out = torch.empty((s, p, 2), dtype=torch.float32, device=lm.device)
     err = build.library().pmt_gridder(
@@ -57,10 +61,14 @@ def gridder_cuda(lm: torch.Tensor, uv: torch.Tensor,
 def degridder_cuda(lm: torch.Tensor, uv: torch.Tensor,
                    subgrids: torch.Tensor) -> torch.Tensor:
     """lm (P, 2), uv (S, V, 2), subgrids (S, P, 2): contiguous float32 on
-    the card.  Returns new visibilities (S, V, 2)."""
+    the card, at any 4-byte alignment.  Returns new visibilities
+    (S, V, 2).  The phasor is the gridder's unreduced ``__sincosf``
+    (``csrc/gridder.cu``): the kernel is held to the plain version's rtol
+    1e-4, atol 2e-3 for |l u + m v| up to 16 turns (phases up to 32 pi);
+    wider phases are not tested."""
     global degridder_launches
     s, p, v = _check("degridder", lm, uv, subgrids, "P")
-    if v > _MAX_TILES:
+    if v > _MAX_VISIBILITIES:
         raise ValueError(f"V = {v} is beyond the kernel's grid")
     out = torch.empty((s, v, 2), dtype=torch.float32, device=lm.device)
     err = build.library().pmt_degridder(

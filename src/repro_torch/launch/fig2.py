@@ -58,16 +58,13 @@ FP32_FLOPS = 67e12
 # 132 SMs x 1.98 GHz, the boost clock the data sheet's 67 TFLOP/s implies
 # (67e12 / (132 x 128 lanes x 2 FLOP)).
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
-# FP32 FLOP per (subgrid, pixel, visibility) term of the degridder's loop
-# as compiled for sm_90a: 12 of the dot, the 2 pi scale and the complex
-# multiply-add, 24 of one accurate sincosf (11 FFMA, 2 FMUL).
-GRIDDER_OPS_PER_TERM = 36
-# Per row, (FP32 FLOP, SFU instructions) per term of its loop as compiled
-# for sm_90a; chip_smoke.py counts both from cuobjdump -sass of the built
-# library.  GRIDDER's phasor runs on the SFU: FMUL + FFMA of the phase
-# (lm scaled by 2 pi once), the FMUL.RZ of __sincosf's scaling to turns,
-# 4 FFMA of the multiply-add (12 FLOP), and MUFU.SIN + MUFU.COS.
-PHASOR_OPS = {"GRIDDER": (12, 2), "DEGRIDDER": (GRIDDER_OPS_PER_TERM, 0)}
+# Per row, (FP32 FLOP, SFU instructions) per (subgrid, pixel,
+# visibility) term of its loop as compiled for sm_90a; chip_smoke.py
+# counts both from cuobjdump -sass of the built library.  Both rows run
+# their phasor on the SFU: FMUL + FFMA of the phase (one operand scaled
+# by 2 pi once), the FMUL.RZ of __sincosf's scaling to turns, 4 FFMA of
+# the multiply-add (12 FLOP), and MUFU.SIN + MUFU.COS.
+PHASOR_OPS = {"GRIDDER": (12, 2), "DEGRIDDER": (12, 2)}
 ROW_NAMES = ("SLEEP", "FMA32", "STREAM", "GRIDDER", "DEGRIDDER", "GEMM",
              "JACOBI2D")
 # (FMA32 shape, iters), STREAM shape, gridder (P, S, V), GEMM (M, K, N),

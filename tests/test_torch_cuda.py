@@ -10,11 +10,12 @@ the quantizing scatters (codes and scales bit for bit); the quantized
 attention kernels hold the bf16 tolerance against their plain versions,
 which dequantize to the same float32 values.  Flash attention: TOL in
 fp32, and in bf16 2^-5 + 2e-5 (its plain oracle rounds the
-probabilities to bf16, the kernel keeps them to fp32 precision).  The Fig. 2
-kernels: STREAM and JACOBI2D exact, FMA32 within
-1e-6 relative, GEMM within 1e-5 of max |out|, GRIDDER and DEGRIDDER
-within rtol 1e-4 and atol 2e-3 (the JAX tests' own; also with phases at
-4 pi), their pair adjoint within 1e-3 relative.
+probabilities to bf16, the kernel keeps them to fp32 precision).  The
+Fig. 2 kernels: STREAM and JACOBI2D exact (also one element off their
+alignment), FMA32 within 1e-6 relative, GEMM within 1e-5 of max |out|,
+GRIDDER and DEGRIDDER within rtol 1e-4 and atol 2e-3 (the JAX tests'
+own; also with phases at 4 pi and 32 pi, and one float off their
+alignment), their pair adjoint within 1e-3 relative.
 """
 import pytest
 
@@ -41,6 +42,7 @@ from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
 from repro_torch.kernels.gridder import kernel as grid_kernel  # noqa: E402
 from repro_torch.kernels.gridder import ops as grid_ops  # noqa: E402
 from repro_torch.kernels.gridder import ref as grid_ref  # noqa: E402
+from repro_torch.kernels.jacobi2d import kernel as jac_kernel  # noqa: E402
 from repro_torch.kernels.jacobi2d import ops as jac_ops  # noqa: E402
 from repro_torch.kernels.jacobi2d import ref as jac_ref  # noqa: E402
 from repro_torch.kernels.stream import kernel as st_kernel  # noqa: E402
@@ -374,8 +376,9 @@ def test_decode_smem_bytes_is_the_kernels(card):
 
 def test_redesigned_kernels_sass_and_spills(card):
     """chip_smoke.py's gate: the bf16 prefill kernels hold HMMA, the GEMM
-    and flash-decode kernels FFMA and neither HMMA nor HGMMA, and ptxas
-    spills nothing in any of them."""
+    and flash-decode kernels FFMA and neither HMMA nor HGMMA, the gridder
+    and the degridder MUFU and FFMA, JACOBI2D 16-byte LDG and STG, and
+    ptxas spills nothing in any of them."""
     from repro_torch.kernels import build
     build.library()
     _chip_smoke().check_redesigns(build)
@@ -731,12 +734,38 @@ def test_jacobi2d_kernel_is_exact(card, shape):
     assert torch.equal(x, keep)
 
 
+def _jacobi_heights():
+    r = jac_kernel.ROWS
+    return sorted({1, 2, 3, 5, r - 1, r, r + 1, 2 * r + 1})
+
+
+@pytest.mark.parametrize("shift", [False, True])
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 15, 16, 17, 33, 127, 128, 129,
+                               513])
+def test_jacobi2d_kernel_edges_are_exact(card, w, shift):
+    """Heights at the edges of the kernel's strips of ROWS rows (1, 2, 3,
+    5, ROWS - 1, ROWS, ROWS + 1, 2 ROWS + 1), widths at the edges of its
+    float4 lanes and 128-column warps (W % 4 != 0 takes the element
+    path), x at its alignment or one element into its storage (off the
+    16-byte alignment: the element path): exact, x unchanged."""
+    for h in _jacobi_heights():
+        x = _randn(card, torch.float32, h, w, seed=h)
+        if shift:
+            x = _chip_smoke().misaligned(x)
+            assert x.data_ptr() % 16
+        keep = x.clone()
+        before = jac_kernel.launches
+        got = jac_ops.jacobi2d(x)
+        assert jac_kernel.launches == before + 1
+        assert torch.equal(got, jac_ref.jacobi2d_ref(x)), (h, w, shift)
+        assert torch.equal(x, keep)
+
+
 @pytest.mark.parametrize("psv", [(256, 4, 512), (1000, 3, 1999), (97, 5, 33),
                                  (1, 1, 1)])
 def test_gridder_kernels_match_plain_and_are_adjoint(card, psv):
-    """The gridder's SFU phasor and the degridder's accurate sincosf
-    against torch's sin and cos, sums in other orders: the JAX tests'
-    rtol 1e-4, atol 2e-3."""
+    """The pair's SFU phasor against torch's sin and cos, sums in other
+    orders: the JAX tests' rtol 1e-4, atol 2e-3."""
     p, s, v = psv
     lm = _randn(card, torch.float32, p, 2).clamp(-0.5, 0.5)
     uv = 2.0 * _randn(card, torch.float32, s, v, 2, seed=1).clamp(-1, 1)
@@ -774,14 +803,38 @@ def _gridder_pair_at_reach(card, psv, reach):
     assert abs(lhs - rhs) / max(abs(lhs), 1e-3) < 1e-3
 
 
+@pytest.mark.parametrize("psv", [(1000, 3, 1999), (97, 5, 33), (1, 1, 1)])
+def test_gridder_kernels_misaligned_inputs(card, psv):
+    """Every input one float into its storage (off the 8-byte alignment
+    of a float2 load; contiguous, so the wrappers take it): no fault, and
+    the pair within the JAX tests' rtol 1e-4, atol 2e-3 of its plain
+    version."""
+    p, s, v = psv
+    misaligned = _chip_smoke().misaligned
+    lm = misaligned(_randn(card, torch.float32, p, 2).clamp(-0.5, 0.5))
+    uv = misaligned(2.0 * _randn(card, torch.float32, s, v, 2,
+                                 seed=1).clamp(-1, 1))
+    vis = misaligned(_randn(card, torch.float32, s, v, 2, seed=2))
+    sub = misaligned(_randn(card, torch.float32, s, p, 2, seed=3))
+    assert all(t.data_ptr() % 8 for t in (lm, uv, vis, sub))
+    g = grid_ops.gridder(lm, uv, vis)
+    gt = grid_ops.degridder(lm, uv, sub)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(g, grid_ref.gridder_ref(lm, uv, vis),
+                               rtol=1e-4, atol=2e-3)
+    torch.testing.assert_close(gt, grid_ref.degridder_ref(lm, uv, sub),
+                               rtol=1e-4, atol=2e-3)
+
+
 @pytest.mark.parametrize("psv", [(1100, 3, 2048), (37, 2, 2048)])
 def test_gridder_kernels_at_phase_extremes(card, psv):
     """Phases at 4 pi, the Fig. 2 range: lm at the corners +-0.5 (and on
     the edges, just inside the corners), uv at +-2 and just inside +-2
-    (non-integer turns near +-4 pi), V 2048.  The gridder's phasor is an
-    unreduced __sincosf on lm scaled by 2 pi; it stays within the JAX
-    tests' rtol 1e-4, atol 2e-3 of its plain version, and adjoint with the
-    degridder within 1e-3."""
+    (non-integer turns near +-4 pi), V 2048.  The pair's phasor is an
+    unreduced __sincosf (the gridder's on lm scaled by 2 pi, the
+    degridder's on uv scaled by 2 pi); both stay within the JAX tests'
+    rtol 1e-4, atol 2e-3 of their plain versions, and adjoint within
+    1e-3."""
     _gridder_pair_at_reach(card, psv, 2.0)
 
 
@@ -789,5 +842,5 @@ def test_gridder_kernels_at_phase_extremes(card, psv):
 def test_gridder_kernels_at_wide_phases(card, psv):
     """As above with uv at +-16 (phases up to 32 pi, 16 turns), outside
     the interval on which CUDA states __sincosf's error: the widest range
-    the gridder is held to, at the same tolerance."""
+    the pair is held to, at the same tolerance."""
     _gridder_pair_at_reach(card, psv, 16.0)

@@ -74,8 +74,7 @@ def test_card_columns_from_rows():
                     flops=8.0 * s * v * p,
                     nbytes=4.0 * (2 * p + 4 * s * v + 2 * s * p),
                     ops=12.0 * s * v * p, sfu=2.0 * s * v * p)
-    degrid = dataclasses.replace(grid, name="DEGRIDDER",
-                                 ops=36.0 * s * v * p, sfu=0.0)
+    degrid = dataclasses.replace(grid, name="DEGRIDDER")
     lines = {line.split()[0]: line
              for line in fig2.format_rows([sleep, row, stream, grid, degrid,
                                            gemm, jac])}
@@ -94,10 +93,9 @@ def test_card_columns_from_rows():
     model = pmt.EnergyModel().step_watts(2.0 * n * iters, 8.0 * n, 0.0,
                                          0.0041)
     assert fma[9] == f"{model:.1f}"
-    # gridder rows: 8 FLOP per term for the rate; for the bound, the
-    # GRIDDER's 12 FP32 FLOP and 2 SFU instructions per term (the SFU
-    # bounds it: 2 / (16 x 132 x 1.98e9) s a term against 12 / 67e12),
-    # the DEGRIDDER's 36 FP32 FLOP per term
+    # gridder rows: 8 FLOP per term for the rate; for the bound, each
+    # row's 12 FP32 FLOP and 2 SFU instructions per term (the SFU bounds
+    # it: 2 / (16 x 132 x 1.98e9) s a term against 12 / 67e12)
     g = lines["GRIDDER"].split()
     assert g[5:7] == [f"{8.0 * s * v * p / 0.003 / 1e12:.2f}", "TFLOP/s"]
     assert grid.bound_by == "operations"
@@ -107,7 +105,7 @@ def test_card_columns_from_rows():
     assert g[7] == f"{100 * grid.bound_s / 0.003:.1f}%"
     d = lines["DEGRIDDER"].split()
     assert degrid.bound_by == "operations"
-    assert degrid.bound_s == pytest.approx(36.0 * s * v * p / 67e12)
+    assert degrid.bound_s == pytest.approx(sfu_s)
     assert d[1:7] == g[1:7]
     assert d[7] == f"{100 * degrid.bound_s / 0.003:.1f}%"
 
@@ -132,14 +130,12 @@ def test_gridder_rows_count_each_array_once():
 
 
 @pytest.mark.parametrize("name,flop,sfu", [("GRIDDER", 12, 2),
-                                           ("DEGRIDDER", 36, 0)])
+                                           ("DEGRIDDER", 12, 2)])
 def test_phasor_counts_per_row(name, flop, sfu):
-    """GRIDDER's loop runs its phasor on the SFU (12 FP32 FLOP and 2 MUFU
-    a term); DEGRIDDER keeps the accurate sincosf, 36 FP32 FLOP a term and
-    no SFU.  Each row's bound is the larger pipe's, so neither reads over
-    its loop's work."""
+    """Both rows' loops run their phasor on the SFU (12 FP32 FLOP and 2
+    MUFU a term).  Each row's bound is the larger pipe's (the SFU's), so
+    neither reads over its loop's work."""
     assert fig2.PHASOR_OPS[name] == (flop, sfu)
-    assert fig2.GRIDDER_OPS_PER_TERM == 36
     p, s, v = fig2.FULL["gridder"]
     terms = s * v * p
     row = fig2.Row(name=name, calls=1, seconds=1.0, host_watts=1.0,

@@ -1,7 +1,9 @@
-"""The CUDA gridder's phasor (``csrc/gridder.cu``), emulated on the CPU.
+"""The CUDA gridder's and degridder's phasor (``csrc/gridder.cu``),
+emulated on the CPU.
 
-The kernel scales each pixel's (l, m) by float32(2 pi) once, so a term's
-phase in radians is ``fmaf(2 pi l, u, (2 pi m) * v)``, and runs
+Both kernels scale each pixel's (l, m) by float32(2 pi) (the gridder
+once a thread, the degridder as it stages the pixel), so a term's phase
+in radians is ``fmaf(2 pi l, u, (2 pi m) * v)`` in both, and both run
 ``__sincosf(phase)``, which nvcc builds as a round-toward-zero multiply
 by float32(1 / 2 pi) and MUFU.SIN / MUFU.COS (absolute error at most
 2^-21.41 on [-pi, pi]: CUDA C++ Programming Guide, intrinsic functions).
@@ -21,7 +23,13 @@ that bound, and held to:
   the signs that push every term of the real sums the same way;
 - the same at phases up to 32 pi (uv at and just inside +-16), outside
   [-pi, pi], where the phase is not reduced before the SFU: the widest
-  range the kernel is held to.
+  range the kernel is held to;
+- the phase at 32 pi (uv in [-16, 16]) within one float32 ulp there
+  (2^-17) of the reference's;
+- the degridder likewise: its conjugate sums over P (the Fig. 2 P of
+  1024) in the kernel's order against the JAX ``degridder_ref`` at 4 pi
+  and 32 pi, with the SFU's error at 0, at random signs, and aligned
+  with every term.
 
 The card's own MUFU is not modelled beyond its stated bound (taken on
 the fraction of a turn it is given, at any phase); the ``cuda`` tests
@@ -35,6 +43,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels.gridder import degridder_ref as jax_degridder_ref  # noqa: E402,E501
 from repro.kernels.gridder import gridder_ref as jax_gridder_ref  # noqa: E402
 
 F32, F64 = np.float32, np.float64
@@ -87,6 +96,19 @@ def test_phase_within_an_ulp_of_the_reference():
     got, want = kernel_phase(l, m, u, v), reference_phase(l, m, u, v)
     assert float(np.abs(want).max()) == pytest.approx(4 * math.pi)
     assert np.abs(got.astype(F64) - want).max() <= 2.0 ** -20
+
+
+def test_phase_at_32_pi_within_an_ulp_of_the_reference():
+    """uv in [-16, 16], the widest range the pair is held to: phases up
+    to 32 pi, where a float32 ulp is 2^-17."""
+    rng = np.random.default_rng(1)
+    l, m = (rng.uniform(-0.5, 0.5, 1_000_000).astype(F32) for _ in range(2))
+    u, v = (rng.uniform(-16.0, 16.0, 1_000_000).astype(F32)
+            for _ in range(2))
+    l[0], m[0], u[0], v[0] = 0.5, -0.5, 16.0, -16.0
+    got, want = kernel_phase(l, m, u, v), reference_phase(l, m, u, v)
+    assert float(np.abs(want).max()) == pytest.approx(32 * math.pi)
+    assert np.abs(got.astype(F64) - want).max() <= 2.0 ** -17
 
 
 def test_phasor_within_2_5e6_of_the_reference():
@@ -163,3 +185,54 @@ def test_emulated_gridder_at_4_pi_matches_jax(sfu_error):
 @pytest.mark.parametrize("sfu_error", ["none", "random", "aligned"])
 def test_emulated_gridder_at_32_pi_matches_jax(sfu_error):
     _emulated_against_jax(sfu_error, 16.0)
+
+
+def emulated_degridder(lm, uv, sub, sfu_error: str, rng):
+    """The kernel's degridder in float32: the phase by one FMUL and one
+    FFMA on lm scaled by TWO_PI (the gridder's), the SFU phasor, and each
+    visibility's conjugate sums over P in order, 4 FMAs a term."""
+    s, v, _ = uv.shape
+    re = np.zeros((s, v), F32)
+    im = np.zeros_like(re)
+    u, w = uv[:, :, 0], uv[:, :, 1]
+    fma = lambda a, b, c: (a.astype(F64) * b + c).astype(F32)  # noqa: E731
+    for j in range(lm.shape[0]):
+        l, m = lm[j, 0], lm[j, 1]
+        gr, gi = sub[:, j, 0][:, None], sub[:, j, 1][:, None]
+        sn, cs = sfu_phasor(kernel_phase(np.full_like(u, l),
+                                         np.full_like(w, m), u, w))
+        if sfu_error == "aligned":    # every term of re moved one way
+            cs = cs + SFU_ERR * np.sign(gr)
+            sn = sn + SFU_ERR * np.sign(gi)
+        elif sfu_error == "random":
+            cs = cs + SFU_ERR * rng.choice([-1.0, 1.0], cs.shape)
+            sn = sn + SFU_ERR * rng.choice([-1.0, 1.0], sn.shape)
+        cs, sn = cs.astype(F32), sn.astype(F32)
+        re = fma(gr, cs, re)
+        re = fma(gi, sn, re)
+        im = fma(gi, cs, im)
+        im = fma(-gr, sn, im)
+    return np.stack([re, im], axis=-1)
+
+
+def _emulated_degridder_against_jax(sfu_error, reach):
+    rng = np.random.default_rng(22)
+    p, s, v = 1024, 2, 48
+    lm, uv = _extremes(rng, p, s, v, reach)
+    assert np.abs((lm[None, :, None, :] * uv[:, None, :, :]).sum(-1)).max() \
+        == reach
+    sub = rng.standard_normal((s, p, 2)).astype(F32)
+    got = emulated_degridder(lm, uv, sub, sfu_error, rng)
+    np.testing.assert_allclose(
+        got, np.asarray(jax_degridder_ref(lm, uv, sub)), rtol=1e-4,
+        atol=2e-3)
+
+
+@pytest.mark.parametrize("sfu_error", ["none", "random", "aligned"])
+def test_emulated_degridder_at_4_pi_matches_jax(sfu_error):
+    _emulated_degridder_against_jax(sfu_error, 2.0)
+
+
+@pytest.mark.parametrize("sfu_error", ["none", "random", "aligned"])
+def test_emulated_degridder_at_32_pi_matches_jax(sfu_error):
+    _emulated_degridder_against_jax(sfu_error, 16.0)
