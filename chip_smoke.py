@@ -568,13 +568,12 @@ def check_prefill(kernel, ref, dev, mode=None):
                     "library_ms": None if mode else library_time(sdpa),
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
-                if not mode:
-                    tm.update(device_times(
-                        lambda: kernel.prefill_attention_cuda(
-                            q, kx, vx, kc, vc, offs, **kw), sdpa,
-                        tm["library_ms"]))
-                    log(f"  prefill_attention {name}: device time a call "
-                        f"(CUDA graph) {tm_graph(tm, 'SDPA')}")
+                tm.update(device_times(
+                    lambda: kernel.prefill_attention_cuda(
+                        q, kx, vx, kc, vc, offs, **kw), sdpa,
+                    tm["library_ms"]))
+                log(f"  prefill_attention {mode or ''} {name}: device time "
+                    f"a call (CUDA graph) {tm_graph(tm, 'SDPA')}")
                 results = dict(tm, max_abs_err=err)
     return results
 
@@ -1020,6 +1019,28 @@ def sweep_decode_splits(kernel, ref, dev) -> None:
             f"{n}: {ms:.5f}" for n, ms in by_n.items()) + " ms (CUDA graph)")
 
 
+# Row 8's case on the serve path: 8 slots of which 2 prefill a 32-token
+# chunk (over 256 and 480 cached positions) and 6 ride along with offset
+# 0, over pools of 16-token pages (smollm-135m's 3 kv heads of 64).
+PAGED_PREFILL_SERVE = dict(p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
+                           offs=[256, 0, 0, 0, 480, 0, 0, 0], window=None,
+                           softcap=None)
+
+
+def _paged_prefill_inputs(dev, dt, cs):
+    """(q, kx, vx, k_pool, v_pool, page_table, offs) of a paged prefill
+    case ``cs``."""
+    p, ps, b, t, nb, kvh, g, hd = (cs[x] for x in (
+        "p", "ps", "b", "t", "nb", "kvh", "g", "hd"))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dt)
+    q, kx, vx = mk(b, kvh, t, g, hd), mk(b, t, kvh, hd), mk(b, t, kvh, hd)
+    kp, vp = mk(p, ps, kvh, hd), mk(p, ps, kvh, hd)
+    table = _page_table(dev, b, nb, p, 17, cs.get("masked", ()))
+    offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
+    return q, kx, vx, kp, vp, table, offs
+
+
 def check_paged_prefill(kernel, ref, dev, mode=None):
     """Tolerance TOL.  Offsets at, just before and just past a page
     boundary, and 0 (no cache page read).  With ``mode`` the pools hold
@@ -1029,9 +1050,7 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
             p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
             offs=[0, 1, 15, 16, 17, 512, 992, 300], window=None,
             softcap=None),
-        "serve path: 2 prefilling rows, 6 passengers": dict(
-            p=513, ps=16, b=8, t=32, nb=64, kvh=3, g=3, hd=64,
-            offs=[256, 0, 0, 0, 480, 0, 0, 0], window=None, softcap=None),
+        "serve path: 2 prefilling rows, 6 passengers": PAGED_PREFILL_SERVE,
         "softcap 30 ps8 T16": dict(
             p=513, ps=8, b=8, t=16, nb=64, kvh=3, g=3, hd=64,
             offs=[0, 7, 8, 9, 100, 256, 497, 300], window=None,
@@ -1053,16 +1072,10 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
     results = {}
     for name, cs in cases.items():
         for dt in (torch.float32, torch.bfloat16):
-            p, ps, b, t, nb, kvh, g, hd = (cs[x] for x in (
-                "p", "ps", "b", "t", "nb", "kvh", "g", "hd"))
-            gen = torch.Generator(device=dev).manual_seed(16)
-            mk = lambda *sh: torch.randn(sh, generator=gen,
-                                         device=dev).to(dt)
-            q, kx, vx = mk(b, kvh, t, g, hd), mk(b, t, kvh, hd), \
-                mk(b, t, kvh, hd)
-            kp, vp = mk(p, ps, kvh, hd), mk(p, ps, kvh, hd)
-            table = _page_table(dev, b, nb, p, 17, cs.get("masked", ()))
-            offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
+            ps, b, t, nb, kvh, g, hd = (cs[x] for x in (
+                "ps", "b", "t", "nb", "kvh", "g", "hd"))
+            q, kx, vx, kp, vp, table, offs = _paged_prefill_inputs(dev, dt,
+                                                                   cs)
             scale = 1.0 / math.sqrt(hd)
             kw = dict(window=cs["window"], softcap=cs["softcap"],
                       scale=scale)
@@ -1096,12 +1109,10 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
                     "library_ms": None,
                 }
                 tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
-                if not mode:
-                    tm["graph_ms"] = graph_ms(
-                        lambda: kernel.prefill_attention_paged_cuda(
-                            *args, **kw))
-                    log(f"  prefill_attention_paged {name}: device time a "
-                        f"call (CUDA graph) {tm_graph(tm)}")
+                tm["graph_ms"] = graph_ms(
+                    lambda: kernel.prefill_attention_paged_cuda(*args, **kw))
+                log(f"  prefill_attention_paged {mode or ''} {name}: device "
+                    f"time a call (CUDA graph) {tm_graph(tm)}")
                 log("  prefill_attention_paged: library none (no single "
                     "PyTorch call reads a paged cache)")
                 results = dict(tm, max_abs_err=err)
@@ -1603,8 +1614,9 @@ def nvcc_log(build, source: str) -> str:
 # built library, source, how many instantiations, SASS that must be there
 # and SASS that must not.
 REDESIGNS = (
-    # bf16 chunked prefill on mma.sync: D 32, 64, 128 x contiguous, paged
-    ("prefill_tc_kernel", "prefill_attention.cu", 6, {"HMMA"}, set()),
+    # chunked prefill on mma.sync, bf16 q: D 32, 64, 128 x contiguous,
+    # paged x a cache of bf16, int8 or fp8_e4m3
+    ("prefill_tc_kernel", "prefill_attention.cu", 18, {"HMMA"}, set()),
     # float32 GEMM on the CUDA cores: float32 and bf16 x 16-byte, ragged
     ("gemm_kernel", "gemm.cu", 4, {"FFMA"}, {"HMMA", "HGMMA"}),
     # flash-decode on the CUDA cores, split-KV: float32, bf16, int8, fp8
@@ -1624,12 +1636,13 @@ REDESIGNS = (
 
 
 def check_redesigns(build) -> None:
-    """The bf16 prefill kernels run on the tensor cores (their SASS holds
-    HMMA), the GEMM and flash-decode kernels on the CUDA cores in float32
-    (FFMA, no HMMA or HGMMA), the gridder's and the degridder's phasor on
-    the SFU (MUFU), JACOBI2D's 16-byte path loads and stores 16 bytes an
-    instruction (LDG and STG with a .128 width), and none of them, nor
-    the STREAM triad, spills a byte (ptxas)."""
+    """The tensor-core prefill kernels (bf16 q over bf16 or codes) run on
+    the tensor cores (their SASS holds HMMA), the GEMM and flash-decode
+    kernels on the CUDA cores in float32 (FFMA, no HMMA or HGMMA), the
+    gridder's and the degridder's phasor on the SFU (MUFU), JACOBI2D's
+    16-byte path loads and stores 16 bytes an instruction (LDG and STG
+    with a .128 width), and none of them, nor the STREAM triad, spills a
+    byte (ptxas)."""
     wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
              if ".128" in op}
             for name, text in sass_functions(build.library_path())

@@ -24,7 +24,11 @@ builds its kernels, then measures with this checkout's
     32-token chunk over a 512-token prefix, 3 kv heads of 64, 3 query
     heads each, bf16): the chunked-prefill kernel by ``time_ms`` (host
     in the loop) and by ``graph_ms`` (100 calls in one CUDA graph: device
-    time), and its SDPA yardstick by ``graph_ms``;
+    time), and its SDPA yardstick by ``graph_ms``; row 2q, the same over
+    the prefix in int8 codes, and rows 8 and 8q, the paged kernel on
+    ``PAGED_PREFILL_SERVE`` (8 slots, 2 prefilling a 32-token chunk over
+    256 and 480 cached positions, pages of 16) over bf16 and int8 pools,
+    by ``graph_ms``;
   * phase 3's rows 3 and 7 on the serve path (``DECODE_SERVE``: 8 decode
     rows over a 1024-slot cache, 3 kv heads of 64, 3 query heads each,
     bf16; ``PAGED_DECODE_SERVE``: the same over 64 pages of 16 a row,
@@ -128,7 +132,20 @@ prefill_ms = smoke.time_ms(prefill)
 prefill_graph_ms = smoke.graph_ms(prefill)
 sdpa_graph_ms = smoke.graph_ms(smoke.prefill_sdpa(*args, cs["offs"][0],
                                                   scale))
-del args
+(kq, ks), (vq, vs) = smoke.quantized("int8", args[3], args[4])
+quant_prefill_graph_ms = smoke.graph_ms(
+    lambda: pa_kernel.prefill_attention_cuda(
+        *args[:3], kq, vq, offs, scale=scale, k_scale=ks, v_scale=vs))
+q, kx, vx, kp, vp, table, offs = smoke._paged_prefill_inputs(
+    dev, torch.bfloat16, smoke.PAGED_PREFILL_SERVE)
+paged_prefill_graph_ms = smoke.graph_ms(
+    lambda: pa_kernel.prefill_attention_paged_cuda(q, kx, vx, kp, vp, table,
+                                                   offs, scale=scale))
+(kq, ks), (vq, vs) = smoke.quantized("int8", kp, vp)
+quant_paged_prefill_graph_ms = smoke.graph_ms(
+    lambda: pa_kernel.prefill_attention_paged_cuda(
+        q, kx, vx, kq, vq, table, offs, scale=scale, k_scale=ks, v_scale=vs))
+del args, q, kx, vx, kp, vp, kq, vq
 
 cs = smoke.DECODE_SERVE
 q, k, v = smoke._decode_inputs(dev, torch.bfloat16, *(cs[x] for x in (
@@ -190,7 +207,11 @@ print(json.dumps({
     "degridder_ms": degridder_ms, "jacobi2d_ms": jacobi2d_ms,
     "copy_ms": copy_ms,
     "prefill_ms": prefill_ms, "prefill_graph_ms": prefill_graph_ms,
-    "sdpa_graph_ms": sdpa_graph_ms, "decode_graph_ms": decode_graph_ms,
+    "sdpa_graph_ms": sdpa_graph_ms,
+    "quant_prefill_graph_ms": quant_prefill_graph_ms,
+    "paged_prefill_graph_ms": paged_prefill_graph_ms,
+    "quant_paged_prefill_graph_ms": quant_paged_prefill_graph_ms,
+    "decode_graph_ms": decode_graph_ms,
     "decode_sdpa_graph_ms": decode_sdpa_graph_ms,
     "paged_decode_graph_ms": paged_decode_graph_ms,
     "quant_decode_graph_ms": quant_decode_graph_ms,
@@ -206,13 +227,17 @@ print(json.dumps({
 """
 KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
         "gridder_ms", "degridder_ms", "jacobi2d_ms", "copy_ms",
-        "prefill_ms", "prefill_graph_ms", "sdpa_graph_ms", "decode_graph_ms",
+        "prefill_ms", "prefill_graph_ms", "sdpa_graph_ms",
+        "quant_prefill_graph_ms", "paged_prefill_graph_ms",
+        "quant_paged_prefill_graph_ms", "decode_graph_ms",
         "decode_sdpa_graph_ms", "paged_decode_graph_ms",
         "quant_decode_graph_ms", "quant_paged_decode_graph_ms", "serve_s",
         "serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
         "j_per_step", "watts", "busy_ms", "flash_share")
 WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
-       "prefill_ms", "prefill_graph_ms", "decode_graph_ms",
+       "prefill_ms", "prefill_graph_ms", "quant_prefill_graph_ms",
+       "paged_prefill_graph_ms", "quant_paged_prefill_graph_ms",
+       "decode_graph_ms",
        "paged_decode_graph_ms", "quant_decode_graph_ms",
        "quant_paged_decode_graph_ms", "serve_s", "kernel_ms", "step_ms")
 

@@ -1,26 +1,35 @@
-"""Time design variants of the DEGRIDDER and JACOBI2D kernels on one card.
+"""Time design variants of the DEGRIDDER, JACOBI2D and tensor-core
+chunked-prefill kernels on one card.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [NAME_PREFIX ...]
 
 Each variant is a shipped source of ``src/repro_torch/kernels/csrc``
-(``gridder.cu``, ``jacobi2d.cu``) with some of its ``constexpr int``
-constants set to other values, so the sources carry no knobs.  Every
-variant is built alone (``build.NVCC_FLAGS``, one ``nvcc`` each, all
-started together) into the git-ignored ``build/variants/``, loaded with
-``ctypes``, checked against the plain version once (the degridder within
-rtol 1e-4, atol 2e-3; JACOBI2D exactly) and timed with ``chip_smoke``'s
-``time_ms`` at the Fig. 2 sizes (the degridder at P 1024, S 1024, V 2048
-with lm in [-0.5, 0.5] and uv in [-2, 2]; JACOBI2D at 16384^2 f32, beside
-``x.clone()``, which moves the same bytes).  ROUNDS rounds, each variant
-once a round, the order rotated round by round.  Prints the card's name
-and power limit, each variant's registers and spills (ptxas), then one
-JSON line a variant: median and quartiles of its ms.  Imports nothing of
-JAX; needs one card.
+(``gridder.cu``, ``jacobi2d.cu``, ``prefill_attention.cu``) with some of
+its ``constexpr int`` constants set to other values, or with a passage
+replaced by another design of the same function, so the sources carry no
+knobs.  Every variant is built alone (``build.NVCC_FLAGS``, one ``nvcc``
+each, all started together) into the git-ignored ``build/variants/``,
+loaded with ``ctypes``, checked against the plain version once (the
+degridder within rtol 1e-4, atol 2e-3; JACOBI2D exactly; prefill within
+``chip_smoke.TOL[bf16]``) and timed with ``chip_smoke``'s ``time_ms`` at
+the Fig. 2 sizes (the degridder at P 1024, S 1024, V 2048 with lm in
+[-0.5, 0.5] and uv in [-2, 2]; JACOBI2D at 16384^2 f32, beside
+``x.clone()``, which moves the same bytes), or its ``graph_ms`` (100
+calls in a CUDA graph) for prefill at row 2's serve-path case
+(``PREFILL_SERVE``), once with a bf16 cache (row 2) and once with the
+prefix in int8 codes (row 2q).  ROUNDS rounds, each call once a round, the
+order rotated round by round.  With name prefixes, only the variants
+whose names start with one of them.  Prints the card's name and power
+limit, each variant's registers and spills (ptxas), then one JSON line a
+call: median and quartiles of its ms.  Imports nothing of JAX; needs one
+card.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -29,7 +38,63 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ROUNDS = 10
-# name -> (source, entry point, {constant: value}); {} is the shipped design
+# The tensor-core prefill kernel with the key operand of S = q . k^T built
+# from a cache tile's codes in registers (two codes of one key row, two
+# bytes, per bf16 pair of the B fragment) in place of ldmatrix over the
+# tile widened in shared memory; the block's pass then widens v alone.
+K_FROM_CODES = (
+    ("""          uint32_t kb[4];
+          ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                              ((lane >> 3) & 1) * 8);""",
+     """          uint32_t kb[4];
+          if (kCodes && i < n_cache) {
+            const uint8_t* kr = kcs + ((i % kStages) * kKT + np * 16 + (lane >> 2)) * CP +
+                                kk * 16 + tq * 2;
+            kb[0] = widen2<TC>(*reinterpret_cast<const uint16_t*>(kr));
+            kb[1] = widen2<TC>(*reinterpret_cast<const uint16_t*>(kr + 8));
+            kb[2] = widen2<TC>(*reinterpret_cast<const uint16_t*>(kr + 8 * CP));
+            kb[3] = widen2<TC>(*reinterpret_cast<const uint16_t*>(kr + 8 * CP + 8));
+          } else {
+            ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                                ((lane >> 3) & 1) * 8);
+          }"""),
+    ("for (int u = tid; u < 2 * kKT * kUnits; u += nthreads)",
+     "for (int u = kKT * kUnits + tid; u < 2 * kKT * kUnits; u += nthreads)"),
+)
+# The same with a code tile widened one iteration ahead: at iteration i
+# the block waits for tiles i and i + 1, then widens tile i + 1 while it
+# computes tile i, so no cache tile but the first costs a barrier more
+# (one tile, not two, is in flight during a tile's compute).
+WIDEN_AHEAD = ((
+    """      if (i + 1 < ntiles)  // tile i + 1 may still be in flight
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      // tile i is in for every thread, and every warp is done with tile
+      // i - 1, whose slot tile i + 2 now takes
+      __syncthreads();
+      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
+      if constexpr (kCodes) {
+        if (i < n_cache) {  // a cache tile's codes: widen them, then read
+          widen_tile(i % kStages);
+          __syncthreads();
+        }
+      }""",
+    """      if (kCodes || i + 1 >= ntiles)
+        cp_async_wait<0>();
+      else
+        cp_async_wait<1>();
+      __syncthreads();
+      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
+      if constexpr (kCodes) {
+        if (i == 0 && n_cache > 0) {
+          widen_tile(0);
+          __syncthreads();
+        }
+        if (i + 1 < n_cache) widen_tile((i + 1) % kStages);
+      }"""),)
+# name -> (source, entry point, {constant: value}[, ((old, new), ...)]);
+# {} and no passages is the shipped design
 VARIANTS = {
     "degridder": ("gridder.cu", "pmt_degridder", {}),
     "degridder 64 threads": ("gridder.cu", "pmt_degridder",
@@ -50,27 +115,43 @@ VARIANTS = {
                             {"THREADS": 64}),
     "jacobi2d 256 threads": ("jacobi2d.cu", "pmt_jacobi2d",
                              {"THREADS": 256}),
+    "prefill": ("prefill_attention.cu", "pmt_prefill_attention_tc", {}),
+    "prefill k from codes": ("prefill_attention.cu",
+                             "pmt_prefill_attention_tc", {}, K_FROM_CODES),
+    "prefill widen ahead": ("prefill_attention.cu",
+                            "pmt_prefill_attention_tc", {}, WIDEN_AHEAD),
+    "prefill kStages 4": ("prefill_attention.cu", "pmt_prefill_attention_tc",
+                          {"kStages": 4}),
+    "prefill kKT 64": ("prefill_attention.cu", "pmt_prefill_attention_tc",
+                       {"kKT": 64}),
 }
 
 
-def variant_source(text: str, values: dict) -> str:
+def variant_source(text: str, values: dict, passages=()) -> str:
     for name, value in values.items():
         text, n = re.subn(rf"(constexpr int {name} = )\d+;",
                           rf"\g<1>{value};", text)
         if n != 1:
             raise AssertionError(f"no single constant {name} to set")
+    for old, new in passages:
+        if text.count(old) != 1:
+            raise AssertionError(f"no single passage {old[:40]!r} to replace")
+        text = text.replace(old, new)
     return text
 
 
-def build_all(build) -> dict:
-    """{variant: ctypes library}, each built from its own source."""
+def build_all(build, names, ptxas_usage) -> dict:
+    """{variant: ctypes library} of ``names``, each built from its own
+    source; prints each variant's registers and spills (of the prefill
+    variants, each tensor-core instantiation's, by ``ptxas_usage``)."""
     procs = {}
-    for i, (name, (source, entry, values)) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
+        source, entry, values, *passages = VARIANTS[name]
         out = ROOT / "build" / "variants" / str(i)
         out.mkdir(parents=True, exist_ok=True)
         src = out / source
         src.write_text(variant_source((build.CSRC / source).read_text(),
-                                      values))
+                                      values, *passages))
         procs[name] = (out / "lib.so", subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC),
              "-shared", str(src), "-o", str(out / "lib.so")],
@@ -80,8 +161,14 @@ def build_all(build) -> dict:
         log, _ = proc.communicate(timeout=900)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        ptxas = [line.strip() for line in log.splitlines()
-                 if "registers" in line or "spill" in line]
+        if name.startswith("prefill"):
+            ptxas = [f"{re.search(r'kernelI(.*?)EEv', n).group(1)} {regs} "
+                     f"registers {stores}/{loads} B spilled"
+                     for n, regs, _, stores, loads in ptxas_usage(
+                         log, "prefill_tc_kernel")]
+        else:
+            ptxas = [line.strip() for line in log.splitlines()
+                     if "registers" in line or "spill" in line]
         print(f"{name}: ptxas " + " | ".join(ptxas), flush=True)
         lib = ctypes.CDLL(str(path))
         entry = VARIANTS[name][1]
@@ -90,7 +177,55 @@ def build_all(build) -> dict:
     return libs
 
 
+def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
+    """{call name: call} of each prefill variant over row 2's serve-path
+    case, with a bf16 cache and with the prefix in int8 codes, and
+    {call name: (got, want)} to check once after a first call."""
+    import torch
+    cs = smoke.PREFILL_SERVE
+    b, t, c, kvh, g, hd = (cs[x] for x in ("b", "t", "c", "kvh", "g", "hd"))
+    q, kx, vx, kc, vc = smoke._prefill_inputs(dev, torch.bfloat16, b, t, c,
+                                              kvh, g, hd)
+    offs = torch.tensor(cs["offs"], dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    (kq, ks), (vq, vs) = smoke.quantized("int8", kc, vc)
+    # as kernel.py _tc_launch
+    nwarps = pa_kernel.tc_warps(t * g)
+    groups = b * kvh * math.ceil(t * g / (16 * nwarps))
+    nsplit = pa_kernel.split_count(groups, c)
+    tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+    ws = torch.empty(groups * nsplit * 16 * nwarps * (hd + 2),
+                     dtype=torch.float32, device=dev)
+    calls, checks = {}, {}
+    for name, lib in libs.items():
+        if not name.startswith("prefill"):
+            continue
+        for cache, (k, v, kp, vp, code) in {
+                "bf16": (kc, vc, None, None, 1),
+                "int8": (kq, vq, ks.data_ptr(), vs.data_ptr(), 2)}.items():
+            out = torch.empty((b, kvh, t, g, hd), dtype=q.dtype, device=dev)
+            call = (lambda lib=lib, k=k, v=v, kp=kp, vp=vp, code=code,
+                    out=out: lib.pmt_prefill_attention_tc(
+                        q.data_ptr(), kx.data_ptr(), vx.data_ptr(),
+                        k.data_ptr(), v.data_ptr(), kp, vp, offs.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(),
+                        b, t, c, kvh, g, hd, hd, scale, 0, 0, 0.0, code,
+                        nsplit, nwarps, stream()))
+            calls[f"{name}, {cache}"] = call
+            kw = dict(scale=scale)
+            if code == 2:
+                kw.update(k_scale=ks, v_scale=vs)
+            checks[f"{name}, {cache}"] = (out, pa_ref.prefill_attention_ref(
+                q, kx, vx, k, v, offs, **kw))
+    return calls, checks
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("prefixes", nargs="*",
+                    help="time only the variants whose names start so")
+    prefixes = tuple(ap.parse_args().prefixes)
+    names = [n for n in VARIANTS if not prefixes or n.startswith(prefixes)]
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -98,6 +233,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.gridder import ref as grid_ref
     from repro_torch.kernels.jacobi2d import ref as jac_ref
+    from repro_torch.kernels.prefill_attention import kernel as pa_kernel
+    from repro_torch.kernels.prefill_attention import ref as pa_ref
 
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -106,29 +243,34 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    libs = build_all(build)
+    libs = build_all(build, names, smoke.ptxas_usage)
     dev = torch.device("cuda")
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    g = torch.Generator(device=dev).manual_seed(11)
-    p, s, v = 1024, 1024, 2048
-    lm = torch.rand((p, 2), generator=g, device=dev) - 0.5
-    uv = 4.0 * torch.rand((s, v, 2), generator=g, device=dev) - 2.0
-    sub = torch.randn((s, p, 2), generator=g, device=dev)
-    vis = torch.empty((s, v, 2), device=dev)
-    x = smoke._randn(dev, 16384, 16384, seed=10)
-    y = torch.empty_like(x)
-    calls = {"x.clone()": lambda: x.clone()}
+    calls, timers = {}, {}
+    if any(n.startswith("degridder") for n in libs):
+        g = torch.Generator(device=dev).manual_seed(11)
+        p, s, v = 1024, 1024, 2048
+        lm = torch.rand((p, 2), generator=g, device=dev) - 0.5
+        uv = 4.0 * torch.rand((s, v, 2), generator=g, device=dev) - 2.0
+        sub = torch.randn((s, p, 2), generator=g, device=dev)
+        vis = torch.empty((s, v, 2), device=dev)
+        want_vis = grid_ref.degridder_ref(lm, uv, sub)
+    if any(n.startswith("jacobi2d") for n in libs):
+        x = smoke._randn(dev, 16384, 16384, seed=10)
+        y = torch.empty_like(x)
+        want_y = jac_ref.jacobi2d_ref(x)
+        calls["x.clone()"] = lambda: x.clone()
     for name, lib in libs.items():
         if name.startswith("degridder"):
             calls[name] = lambda lib=lib: lib.pmt_degridder(
                 lm.data_ptr(), uv.data_ptr(), sub.data_ptr(),
                 vis.data_ptr(), s, p, v, stream())
-        else:
+        elif name.startswith("jacobi2d"):
             calls[name] = lambda lib=lib: lib.pmt_jacobi2d(
                 x.data_ptr(), y.data_ptr(), 16384, 16384, stream())
-    want_vis = grid_ref.degridder_ref(lm, uv, sub)
-    want_y = jac_ref.jacobi2d_ref(x)
-    for name in libs:
+    for name in list(calls):
+        if name == "x.clone()":
+            continue
         if calls[name]():
             raise RuntimeError(f"{name}: the launch failed")
         torch.cuda.synchronize()
@@ -139,12 +281,24 @@ def main() -> int:
                 raise AssertionError(f"{name} disagrees: {excess}")
         elif not torch.equal(y, want_y):
             raise AssertionError(f"{name} disagrees with the plain version")
-    del want_vis, want_y
+    timers.update({name: smoke.time_ms for name in calls})
+    pcalls, checks = prefill_calls(smoke, pa_kernel, pa_ref, dev, stream,
+                                   libs)
+    for name, (got, want) in checks.items():
+        if pcalls[name]():
+            raise RuntimeError(f"{name}: the launch failed")
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        print(f"{name}: max |err| {err:.3g}", flush=True)
+        if not err <= smoke.TOL[torch.bfloat16]:
+            raise AssertionError(f"{name} disagrees with the plain version")
+    calls.update(pcalls)
+    timers.update({name: smoke.graph_ms for name in pcalls})
     times = {name: [] for name in calls}
-    names = list(calls)
+    order = list(calls)
     for r in range(ROUNDS):
-        for name in names[r % len(names):] + names[:r % len(names)]:
-            times[name].append(smoke.time_ms(calls[name]))
+        for name in order[r % len(order):] + order[:r % len(order)]:
+            times[name].append(timers[name](calls[name]))
     for name, ts in times.items():
         print(json.dumps({"variant": name, "median_ms": statistics.median(
             ts), "quartiles_ms": statistics.quantiles(ts, n=4)[::2]}),

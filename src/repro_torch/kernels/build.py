@@ -53,12 +53,12 @@ SIGNATURES = {
     "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                                     _F, _I, _I, _P],
-    "pmt_prefill_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                 _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
-                                 _I, _P],
+    "pmt_prefill_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                                 _F, _I, _I, _I, _P],
     "pmt_prefill_attention_paged_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                       _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                       _F, _I, _F, _I, _I, _P],
+                                       _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                       _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "pmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                             _F, _I, _P],
     "pmt_flash_smem_bytes": [_I],

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
 // TMA tile loads, shared-memory matrix descriptors and the warpgroup
 // matrix multiply (wgmma), as inline PTX; and the warp-level pieces
-// (16-byte cp.async, ldmatrix, mma.sync m16n8k16) of the kernels whose
+// (cp.async of 16 and 4 bytes, ldmatrix, mma.sync m16n8k16) of the kernels whose
 // tiles are too small or too scattered for TMA and wgmma.  No library beyond the CUDA
 // headers: the tensor maps the TMA loads read are encoded on the host
 // (see flash_attention.cu).
@@ -236,6 +236,13 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 // registers; with `bytes` 0 nothing is read and `dst` is zero-filled.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The same for 4 bytes (through L1: cp.async.cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
 }

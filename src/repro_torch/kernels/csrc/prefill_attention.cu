@@ -27,11 +27,12 @@
 // Quantized caches (int8 or fp8_e4m3 codes with one float32 scale per
 // (position, kv head) row beside them) replace the quantized branch of
 // both TPU kernels.  Only the cache prefix holds codes: the chunk's own
-// k/v arrive at q's precision.  Phase 1's tile loader reads the codes at
-// their own width and the tile's row scales through the same row
-// mapping (for a paged tile, the same physical rows), and stages
-// float(code) * scale in shared memory; nothing dequantized goes to
-// device memory.
+// k/v arrive at q's precision.  Both kernels read the codes at their own
+// width and the tile's row scales through the same row mapping (for a
+// paged tile, the same physical rows); nothing dequantized goes to device
+// memory.  The CUDA-core loop (fp32 q) stages float(code) * scale in
+// shared memory; the tensor-core kernel (bf16 q) keeps the scales out of
+// its products (below).
 //
 // What bounds it on the H100: at the serve path's shapes (a 32-token
 // chunk, 3 query heads per kv head, prefixes up to ~1k) each key tile
@@ -46,9 +47,9 @@
 // offs[b] - window + 1) are never read, and skips chunk tiles that lie
 // wholly above the block's last query.
 //
-// bf16 (q, chunk and cache all bf16, hd and hdv up to 128; rows 2 and 8
-// of the serve path): prefill_tc_kernel below, on the tensor cores and
-// split over blocks.  At the serve path's shapes the CUDA-core loop above
+// bf16 q (q and chunk bf16, the cache bf16 or codes, hd and hdv up to
+// 128; rows 2 and 8 of the serve path, and 2q and 8q over codes):
+// prefill_tc_kernel below, on the tensor cores and split over blocks.  At the serve path's shapes the CUDA-core loop above
 // took 0.12 ms for work whose bytes take 0.15 us: 18 blocks on 132 SMs,
 // each walking 9 key tiles one after another, loading each synchronously
 // and forming every dot product from shared memory one element at a time.
@@ -101,10 +102,30 @@
 //    head, row tile), zero between launches: launches that share a
 //    ticket array run one after another (one stream).
 //
-// The fp32 and code-cache instantiations keep the CUDA-core loop: their
-// staged values (fp32, or float(code) * scale) are fp32, and a bf16
-// tensor-core operand would round them.  So do bf16 heads wider than
-// 128, whose fragments would not fit the registers.
+//  * Codes (rows 2q and 8q).  A bf16 operand would round float(code) *
+//    scale, so that product is never formed.  Every int8 code and every
+//    finite e4m3 value is exact in bf16 (8 and 4 significant bits), and so
+//    is its product with a bf16 q in the fp32 accumulator; the row scales
+//    come out of both sums: q . (code_c ks_c) = (q . code_c) ks_c, and
+//    sum_c p_c (code_c vs_c) = sum_c (p_c vs_c) code_c.  So a cache tile
+//    moves as codes (16-byte cp.async, 16 codes a copy: half of bf16's
+//    bytes) into a byte ring beside the bf16 one, its 32 k and 32 v row
+//    scales (4-byte cp.async, KVH floats apart) in the same commit group;
+//    once it has landed, the block widens it exactly into the tile's bf16
+//    slot (one more barrier a cache tile), and ldmatrix and the mma chain
+//    run as for bf16.  Column c's k scale joins the score's multiplier
+//    (mul * ks_c, or cap_in * ks_c under softcap), and each p is
+//    multiplied by its v scale before its hi + lo split; l sums the
+//    unscaled p, and the chunk's own keys take a scale of 1.  The result
+//    differs from the plain versions' codes.float() * scale by fp32
+//    rounding order (~1e-7 relative).  Code rows that are not whole
+//    16-byte units (hd or hdv not a multiple of 16, or misaligned codes)
+//    are copied element by element into the same ring; the scales past a
+//    tile's end are zero-filled like the code rows.
+//
+// The fp32 q instantiations keep the CUDA-core loop: their fp32 values
+// would be rounded by a bf16 operand.  So do bf16 heads wider than 128,
+// whose fragments would not fit the registers.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -316,7 +337,7 @@ int dispatch(const Args& a, int q_dtype, int cache_dtype, void* stream) {
 }
 
 
-// -- bf16: tensor cores, split-KV --------------------------------------------
+// -- bf16 q: tensor cores, split-KV ------------------------------------------
 
 namespace tc {
 
@@ -337,9 +358,15 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; 0 for -inf
 
 // Shared memory: q (16 x warps rows) | k ring (kStages x kKT rows) | v
 // ring (kStages x kKT rows), bf16 rows of D + 8 (16 bytes of padding put
-// the 8 rows of an ldmatrix on distinct banks).
+// the 8 rows of an ldmatrix on distinct banks); for a code cache TC, then
+// the k and v code rings (kStages x kKT rows of D + 16 bytes each) and the
+// scale ring (kStages x (kKT k and kKT v) floats).
+template <typename TC>
 __host__ __device__ inline size_t smem_bytes(int D, int nwarps) {
-  return sizeof(bf16) * (size_t)(D + 8) * (16 * nwarps + 2 * kStages * kKT);
+  size_t bytes = sizeof(bf16) * (size_t)(D + 8) * (16 * nwarps + 2 * kStages * kKT);
+  if (pmt::is_code<TC>::value)
+    bytes += (size_t)kStages * kKT * (2 * (size_t)(D + 16) + 2 * sizeof(float));
+  return bytes;
 }
 
 // Split s's keys [lo, hi) of the cache range [start, limit): shares of
@@ -369,20 +396,52 @@ __device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint3
   lo = pack_bf16(a - __low2float(h), b - __high2float(h));
 }
 
+// Two codes (bytes 0 and 1 of x) as a bf16 pair, byte 0 in the low half.
+// Exact: every int8 code and every finite e4m3 value is a bf16 (8 and 4
+// significant bits).  An int8 code is biased into the low mantissa byte
+// of 2^23 by one byte permute and the bias subtracted in fp32 (as in
+// decode_attention.cu); e4m3 codes convert two at a time to half, which
+// holds them too.
+template <typename TC>
+__device__ __forceinline__ uint32_t widen2(uint32_t x) {
+  float2 f;
+  if constexpr (std::is_same<TC, int8_t>::value) {
+    // bytes (b ^ 0x80, 0, 0, 0x4b): 2^23 + b + 128
+    f.x = __uint_as_float(__byte_perm(x ^ 0x80808080u, 0x4b000000u, 0x7650u)) - 8388736.f;
+    f.y = __uint_as_float(__byte_perm(x ^ 0x80808080u, 0x4b000000u, 0x7651u)) - 8388736.f;
+  } else {
+    f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(x & 0xffffu), __NV_E4M3)));
+  }
+  return pack_bf16(f.x, f.y);
+}
+
+// Eight codes (code j in byte j % 4 of word j / 4) as four bf16 pairs.
+template <typename TC>
+__device__ __forceinline__ uint4 widen8(uint2 w) {
+  return make_uint4(widen2<TC>(w.x), widen2<TC>(w.x >> 16), widen2<TC>(w.y),
+                    widen2<TC>(w.y >> 16));
+}
+
 // kPaged: kc, vc are pools (P, ps, KVH, hd) read through page_table
-// (B, NB), C = NB * ps; otherwise (B, C, KVH, hd).  ws: the splits'
-// partials (unused with one split); tickets: one zeroed int per (row,
-// kv head, row tile).
-template <int D, bool kPaged>
+// (B, NB), C = NB * ps; otherwise (B, C, KVH, hd).  TC, the cache's
+// element type: bf16, or int8_t / __nv_fp8_e4m3 codes with their row
+// scales ksc, vsc (rows x KVH float32, rows counted as kc's; unused for
+// bf16).  ws: the splits' partials (unused with one split); tickets: one
+// zeroed int per (row, kv head, row tile).
+template <int D, bool kPaged, typename TC>
 __global__ void __launch_bounds__(kMaxWarps * 32, 1)
 prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
-                  const bf16* __restrict__ vx, const bf16* __restrict__ kc,
-                  const bf16* __restrict__ vc, const int* __restrict__ offs,
+                  const bf16* __restrict__ vx, const TC* __restrict__ kc,
+                  const TC* __restrict__ vc, const float* __restrict__ ksc,
+                  const float* __restrict__ vsc, const int* __restrict__ offs,
                   const int* __restrict__ page_table, bf16* __restrict__ out,
                   float* __restrict__ ws, int* __restrict__ tickets, int T, int C, int NB, int ps,
                   int KVH, int G, int hd, int hdv, float scale, int ring, int window,
                   float softcap, int nsplit) {
+  constexpr bool kCodes = pmt::is_code<TC>::value;
   constexpr int P = D + 8;
+  constexpr int CP = D + 16;  // bytes of a code ring row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int is_last;
   const int tid = threadIdx.x, nthreads = blockDim.x;
@@ -390,6 +449,9 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = qs + RB * P;
   bf16* vs = ks + kStages * kKT * P;
+  uint8_t* kcs = reinterpret_cast<uint8_t*>(vs + kStages * kKT * P);  // codes
+  uint8_t* vcs = kcs + kStages * kKT * CP;
+  float* scl = reinterpret_cast<float*>(vcs + kStages * kKT * CP);  // [stage][k | v][kKT]
 
   const int split = blockIdx.x, bh = blockIdx.z;
   const int b = bh / KVH, h = bh - b * KVH;
@@ -426,14 +488,22 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
   if (ntiles > 0) {
     const bf16 zero = __float2bfloat16(0.f);
     const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * hdv;
-    const bool vec = ((hd | hdv) & 7) == 0 &&
-                     ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kx) |
-                       reinterpret_cast<uintptr_t>(vx) | reinterpret_cast<uintptr_t>(kc) |
-                       reinterpret_cast<uintptr_t>(vc)) &
-                      15) == 0;
+    // 16-byte copies of bf16 rows (q, the chunk, a bf16 cache) and, apart,
+    // of code rows (16 codes a copy)
+    uintptr_t bf16_ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(kx) |
+                          reinterpret_cast<uintptr_t>(vx);
+    if constexpr (!kCodes)
+      bf16_ptrs |= reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc);
+    const bool vec = ((hd | hdv) & 7) == 0 && (bf16_ptrs & 15) == 0;
+    const bool cvec =
+        ((hd | hdv) & 15) == 0 &&
+        ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) & 15) == 0;
     // zero padding: columns [hd, D) of q and k rows, [hdv, D) of v rows
     for (int r = tid; r < RB + 2 * kStages * kKT; r += nthreads)
       for (int d = r < RB + kStages * kKT ? hd : hdv; d < D; ++d) qs[(size_t)r * P + d] = zero;
+    if constexpr (kCodes)  // and of the code rows, which widen over all of D
+      for (int r = tid; r < 2 * kStages * kKT; r += nthreads)
+        for (int d = r < kStages * kKT ? hd : hdv; d < D; ++d) kcs[(size_t)r * CP + d] = 0;
 
     const bf16* qb = q + ((size_t)bh * rows_total + row0) * hd;
     if (vec) {
@@ -461,14 +531,14 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
     const int ckk = vec ? hd / 8 : 1, ckv = vec ? hdv / 8 : 1;
     const int rk = tid / ckk, kc0 = tid % ckk, drk = nthreads / ckk, dck = nthreads % ckk;
     const int rv = tid / ckv, vc0 = tid % ckv, drv = nthreads / ckv, dcv = nthreads % ckv;
+    // the same for code rows, 16 codes a chunk
+    const int cck = cvec ? hd / 16 : 1, ccv = cvec ? hdv / 16 : 1;
+    const int crk = tid / cck, kcc0 = tid % cck, cdrk = nthreads / cck, cdck = nthreads % cck;
+    const int crv = tid / ccv, vcc0 = tid % ccv, cdrv = nthreads / ccv, cdcv = nthreads % ccv;
     const int ps_shift = (ps & (ps - 1)) == 0 ? __ffs(ps) - 1 : -1;  // pages of 2^k rows
     auto load_tile = [&](int i, int buf) {
       const bool cache = i < n_cache;
       const int base = tile_base(i), n = tile_keys(i);
-      const bf16* kt = (cache ? kc : kx) + (size_t)h * hd;
-      const bf16* vt = (cache ? vc : vx) + (size_t)h * hdv;
-      bf16* kd = ks + buf * kKT * P;
-      bf16* vd = vs + buf * kKT * P;
       auto row_of = [&](int r) -> size_t {  // key row r's row in its tensor
         const int pos = base + r;
         if (!cache) return (size_t)b * T + pos;
@@ -479,27 +549,62 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
           return (size_t)b * C + pos;
         }
       };
-      if (vec) {
-        auto copy_rows = [&](bf16* dst, const bf16* src0, size_t stride, int ck, int r,
-                             int c, int dr, int dc) {
-          for (int i2 = tid; i2 < kKT * ck; i2 += nthreads) {
-            const bf16* src = r < n ? src0 + row_of(r) * stride + c * 8 : src0;
-            cp_async16(dst + r * P + c * 8, src, r < n ? 16 : 0);
-            r += dr, c += dc;
-            if (c >= ck) c -= ck, ++r;
-          }
-        };
-        copy_rows(kd, kt, kstride, ckk, rk, kc0, drk, dck);
-        copy_rows(vd, vt, vstride, ckv, rv, vc0, drv, dcv);
-      } else {
+      // rows [0, n) of ck 16-byte chunks each, rows [n, kKT) zero-filled
+      auto copy_rows = [&](auto* dst, const auto* src0, size_t stride, int pitch, int ck,
+                           int r, int c, int dr, int dc) {
+        using E = std::remove_pointer_t<decltype(dst)>;
+        constexpr int el = 16 / sizeof(E);
+        for (int i2 = tid; i2 < kKT * ck; i2 += nthreads) {
+          const auto* src = r < n ? src0 + row_of(r) * stride + c * el : src0;
+          cp_async16(dst + r * pitch + c * el, src, r < n ? 16 : 0);
+          r += dr, c += dc;
+          if (c >= ck) c -= ck, ++r;
+        }
+      };
+      // the same element by element (rows that are not whole 16-byte units)
+      auto copy_elems = [&](auto* kd, auto* vd, const auto* kt, const auto* vt, int pitch,
+                            auto zero_el) {
         for (int i2 = tid; i2 < kKT * (hd + hdv); i2 += nthreads) {
           const bool is_k = i2 < kKT * hd;
           const int w = is_k ? hd : hdv;
           const int j = is_k ? i2 : i2 - kKT * hd;
           const int r = j / w, d = j - r * w;
-          (is_k ? kd : vd)[r * P + d] =
-              r < n ? (is_k ? kt : vt)[row_of(r) * (is_k ? kstride : vstride) + d] : zero;
+          (is_k ? kd : vd)[r * pitch + d] =
+              r < n ? (is_k ? kt : vt)[row_of(r) * (is_k ? kstride : vstride) + d] : zero_el;
         }
+      };
+      if constexpr (kCodes) {
+        float* sd = scl + buf * 2 * kKT;
+        if (cache) {  // codes into the code ring, their row scales beside them
+          const uint8_t* kt = reinterpret_cast<const uint8_t*>(kc) + (size_t)h * hd;
+          const uint8_t* vt = reinterpret_cast<const uint8_t*>(vc) + (size_t)h * hdv;
+          uint8_t* kd = kcs + buf * kKT * CP;
+          uint8_t* vd = vcs + buf * kKT * CP;
+          if (cvec) {
+            copy_rows(kd, kt, kstride, CP, cck, crk, kcc0, cdrk, cdck);
+            copy_rows(vd, vt, vstride, CP, ccv, crv, vcc0, cdrv, cdcv);
+          } else {
+            copy_elems(kd, vd, kt, vt, CP, uint8_t{0});
+          }
+          for (int r = tid; r < 2 * kKT; r += nthreads) {  // k scales, then v scales
+            const int rr = r & (kKT - 1);
+            const float* s0 = r < kKT ? ksc : vsc;
+            cp_async4(sd + r, rr < n ? s0 + row_of(rr) * KVH + h : s0, rr < n ? 4 : 0);
+          }
+          cp_async_commit();
+          return;
+        }
+        for (int r = tid; r < 2 * kKT; r += nthreads) sd[r] = 1.f;  // chunk keys: unscaled
+      }
+      const bf16* kt = (cache ? reinterpret_cast<const bf16*>(kc) : kx) + (size_t)h * hd;
+      const bf16* vt = (cache ? reinterpret_cast<const bf16*>(vc) : vx) + (size_t)h * hdv;
+      bf16* kd = ks + buf * kKT * P;
+      bf16* vd = vs + buf * kKT * P;
+      if (vec) {
+        copy_rows(kd, kt, kstride, P, ckk, rk, kc0, drk, dck);
+        copy_rows(vd, vt, vstride, P, ckv, rv, vc0, drv, dcv);
+      } else {
+        copy_elems(kd, vd, kt, vt, P, zero);
       }
       cp_async_commit();
     };
@@ -518,6 +623,19 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
       first = window > 0 ? end - window + (cache ? t + 1 : 0) : -(1 << 30);
     };
 
+    // A landed code tile (k and v rows of slot buf, all kKT of them, over
+    // all of D) widened exactly into the bf16 ring's slot buf, 8 codes a step.
+    auto widen_tile = [&](int buf) {
+      constexpr int kUnits = D / 8;  // of a row
+      for (int u = tid; u < 2 * kKT * kUnits; u += nthreads) {
+        const int row = u / kUnits, c = u - row * kUnits;  // row of k, then of v
+        const int r = buf * kKT + (row & (kKT - 1));
+        const uint8_t* src = (row < kKT ? kcs : vcs) + r * CP + c * 8;
+        bf16* dst = (row < kKT ? ks : vs) + r * P + c * 8;
+        *reinterpret_cast<uint4*>(dst) = widen8<TC>(*reinterpret_cast<const uint2*>(src));
+      }
+    };
+
     const float mul = scale * kLog2e;  // score -> log2 units
     const float cap_in = softcap > 0.f ? scale / softcap : 0.f, cap_out = softcap * kLog2e;
     uint32_t qf[D / 16][4];
@@ -532,6 +650,12 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
       // i - 1, whose slot tile i + 2 now takes
       __syncthreads();
       if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
+      if constexpr (kCodes) {
+        if (i < n_cache) {  // a cache tile's codes: widen them, then read
+          widen_tile(i % kStages);
+          __syncthreads();
+        }
+      }
       if (i == 0) {
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk)
@@ -571,8 +695,27 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
         end[u] = min(end[u] - base, n);
       }
       // x = score * scale (soft-capped) in log2 units; a masked key weighs
-      // 0 outright: 2^(-inf - m) is 0, also while m is still NEG_INF
-      if (softcap > 0.f) {
+      // 0 outright: 2^(-inf - m) is 0, also while m is still NEG_INF.
+      // Over codes the score is q . code, and column c's k scale joins
+      // the multiplier (1 for the chunk's keys).
+      const float* tscl = scl + (i % kStages) * 2 * kKT;  // this tile's k | v scales
+      if constexpr (kCodes) {
+        const float m0 = softcap > 0.f ? cap_in : mul;
+#pragma unroll
+        for (int j = 0; j < kKT / 8; ++j) {
+          const float2 s = *reinterpret_cast<const float2*>(tscl + j * 8 + tq * 2);
+          sc[j][0] *= m0 * s.x;
+          sc[j][1] *= m0 * s.y;
+          sc[j][2] *= m0 * s.x;
+          sc[j][3] *= m0 * s.y;
+        }
+        if (softcap > 0.f) {
+#pragma unroll
+          for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] = tanhf(sc[j][e]) * cap_out;
+        }
+      } else if (softcap > 0.f) {
 #pragma unroll
         for (int j = 0; j < kKT / 8; ++j)
 #pragma unroll
@@ -629,6 +772,16 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
         o[n8][1] *= alpha[0];
         o[n8][2] *= alpha[1];
         o[n8][3] *= alpha[1];
+      }
+      if constexpr (kCodes) {  // p . (code * vs) = (p * vs) . code; l keeps p
+#pragma unroll
+        for (int j = 0; j < kKT / 8; ++j) {
+          const float2 s = *reinterpret_cast<const float2*>(tscl + kKT + j * 8 + tq * 2);
+          sc[j][0] *= s.x;
+          sc[j][1] *= s.y;
+          sc[j][2] *= s.x;
+          sc[j][3] *= s.y;
+        }
       }
 
       // O += p . v, p as bf16 p_hi + p_lo: the score fragments of keys
@@ -779,7 +932,7 @@ prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kx,
 }
 
 struct TcArgs {
-  const void *q, *kx, *vx, *kc, *vc, *offs, *page_table;
+  const void *q, *kx, *vx, *kc, *vc, *ksc, *vsc, *offs, *page_table;
   void *out, *ws, *tickets;
   int B, T, C, NB, ps, KVH, G, hd, hdv;
   float scale;
@@ -788,10 +941,10 @@ struct TcArgs {
   int nsplit, nwarps;
 };
 
-template <int D, bool kPaged>
+template <int D, bool kPaged, typename TC>
 int launch_tc(const TcArgs& a, cudaStream_t stream) {
-  const size_t bytes = smem_bytes(D, a.nwarps);
-  auto kernel = prefill_tc_kernel<D, kPaged>;
+  const size_t bytes = smem_bytes<TC>(D, a.nwarps);
+  auto kernel = prefill_tc_kernel<D, kPaged, TC>;
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
@@ -801,25 +954,37 @@ int launch_tc(const TcArgs& a, cudaStream_t stream) {
   const dim3 grid(a.nsplit, (a.T * a.G + rb - 1) / rb, a.B * a.KVH);
   kernel<<<grid, 32 * a.nwarps, bytes, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.kx),
-      static_cast<const bf16*>(a.vx), static_cast<const bf16*>(a.kc),
-      static_cast<const bf16*>(a.vc), static_cast<const int*>(a.offs),
+      static_cast<const bf16*>(a.vx), static_cast<const TC*>(a.kc),
+      static_cast<const TC*>(a.vc), static_cast<const float*>(a.ksc),
+      static_cast<const float*>(a.vsc), static_cast<const int*>(a.offs),
       static_cast<const int*>(a.page_table), static_cast<bf16*>(a.out),
       static_cast<float*>(a.ws), static_cast<int*>(a.tickets), a.T, a.C, a.NB, a.ps, a.KVH,
       a.G, a.hd, a.hdv, a.scale, a.ring, a.window, a.softcap, a.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kPaged, typename TC>
+int by_width(const TcArgs& a, cudaStream_t s) {
+  const int width = max(a.hd, a.hdv);
+  if (width <= 32) return launch_tc<32, kPaged, TC>(a, s);
+  if (width <= 64) return launch_tc<64, kPaged, TC>(a, s);
+  if (width <= 128) return launch_tc<128, kPaged, TC>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <bool kPaged>
-int dispatch_tc(const TcArgs& a, void* stream) {
+int dispatch_tc(const TcArgs& a, int cache_dtype, void* stream) {
   if (a.B == 0 || a.T == 0 || a.KVH == 0) return 0;
   if (a.nwarps < 1 || a.nwarps > kMaxWarps || a.nsplit < 1 || a.nsplit > kMaxSplits ||
-      a.tickets == nullptr || (a.nsplit > 1 && a.ws == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+      a.tickets == nullptr || (a.nsplit > 1 && a.ws == nullptr) ||
+      (cache_dtype >= 2 && (a.ksc == nullptr || a.vsc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);  // codes need their scales
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = max(a.hd, a.hdv);
-  if (width <= 32) return launch_tc<32, kPaged>(a, s);
-  if (width <= 64) return launch_tc<64, kPaged>(a, s);
-  if (width <= 128) return launch_tc<128, kPaged>(a, s);
+  switch (cache_dtype) {
+    case 1: return by_width<kPaged, bf16>(a, s);
+    case 2: return by_width<kPaged, int8_t>(a, s);
+    case 3: return by_width<kPaged, __nv_fp8_e4m3>(a, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -863,37 +1028,43 @@ extern "C" int pmt_prefill_attention_paged(const void* q, const void* kx, const 
   return dispatch<true>(a, q_dtype, cache_dtype, stream);
 }
 
-// The bf16 tensor-core kernel (q, chunk and cache bf16, max(hd, hdv) <=
-// 128) over a contiguous cache; arguments as pmt_prefill_attention, plus:
-// ws, the splits' partials, nsplit * groups * 16 * nwarps * (hdv + 2)
-// float32 for groups = B * KVH * row tiles (unused, may be null, with one
-// split); tickets, >= groups int32 that are 0 (and are 0 again when the
-// kernel ends); nsplit in 1..8 splits of the cache range; nwarps in 1..8,
-// 16 packed query rows each.  Returns cudaGetLastError().
+// The tensor-core kernel (q and chunk bf16, a cache of bf16 or of int8 /
+// fp8_e4m3 codes, max(hd, hdv) <= 128) over a contiguous cache;
+// arguments as pmt_prefill_attention (k_scale, v_scale null for a bf16
+// cache; cache_dtype 1, 2 or 3), plus: ws, the splits' partials, nsplit *
+// groups * 16 * nwarps * (hdv + 2) float32 for groups = B * KVH * row
+// tiles (unused, may be null, with one split); tickets, >= groups int32
+// that are 0 (and are 0 again when the kernel ends); nsplit in 1..8
+// splits of the cache range; nwarps in 1..8, 16 packed query rows each.
+// Returns cudaGetLastError().
 extern "C" int pmt_prefill_attention_tc(const void* q, const void* kx, const void* vx,
-                                        const void* kc, const void* vc, const void* offs,
-                                        void* out, void* ws, void* tickets, int B, int T, int C,
-                                        int KVH, int G, int hd, int hdv, float scale, int ring,
-                                        int window, float softcap, int nsplit, int nwarps,
-                                        void* stream) {
-  const tc::TcArgs a{q,   kx, vx,     kc,     vc,     offs,    nullptr, out,    ws,
-                     tickets, B, T, C, 1, C, KVH, G, hd, hdv, scale, ring, window,
-                     softcap, nsplit, nwarps};
-  return tc::dispatch_tc<false>(a, stream);
+                                        const void* kc, const void* vc, const void* k_scale,
+                                        const void* v_scale, const void* offs, void* out,
+                                        void* ws, void* tickets, int B, int T, int C, int KVH,
+                                        int G, int hd, int hdv, float scale, int ring,
+                                        int window, float softcap, int cache_dtype,
+                                        int nsplit, int nwarps, void* stream) {
+  const tc::TcArgs a{q,       kx,      vx,     kc,   vc,     k_scale, v_scale, offs,
+                     nullptr, out,     ws,     tickets, B,   T,       C,       1,
+                     C,       KVH,     G,      hd,   hdv,    scale,   ring,    window,
+                     softcap, nsplit,  nwarps};
+  return tc::dispatch_tc<false>(a, cache_dtype, stream);
 }
 
 // The same over page pools, arguments as pmt_prefill_attention_paged plus
 // ws, tickets, nsplit and nwarps as above.  Returns cudaGetLastError().
 extern "C" int pmt_prefill_attention_paged_tc(const void* q, const void* kx, const void* vx,
                                               const void* k_pool, const void* v_pool,
+                                              const void* k_scale, const void* v_scale,
                                               const void* page_table, const void* offs,
                                               void* out, void* ws, void* tickets, int B, int T,
                                               int NB, int ps, int KVH, int G, int hd, int hdv,
                                               float scale, int window, float softcap,
-                                              int nsplit, int nwarps, void* stream) {
-  const tc::TcArgs a{q,      kx,      vx,  k_pool, v_pool, offs,   page_table, out,
-                     ws,     tickets, B,   T,      NB * ps, NB,    ps,         KVH,
-                     G,      hd,      hdv, scale,  0,      window, softcap,    nsplit,
-                     nwarps};
-  return tc::dispatch_tc<true>(a, stream);
+                                              int cache_dtype, int nsplit, int nwarps,
+                                              void* stream) {
+  const tc::TcArgs a{q,      kx,      vx,      k_pool, v_pool,  k_scale, v_scale,
+                     offs,   page_table, out,  ws,     tickets, B,       T,
+                     NB * ps, NB,     ps,      KVH,    G,       hd,      hdv,
+                     scale,  0,       window,  softcap, nsplit, nwarps};
+  return tc::dispatch_tc<true>(a, cache_dtype, stream);
 }

@@ -1,11 +1,12 @@
 """Wrappers of the CUDA chunked-prefill kernels
 (``csrc/prefill_attention.cu``) over a contiguous cache and over page
 pools, each also over a quantized cache prefix: int8 / fp8_e4m3 codes
-with float32 row scales, dequantized in the kernel.
+with float32 row scales, read as codes by the kernel.
 
-When q, the chunk and the cache are all bf16 and the heads are at most
-128 wide, the wrappers launch the tensor-core kernel, split over blocks
-along the cache (split-KV); the other dtypes take the CUDA-core kernel.
+When q and the chunk are bf16, the cache bf16 or codes, and the heads at
+most 128 wide, the wrappers launch the tensor-core kernel, split over
+blocks along the cache (split-KV); the other inputs (fp32 q, wider
+heads) take the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -32,11 +33,13 @@ TC_MAX_HD = 128           # widest hd / hdv it takes
 TC_MAX_WARPS = 8          # 16 packed query rows each
 TC_MAX_SPLITS = 8
 TC_KEYS_PER_SPLIT = 64    # fewest cache keys worth a split of their own
+# cache dtypes it reads: bf16, and the codes it widens exactly to bf16
+TC_CACHE_DTYPES = (torch.bfloat16, torch.int8, torch.float8_e4m3fn)
 
 
 def uses_tensor_cores(q_dtype, cache_dtype, hd: int, hdv: int) -> bool:
     """Whether these inputs take the tensor-core kernel."""
-    return (q_dtype == cache_dtype == torch.bfloat16
+    return (q_dtype == torch.bfloat16 and cache_dtype in TC_CACHE_DTYPES
             and max(hd, hdv) <= TC_MAX_HD)
 
 
@@ -59,8 +62,9 @@ def _tc_launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
                c: int, hdv: int) -> torch.Tensor:
     """Launch the tensor-core entry point ``entry``: its input pointers
     ``ptrs``, then out, the split workspace and the tickets, then its
-    shape and option arguments ``scalars``, the split count and the
-    warps; ``c`` is the cache's capacity in positions."""
+    shape and option arguments and the cache's dtype code ``scalars``,
+    the split count and the warps; ``c`` is the cache's capacity in
+    positions."""
     b, kvh, t, g, _ = q.shape
     nwarps = tc_warps(t * g)
     groups = b * kvh * math.ceil(t * g / (16 * nwarps))
@@ -138,8 +142,9 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         out = _tc_launch(
             "pmt_prefill_attention_tc", q,
             (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-             k_cache.data_ptr(), v_cache.data_ptr(), offs.data_ptr()),
-            (b, t, c, kvh, g, hd, hdv, *opts), c, hdv)
+             k_cache.data_ptr(), v_cache.data_ptr(), ksp, vsp,
+             offs.data_ptr()),
+            (b, t, c, kvh, g, hd, hdv, *opts, cd), c, hdv)
     else:
         out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype,
                           device=q.device)
@@ -216,9 +221,9 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         out = _tc_launch(
             "pmt_prefill_attention_paged_tc", q,
             (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
-             k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-             offs.data_ptr()),
-            (b, t, nb, ps, kvh, g, hd, hdv, *opts), nb * ps, hdv)
+             k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp,
+             page_table.data_ptr(), offs.data_ptr()),
+            (b, t, nb, ps, kvh, g, hd, hdv, *opts, cd), nb * ps, hdv)
     else:
         out = torch.empty((b, kvh, t, g, hdv), dtype=q.dtype,
                           device=q.device)

@@ -8,7 +8,10 @@ bf16 rounding step of outputs below 4 (2^-6) in bf16; the scatter is
 exact, the paged scatter exact outside the scratch page 0, and so are
 the quantizing scatters (codes and scales bit for bit); the quantized
 attention kernels hold the bf16 tolerance against their plain versions,
-which dequantize to the same float32 values.  Flash attention: TOL in
+which dequantize to the same float32 values (the tensor-core prefill
+kernel, bf16 q over codes, multiplies the row scales onto its fp32
+scores and probabilities instead: the same values up to fp32 rounding
+order).  Flash attention: TOL in
 fp32, and in bf16 2^-5 + 2e-5 (its plain oracle rounds the
 probabilities to bf16, the kernel keeps them to fp32 precision).  The
 Fig. 2 kernels: STREAM and JACOBI2D exact (also one element off their
@@ -247,19 +250,26 @@ def _ticket_sum(card):
     return int(split_kv._tickets[key].abs().sum())
 
 
-def test_prefill_tc_kernel_is_deterministic_and_leaves_tickets_at_0(card):
+@pytest.mark.parametrize("mode", [None, "int8"])
+def test_prefill_tc_kernel_is_deterministic_and_leaves_tickets_at_0(card,
+                                                                    mode):
     """The last split to arrive folds the partials in split order, so two
-    launches give the same bits; each leaves its tickets at 0."""
+    launches give the same bits; each leaves its tickets at 0 (bf16 cache
+    and int8 codes)."""
     b, t, c, kvh, g, hd = 1, 32, 1024, 3, 3, 64
     dt = torch.bfloat16
+    kc = _randn(card, dt, b, c, kvh, hd, seed=3)
+    vc = _randn(card, dt, b, c, kvh, hd, seed=4)
+    kw = dict(scale=0.125)
+    if mode:
+        (kc, kw["k_scale"]), (vc, kw["v_scale"]) = (
+            quant.quantize(x, mode) for x in (kc, vc))
     args = (_randn(card, dt, b, kvh, t, g, hd),
             _randn(card, dt, b, t, kvh, hd, seed=1),
-            _randn(card, dt, b, t, kvh, hd, seed=2),
-            _randn(card, dt, b, c, kvh, hd, seed=3),
-            _randn(card, dt, b, c, kvh, hd, seed=4),
+            _randn(card, dt, b, t, kvh, hd, seed=2), kc, vc,
             torch.tensor([700], dtype=torch.int32, device=card))
-    first = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
-    again = pa_kernel.prefill_attention_cuda(*args, scale=0.125)
+    first = pa_kernel.prefill_attention_cuda(*args, **kw)
+    again = pa_kernel.prefill_attention_cuda(*args, **kw)
     assert torch.equal(first, again)
     assert _ticket_sum(card) == 0
 
@@ -375,10 +385,11 @@ def test_decode_smem_bytes_is_the_kernels(card):
 
 
 def test_redesigned_kernels_sass_and_spills(card):
-    """chip_smoke.py's gate: the bf16 prefill kernels hold HMMA, the GEMM
-    and flash-decode kernels FFMA and neither HMMA nor HGMMA, the gridder
-    and the degridder MUFU and FFMA, JACOBI2D 16-byte LDG and STG, and
-    ptxas spills nothing in any of them."""
+    """chip_smoke.py's gate: the tensor-core prefill kernels (bf16 q over
+    bf16, int8 or fp8 caches) hold HMMA, the GEMM and flash-decode kernels
+    FFMA and neither HMMA nor HGMMA, the gridder and the degridder MUFU
+    and FFMA, JACOBI2D 16-byte LDG and STG, and ptxas spills nothing in
+    any of them."""
     from repro_torch.kernels import build
     build.library()
     _chip_smoke().check_redesigns(build)
@@ -517,6 +528,52 @@ def test_quant_prefill_kernel_matches_plain(card, mode, layout):
         assert pa_kernel.quant_launches == n0 + 1
         want = pa_ref.prefill_attention_ref(qg, kx, vx, k, v, offs, **kw)
     want = want.permute(0, 2, 1, 3, 4).reshape(b, t, kvh * g, hd)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("case", sorted(TC_CASES))
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_prefill_kernel_split_kv_edges_match_plain(card, mode, dt,
+                                                         case):
+    """TC_CASES over a cache of codes: bf16 q takes the tensor-core kernel
+    (codes widened to bf16, row scales on the fp32 fragments; hd 36, no
+    multiple of 16, copies its codes element by element), fp32 q the
+    CUDA-core one."""
+    b, t, c, kvh, g, hd, offs = TC_CASES[case]
+    qg = _randn(card, dt, b, kvh, t, g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    kc, ks = _codes(card, mode, b, c, kvh, hd, seed=3)
+    vc, vs = _codes(card, mode, b, c, kvh, hd, seed=4)
+    offs = torch.tensor(offs, dtype=torch.int32, device=card)
+    kw = dict(scale=hd ** -0.5, k_scale=ks, v_scale=vs)
+    got = pa_kernel.prefill_attention_cuda(qg, kx, vx, kc, vc, offs, **kw)
+    want = pa_ref.prefill_attention_ref(qg, kx, vx, kc, vc, offs, **kw)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", MODES)
+def test_quant_paged_prefill_kernel_uneven_offsets_and_dead_rows(card, mode,
+                                                                 dt):
+    """The paged split-KV case above (uneven offsets, rows 1 and 3 dead)
+    over pools of codes, the scale pools paged with them."""
+    b, t, kvh, g, hd, p, ps, nb = 8, 32, 3, 3, 64, 513, 16, 64
+    qg = _randn(card, dt, b, kvh, t, g, hd)
+    kx = _randn(card, dt, b, t, kvh, hd, seed=1)
+    vx = _randn(card, dt, b, t, kvh, hd, seed=2)
+    k, ks = _codes(card, mode, p, ps, kvh, hd, seed=3)
+    v, vs = _codes(card, mode, p, ps, kvh, hd, seed=4)
+    table = _table(card, b, nb, p)
+    table[1] = table[3] = 0
+    offs = torch.tensor([17, 0, 1000, 1024, 1100, 31, 480, 255],
+                        dtype=torch.int32, device=card)
+    kw = dict(scale=0.125, k_scale=ks, v_scale=vs)
+    got = pa_kernel.prefill_attention_paged_cuda(qg, kx, vx, k, v, table,
+                                                 offs, **kw)
+    want = pa_ref.prefill_attention_paged_ref(qg, kx, vx, k, v, table, offs,
+                                              **kw)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dt]
 
 

@@ -1,4 +1,4 @@
-"""The bf16 tensor-core chunked-prefill kernel's arithmetic, on the CPU.
+"""The tensor-core chunked-prefill kernel's arithmetic, on the CPU.
 
 The kernel (``csrc/prefill_attention.cu`` ``tc::prefill_tc_kernel``)
 runs only on the card, where ``tests/test_torch_cuda.py`` and
@@ -8,11 +8,17 @@ summed in fp32 and scaled after, softcap, masks (a masked key weighs 0:
 -inf, against a running max that starts at the finite NEG_INF), the
 online softmax in log2 units, each p split into bf16 p_hi + p_lo and both multiplied
 with v into the fp32 accumulator, and the splits' (m, l, acc) partials
-folded in split order with weights 2^(m_s - M) / L.  The emulation must
-agree with the port's plain version and with the JAX package's
-``prefill_attention_ref`` on the same numpy inputs within TOL[bf16]
-(2^-6 + 1e-5: one bf16 rounding step of outputs below 4, the tolerance
-chip_smoke.py holds the kernel to), contiguous and paged; one split and
+folded in split order with weights 2^(m_s - M) / L.  Over a cache of
+int8 or fp8_e4m3 codes a cache tile is its codes widened to bf16 (exact:
+every code is a bf16, also through the kernel's own widening, tested
+for all 256 int8 codes and every finite e4m3 value), column c's score is
+multiplied by its k scale within the score's multiplier, and each p by
+its v scale before the hi + lo split, while l sums the unscaled p.  The
+emulation must agree with the port's plain version and with the JAX
+package's ``prefill_attention_ref`` on the same numpy inputs (the same
+codes and scales) within TOL[bf16] (2^-6 + 1e-5: one bf16 rounding step
+of outputs below 4, the tolerance chip_smoke.py holds the kernel to),
+contiguous and paged, at one split and at the design's; one split and
 many must agree to fp32 rounding; and the split count must be what the
 design says at batch 1 and batch 8.
 """
@@ -24,6 +30,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels import quant as jquant  # noqa: E402
 from repro.kernels.prefill_attention import ref as jax_pa  # noqa: E402
 from repro_torch.kernels import split_kv  # noqa: E402
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
@@ -36,14 +43,20 @@ LOG2E = 1.4426950408889634
 
 
 def _tc_emulation(q, kx, vx, kc, vc, offs, *, ring=False, window=None,
-                  softcap=None, scale=1.0, nsplit=1):
-    """q (B, KVH, T, G, hd), kx/vx (B, T, KVH, hd), kc/vc (B, C, KVH, hd),
-    all bf16, offs a list -> the fp32 output (B, KVH, T, G, hdv) before
-    its rounding to bf16, in the kernel's order of operations."""
+                  softcap=None, scale=1.0, nsplit=1, k_scale=None,
+                  v_scale=None):
+    """q (B, KVH, T, G, hd), kx/vx (B, T, KVH, hd), all bf16, kc/vc
+    (B, C, KVH, hd) bf16 or, with k_scale/v_scale (B, C, KVH) float32,
+    int8 / float8_e4m3fn codes; offs a list -> the fp32 output
+    (B, KVH, T, G, hdv) before its rounding to bf16, in the kernel's order
+    of operations."""
     b_, kvh, t, g, hd = q.shape
     c, hdv = kc.shape[1], vc.shape[-1]
     out = torch.zeros((b_, kvh, t * g, hdv))
     rows_t = torch.arange(t * g)[:, None] // g           # (R, 1)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    mul, cap_in = f32(scale * LOG2E), f32(scale / (softcap or 1.0))
+    widen = lambda x: x.to(torch.bfloat16).float()       # noqa: E731
     for b in range(b_):
         off = int(offs[b])
         limit = min(off, c)
@@ -65,10 +78,16 @@ def _tc_emulation(q, kx, vx, kc, vc, offs, *, ring=False, window=None,
                     end = min(base + KT, hi if cache else t)
                     cols = torch.arange(base, end)[None, :]
                     src_k, src_v = (kc, vc) if cache else (kx, vx)
-                    kt = src_k[b, base:end, h].float()
-                    vt = src_v[b, base:end, h].float()
+                    kt = widen(src_k[b, base:end, h])
+                    vt = widen(src_v[b, base:end, h])
                     x = q2 @ kt.T
-                    if softcap is not None:
+                    codes = cache and k_scale is not None
+                    if codes:   # the k scale joins the multiplier
+                        ks = k_scale[b, base:end, h]
+                        x = x * ((cap_in if softcap else mul) * ks)
+                        if softcap is not None:
+                            x = torch.tanh(x) * (softcap * LOG2E)
+                    elif softcap is not None:
                         x = torch.tanh(x * (scale / softcap)) * (softcap * LOG2E)
                     else:
                         x = x * (scale * LOG2E)
@@ -92,6 +111,8 @@ def _tc_emulation(q, kx, vx, kc, vc, offs, *, ring=False, window=None,
                     alpha = torch.exp2(m - m_new)
                     p = torch.exp2(x2 - m_new[:, None])
                     l = alpha * l + p.sum(-1)
+                    if codes:   # p . (code * vs) = (p * vs) . code
+                        p = p * v_scale[b, base:end, h]
                     p_hi = p.to(torch.bfloat16).float()
                     p_lo = (p - p_hi).to(torch.bfloat16).float()
                     acc = alpha[:, None] * acc + (p_hi @ vt + p_lo @ vt)
@@ -211,6 +232,122 @@ def test_tc_emulation_matches_paged_plain_and_jax(case):
     assert _err(got, jax_out) <= TOL_BF16
 
 
+MODES = ("int8", "fp8_e4m3")
+
+
+def _to_torch(a) -> torch.Tensor:
+    """A JAX array as a torch tensor with the same bits (fp8 through its
+    byte view)."""
+    a = np.asarray(a)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _codes(rng, mode, *shape):
+    """(JAX codes, torch codes, JAX scales, torch scales) of ``mode``,
+    quantized by the JAX package from one numpy array."""
+    x = jnp.asarray(rng.standard_normal(shape).astype(np.float32))
+    jc, js = jquant.quantize(x, mode)
+    return jc, _to_torch(jc), js, _to_torch(js)
+
+
+@pytest.mark.parametrize("splits", ["one", "design"])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_tc_emulation_over_codes_matches_port_plain_and_jax(mode, case,
+                                                            splits):
+    """CASES with the cache in codes: bf16 q and chunk, the prefix int8 or
+    fp8_e4m3 with its row scales, at one split and at the design's."""
+    b, t, c, kvh, g, hd, offs, ring, window, softcap = CASES[case]
+    rng = np.random.default_rng(21)
+    jq, q = _bf16(rng, b, kvh, t, g, hd)
+    jkx, kx = _bf16(rng, b, t, kvh, hd)
+    jvx, vx = _bf16(rng, b, t, kvh, hd)
+    jkc, kc, jks, ks = _codes(rng, mode, b, c, kvh, hd)
+    jvc, vc, jvs, vs = _codes(rng, mode, b, c, kvh, hd)
+    kw = dict(ring=ring, window=window, softcap=softcap,
+              scale=1.0 / math.sqrt(hd))
+    nsplit = 1 if splits == "one" else _nsplit(b, kvh, t, g, c)
+    got = _tc_emulation(q, kx, vx, kc, vc, offs, nsplit=nsplit, k_scale=ks,
+                        v_scale=vs, **kw).to(torch.bfloat16)
+    offs_t = torch.tensor(offs, dtype=torch.int32)
+    plain = pa_ref.prefill_attention_ref(q, kx, vx, kc, vc, offs_t,
+                                         k_scale=ks, v_scale=vs, **kw)
+    jax_out = torch.from_numpy(np.array(jax_pa.prefill_attention_ref(
+        jq, jkx, jvx, jkc, jvc, jnp.asarray(np.array(offs, np.int32)),
+        k_scale=jks, v_scale=jvs, **kw).astype(jnp.float32)))
+    assert _err(got, plain) <= TOL_BF16
+    assert _err(got, jax_out) <= TOL_BF16
+
+
+@pytest.mark.parametrize("splits", ["one", "design"])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+@pytest.mark.parametrize("mode", MODES)
+def test_tc_emulation_over_paged_codes_matches_plain_and_jax(mode, case,
+                                                             splits):
+    """PAGED_CASES with the pools in codes and the scale pools paged with
+    them: the kernel reads codes and scales through the same physical
+    rows, so its arithmetic is the contiguous one's on the gathered
+    codes and scales."""
+    p, ps, b, t, nb, kvh, g, hd, offs, window, softcap = PAGED_CASES[case]
+    rng = np.random.default_rng(22)
+    jq, q = _bf16(rng, b, kvh, t, g, hd)
+    jkx, kx = _bf16(rng, b, t, kvh, hd)
+    jvx, vx = _bf16(rng, b, t, kvh, hd)
+    jkp, kp, jksp, ksp = _codes(rng, mode, p, ps, kvh, hd)
+    jvp, vp, jvsp, vsp = _codes(rng, mode, p, ps, kvh, hd)
+    table = rng.permutation(np.arange(1, p))[:b * nb].reshape(b, nb)
+    table = table.astype(np.int32)
+    kw = dict(window=window, softcap=softcap, scale=1.0 / math.sqrt(hd))
+    c = nb * ps
+    tt = torch.from_numpy(table).long()
+    gather = lambda x, *tail: x[tt].reshape(b, c, kvh, *tail)  # noqa: E731
+    nsplit = 1 if splits == "one" else _nsplit(b, kvh, t, g, c)
+    got = _tc_emulation(q, kx, vx, gather(kp, hd), gather(vp, hd), offs,
+                        nsplit=nsplit, k_scale=gather(ksp),
+                        v_scale=gather(vsp), **kw).to(torch.bfloat16)
+    offs_t = torch.tensor(offs, dtype=torch.int32)
+    plain = pa_ref.prefill_attention_paged_ref(
+        q, kx, vx, kp, vp, torch.from_numpy(table), offs_t, k_scale=ksp,
+        v_scale=vsp, **kw)
+    jax_out = torch.from_numpy(np.array(jax_pa.prefill_attention_paged_ref(
+        jq, jkx, jvx, jkp, jvp, jnp.asarray(table),
+        jnp.asarray(np.array(offs, np.int32)), k_scale=jksp, v_scale=jvsp,
+        **kw).astype(jnp.float32)))
+    assert _err(got, plain) <= TOL_BF16
+    assert _err(got, jax_out) <= TOL_BF16
+
+
+def test_int8_codes_widen_to_bf16_exactly():
+    """All 256 int8 codes: bf16 holds each (8 significant bits), and the
+    kernel's widening (the code's byte ^ 0x80 under the exponent byte
+    0x4b: the float 2^23 + code + 128, less 2^23 + 128) gives it."""
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    assert torch.equal(codes.to(torch.bfloat16).float(), codes.float())
+    byte = (codes.view(torch.uint8).to(torch.int32) ^ 0x80) | 0x4B000000
+    widened = byte.view(torch.float32) - 8388736.0
+    assert torch.equal(widened, codes.float())
+    assert torch.equal(widened.to(torch.bfloat16).float(), codes.float())
+
+
+def test_fp8_codes_widen_to_bf16_exactly():
+    """Every finite float8_e4m3fn value (254 of the 256 bytes; 4
+    significant bits, exponents 2^-9 .. 2^8): bf16 holds each, and so
+    does half, through which the kernel widens two codes at a time."""
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+        torch.float8_e4m3fn)
+    f = codes.float()
+    finite = torch.isfinite(f)
+    assert int(finite.sum()) == 254
+    assert torch.equal(codes.to(torch.bfloat16).float()[finite], f[finite])
+    via_half = codes.to(torch.float16).float()
+    assert torch.equal(via_half[finite], f[finite])
+    assert torch.equal(via_half.to(torch.bfloat16).float()[finite],
+                       f[finite])
+
+
 @pytest.mark.parametrize("nsplit", [2, 5, 8])
 def test_one_split_and_many_agree_to_fp32_rounding(nsplit):
     """Splitting moves each partial's running max, so p = 2^(x - m) and
@@ -266,11 +403,20 @@ def test_split_range_covers_the_range_once(start, limit, nsplit):
 
 
 def test_tc_kernel_takes_bf16_heads_up_to_128():
+    """bf16 q over a bf16 cache or codes (int8, fp8_e4m3), heads up to 128
+    wide; fp32 q, over any cache, and a bf16 q over an fp32 cache take the
+    CUDA-core kernel."""
     bf, f32 = torch.bfloat16, torch.float32
+    i8, f8 = torch.int8, torch.float8_e4m3fn
     assert pa_kernel.uses_tensor_cores(bf, bf, 64, 64)
     assert pa_kernel.uses_tensor_cores(bf, bf, 40, 40)
     assert pa_kernel.uses_tensor_cores(bf, bf, 128, 96)
     assert not pa_kernel.uses_tensor_cores(bf, bf, 256, 256)
     assert not pa_kernel.uses_tensor_cores(f32, f32, 64, 64)
     assert not pa_kernel.uses_tensor_cores(bf, f32, 64, 64)
-    assert not pa_kernel.uses_tensor_cores(bf, torch.int8, 64, 64)
+    assert pa_kernel.uses_tensor_cores(bf, i8, 64, 64)
+    assert pa_kernel.uses_tensor_cores(bf, f8, 36, 36)
+    assert pa_kernel.uses_tensor_cores(bf, i8, 128, 128)
+    assert not pa_kernel.uses_tensor_cores(bf, i8, 256, 256)
+    assert not pa_kernel.uses_tensor_cores(f32, i8, 64, 64)
+    assert not pa_kernel.uses_tensor_cores(f32, f8, 64, 64)
