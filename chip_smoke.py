@@ -36,12 +36,19 @@ Phases, in order; any failure exits nonzero:
      the scratch page 0, real pages untouched where rows are masked.
      3q. quantized KV caches, int8 and fp8_e4m3: the two quantizing
      scatters (contiguous, paged) bit for bit equal to their plain
-     versions in codes and scales, over bf16 and fp32 rows with zero
-     rows and +-1e4 extremes, no NaN, real pages untouched where rows
-     are masked; the four attention kernels over codes and row scales
-     against their plain versions with the same tolerances and cases as
-     above; each timed with its byte bound at code width (the decode
-     kernel's also in a CUDA graph).
+     versions in codes and scales, one leaf and a layer's k and v in one
+     launch, over bf16 and fp32 rows with zero rows and +-1e4 extremes,
+     at the serve shapes (decode B8 T1, the contiguous chunk B1 T32
+     C1024, paged decode, a paged chunk with masked rows), odd ones and
+     views off their alignment, no NaN, real pages untouched where rows
+     are masked; the pair call timed at the serve shapes on rows
+     without a zero vector, checked bit for bit too (CUDA events and a
+     CUDA graph, beside two one-leaf launches) with the two leaves' byte
+     bound, the ``kernels`` line's rows 5 and 6 marked ``leaves: 2``;
+     the four attention kernels over codes and row
+     scales against their plain versions with the same tolerances and
+     cases as above; each timed with its byte bound at code width (the
+     decode kernel's also in a CUDA graph).
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
@@ -83,9 +90,13 @@ Phases, in order; any failure exits nonzero:
      (int8, fp8_e4m3; contiguous, paged at page 16 with the default
      512-page pool), each with phase 5's checks, plus: only that
      layout's three quantized kernels launched (the bf16 ones and the
-     other layout's stayed at 0), ``stats()["kv_cache"]`` names the
-     mode, and bytes per token under 0.6x phase 5's bf16 figure; prints
-     how many requests generate the bf16 run's tokens (not gated).
+     other layout's stayed at 0), the layout's quantizing scatter
+     launched once a layer per decode step and per prefill chunk (k and
+     v in one launch), ``stats()["kv_cache"]`` names the mode, and bytes
+     per token under 0.6x phase 5's bf16 figure; prints how many
+     requests generate the bf16 run's tokens (not gated); the int8
+     contiguous trace's busy time, launches and launches a prefill chunk
+     beside phase 5's bf16 ones.
      5t. train full-width smollm-135m (bf16 on fp32 masters, AdamW,
      remat full, attn_impl pallas, batch 8 x 2048 from the synthetic
      pipeline): a warm-up step, then 20 steps through
@@ -120,6 +131,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -579,164 +591,281 @@ def check_prefill(kernel, ref, dev, mode=None):
 
 
 # -- phase 3, quantized: the quantizing scatters ---------------------------
-# Shapes: the serve path's (8 slots of 1024, smollm-135m's 3 kv heads of
-# 64; paged: 512 usable pages of 16 plus scratch, decode T 1 and a
-# 32-token chunk with masked rows) and odd ones (5 heads of 40, page
-# sizes 8 and 24, positions past the table).  Bit for bit: codes through
-# their bytes, scales with torch.equal.
+# Shapes: the serve path's (decode: 8 slots of 1024, smollm-135m's 3 kv
+# heads of 64; the contiguous prefill chunk: batch 1, 32 rows into 1024
+# slots; paged: 512 usable pages of 16 plus scratch, decode T 1 and a
+# 32-token chunk with masked rows) and odd ones (heads of 40: the lane
+# groups with idle lanes, 5 units of 16 bytes in groups of 8 in bf16, 10
+# in groups of 16 in float32; heads of 36: 72 bytes a bf16 vector, the
+# general path, and 9 units in groups of 16 in float32; page sizes 8 and
+# 24, positions past the table; a chunk whose start clamps to C - T;
+# views one element into their storage, the general path).  One leaf, and
+# a layer's k and v in one launch (the serve path's call).  Bit for bit:
+# codes through their bytes, scales with torch.equal.  The checked rows
+# hold a zero vector and +-1e4 extremes; the timed rows are plain normal
+# draws, as the serve path's projections give.
+
+def _quant_leaves(dev, quant, mode, dt, lead, rows, h, d, n, skew,
+                  planted=True):
+    """``n`` leaves (codes of ``lead`` + (h, d), float32 scales, rows of
+    ``rows`` + (h, d) in ``dt``, with ``planted`` a zero vector and +-1e4
+    extremes among them); with ``skew``, codes and rows views one element
+    into their storage."""
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=dev).manual_seed(21 + i)
+        codes, scales = quant.quantize(torch.randn(
+            (*lead, h, d), generator=g, device=dev), mode)
+        new = (3 * torch.randn((*rows, h, d), generator=g,
+                               device=dev)).to(dt)
+        if planted:
+            new[0, 0, h - 1] = 0.0                      # a zero vector
+            new[-1, 0, 0, :2] = torch.tensor([1e4, -1e4], device=dev)
+        if skew:
+            codes, new = misaligned(codes), misaligned(new)
+        out.append((codes, scales, new))
+    return out
+
+
+def _copies(leaves) -> list:
+    """The leaves' tensors, codes and scales copied (a skewed view stays
+    skewed), rows as they are: the arguments of one call."""
+    copy = lambda t: misaligned(t) if t.storage_offset() else t.clone()
+    return [x for codes, scales, new in leaves
+            for x in (copy(codes), scales.clone(), new)]
+
+
+def _quant_calls(kernel, ref, leaves, where, mode, paged):
+    """(kernel call, plain call) over ``leaves``: one leaf, or two in one
+    launch.  Each returns a list of (codes, scales) by leaf."""
+    name = "quant_paged_cache_update" if paged else "quant_cache_update"
+    pair = "_pair" if len(leaves) == 2 else ""
+    kfn = getattr(kernel, f"{name}{pair}_cuda")
+    rfn = getattr(ref, f"{name}{pair}_ref")
+    wrap = (lambda out: list(out)) if pair else (lambda out: [out])
+    return (lambda args: wrap(kfn(*args, *where, mode)),
+            lambda args: wrap(rfn(*args, *where, mode)))
+
+
+def _quant_timing(kernel, ref, leaves, where, mode, paged, nbytes) -> dict:
+    """One call over ``leaves`` (the pair at the serve shapes), checked
+    bit for bit first (outside the scratch page 0 when paged): its time
+    by CUDA events (host in the loop) and in a CUDA graph, the plain
+    version's, and the bound of ``nbytes``; beside it the graph time of
+    the two one-leaf launches the serve path made before (k, then v)."""
+    call, plain = _quant_calls(kernel, ref, leaves, where, mode, paged)
+    got, want = call(_copies(leaves)), plain(_copies(leaves))
+    lo = 1 if paged else 0
+    if not all(torch.equal(u8(gc)[lo:], u8(wc)[lo:])
+               and torch.equal(gs[lo:], ws[lo:])
+               for (gc, gs), (wc, ws) in zip(got, want)):
+        raise AssertionError("the timed quantizing scatter disagrees with "
+                             "its plain version")
+    args = _copies(leaves)
+    one, _ = _quant_calls(kernel, ref, leaves[:1], where, mode, paged)
+    t = {"ms": time_ms(lambda: call(args), iters=200),
+         "plain_ms": time_ms(lambda: plain(args), iters=200),
+         "library_ms": None,
+         "graph_ms": graph_ms(lambda: call(args)),
+         "two_launches_graph_ms": graph_ms(
+             lambda: (one(args[:3]), one(args[3:])))}
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 0.0, torch.bfloat16)
+    return t
+
+
+QUANT_CONTIGUOUS = {
+    "decode B8 T1 C1024 KVH3 hd64": dict(b=8, t=1, c=1024, h=3, d=64),
+    "chunk B1 T32 C1024 KVH3 hd64 off512": dict(b=1, t=32, c=1024, h=3,
+                                                d=64, slots=[512]),
+    "chunk B1 T32 C1024 off1000 (start 992)": dict(b=1, t=32, c=1024, h=3,
+                                                   d=64, slots=[1000]),
+    "odd B5 T1 C77 H5 D40": dict(b=5, t=1, c=77, h=5, d=40),
+    "odd B5 T3 C77 H5 D40": dict(b=5, t=3, c=77, h=5, d=40,
+                                 slots=[0, 74, 75, 200, 30]),
+    "odd B3 T7 C50 H2 D36": dict(b=3, t=7, c=50, h=2, d=36,
+                                 slots=[0, 43, 49]),
+    "misaligned decode B8 T1 C1024 KVH3 hd64": dict(b=8, t=1, c=1024, h=3,
+                                                    d=64, skew=True),
+}
+
 
 def check_quant_cache_update(kernel, ref, quant, dev):
-    cases = {"main B8 C1024 KVH3 hd64": (8, 1024, 3, 64),
-             "odd B5 C77 H5 D40": (5, 77, 5, 40)}
+    """Row 5: one leaf and two (k and v in one launch) bit for bit; the
+    pair timed at the decode and chunk serve shapes (bf16 rows)."""
     results = {}
     for mode in MODES:
-        for name, (b, c, h, d) in cases.items():
+        for name, cs in QUANT_CONTIGUOUS.items():
+            b, t, c, h, d = (cs[x] for x in ("b", "t", "c", "h", "d"))
             for dt in (torch.float32, torch.bfloat16):
-                g = torch.Generator(device=dev).manual_seed(21)
-                cache, scales = quant.quantize(torch.randn(
-                    (b, c, h, d), generator=g, device=dev), mode)
-                new = (3 * torch.randn((b, 1, h, d), generator=g,
-                                       device=dev)).to(dt)
-                new[1, 0, h - 1] = 0.0                      # a zero row
-                new[2, 0, 0, :2] = torch.tensor([1e4, -1e4], device=dev)
-                slots = torch.randint(0, c, (b,), generator=g, device=dev,
-                                      dtype=torch.int32)
-                slots[0], slots[-1] = 0, c - 1
-                want = ref.quant_cache_update_ref(
-                    cache.clone(), scales.clone(), new, slots, mode)
-                got = kernel.quant_cache_update_cuda(
-                    cache.clone(), scales.clone(), new, slots, mode)
-                torch.cuda.synchronize()
-                exact = torch.equal(u8(got[0]), u8(want[0])) \
-                    and torch.equal(got[1], want[1])
-                finite = bool(torch.isfinite(quant.dequantize(*got)).all())
-                log(f"  quant_cache_update {mode} {name} {str(dt)[6:]} "
-                    f"rows: codes and scales "
-                    f"{'equal' if exact else 'DIFFERENT'} bit for bit, "
-                    f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
-                if not (exact and finite):
-                    raise AssertionError("quant_cache_update disagrees with "
-                                         "its plain version")
-                if name.startswith("main") and dt == torch.bfloat16:
-                    n = b * h
-                    t = {
-                        "ms": time_ms(lambda: kernel.quant_cache_update_cuda(
-                            cache, scales, new, slots, mode), iters=200),
-                        "plain_ms": time_ms(
-                            lambda: ref.quant_cache_update_ref(
-                                cache, scales, new, slots, mode), iters=200),
-                        "library_ms": None,
-                        "graph_ms": graph_ms(
-                            lambda: kernel.quant_cache_update_cuda(
-                                cache, scales, new, slots, mode)),
-                    }
-                    log(f"  quant_cache_update {mode} {name}: device time "
-                        f"a call (CUDA graph) {tm_graph(t)}")
-                    # read the rows, write codes and scales, read slots
-                    t["bound_ms"], t["bound_by"] = bound(
-                        n * d * new.element_size() + n * d + 4 * n + 4 * b,
-                        0.0, dt)
-                    results[mode] = dict(t, max_abs_err=0.0)
+                for n in (1, 2):
+                    leaves = _quant_leaves(dev, quant, mode, dt, (b, c),
+                                           (b, t), h, d, n,
+                                           cs.get("skew", False))
+                    if "slots" in cs:
+                        slots = torch.tensor(cs["slots"], dtype=torch.int32,
+                                             device=dev)
+                    else:
+                        g = torch.Generator(device=dev).manual_seed(20)
+                        slots = torch.randint(0, c, (b,), generator=g,
+                                              device=dev, dtype=torch.int32)
+                        slots[0], slots[-1] = 0, c - 1
+                    call, plain = _quant_calls(kernel, ref, leaves, (slots,),
+                                               mode, paged=False)
+                    got, want = call(_copies(leaves)), plain(_copies(leaves))
+                    torch.cuda.synchronize()
+                    exact = all(torch.equal(u8(gc), u8(wc))
+                                and torch.equal(gs, ws)
+                                for (gc, gs), (wc, ws) in zip(got, want))
+                    finite = all(bool(torch.isfinite(
+                        quant.dequantize(*x)).all()) for x in got)
+                    how = "k and v in one launch" if n == 2 else "one leaf"
+                    log(f"  quant_cache_update {mode} {name} {str(dt)[6:]} "
+                        f"rows, {how}: codes and scales "
+                        f"{'equal' if exact else 'DIFFERENT'} bit for bit, "
+                        f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
+                    if not (exact and finite):
+                        raise AssertionError("quant_cache_update disagrees "
+                                             "with its plain version")
+                    if not ((name.startswith("decode") or "off512" in name)
+                            and dt == torch.bfloat16 and n == 2):
+                        continue
+                    # read both leaves' rows, write their codes and
+                    # scales, read the slots
+                    vec, el = b * t * h, leaves[0][2].element_size()
+                    timed = _quant_leaves(dev, quant, mode, dt, (b, c),
+                                          (b, t), h, d, n, False,
+                                          planted=False)
+                    tm = _quant_timing(kernel, ref, timed, (slots,), mode,
+                                       False, 2 * vec * (d * el + d + 4)
+                                       + 4 * b)
+                    log(f"  quant_cache_update {mode} {name}, k and v in "
+                        f"one launch: kernel {tm['ms']:.5f} ms (host in the "
+                        f"loop), {tm['graph_ms']:.5f} in a CUDA graph "
+                        f"(two one-leaf launches "
+                        f"{tm['two_launches_graph_ms']:.5f}), plain "
+                        f"{tm['plain_ms']:.5f}, bound {tm['bound_ms']:.7f} "
+                        f"(bytes)")
+                    if name.startswith("decode"):
+                        results[mode] = dict(tm, max_abs_err=0.0)
+                    else:
+                        results[mode].update(
+                            {f"chunk_{k}": tm[k] for k in (
+                                "ms", "graph_ms", "plain_ms", "bound_ms")})
     log("  quant_cache_update: library none (no single PyTorch call "
         "quantizes rows and scatters codes and scales)")
     return results
 
 
+QUANT_PAGED = {
+    "decode P513 ps16 B8 NB64 T1": dict(
+        p=513, ps=16, h=3, d=64, b=8, nb=64, t=1, masked=(7,),
+        starts=[0, 1, 15, 16, 511, 1023, 700, 1500],
+        valids=[1, 1, 1, 1, 1, 1, 0, 1]),
+    "prefill P513 ps16 B8 NB64 T32": dict(
+        p=513, ps=16, h=3, d=64, b=8, nb=64, t=32, masked=(),
+        starts=[0, 16, 512, 992, 5, 100, 0, 17],
+        valids=[32, 32, 17, 32, 0, 1, 0, 31]),
+    "odd P40 ps24 H2 D40 B3 NB5 T7": dict(
+        p=40, ps=24, h=2, d=40, b=3, nb=5, t=7, masked=(),
+        starts=[0, 23, 110], valids=[7, 3, 0]),
+    "odd P40 ps8 B4 NB9 T1 past the table": dict(
+        p=40, ps=8, h=3, d=64, b=4, nb=9, t=1, masked=(),
+        starts=[71, 72, 500, 3], valids=[1, 1, 1, 0]),
+    # row 2 ends on the table's last slot (a later start would land
+    # several rows there, in no defined order)
+    "odd P30 ps8 H2 D36 B3 NB4 T5": dict(
+        p=30, ps=8, h=2, d=36, b=3, nb=4, t=5, masked=(),
+        starts=[0, 6, 27], valids=[5, 2, 5]),
+    "misaligned prefill P513 ps16 B8 NB64 T32": dict(
+        p=513, ps=16, h=3, d=64, b=8, nb=64, t=32, masked=(),
+        starts=[0, 16, 512, 992, 5, 100, 0, 17],
+        valids=[32, 32, 17, 32, 0, 1, 0, 31], skew=True),
+}
+
+
 def check_quant_paged_cache_update(kernel, ref, quant, dev):
-    """Bit for bit outside the scratch page 0; every row of a real page
-    that no valid row targets keeps its code bytes and its scale."""
-    cases = {
-        "decode P513 ps16 B8 NB64 T1": dict(
-            p=513, ps=16, h=3, d=64, b=8, nb=64, t=1, masked=(7,),
-            starts=[0, 1, 15, 16, 511, 1023, 700, 1500],
-            valids=[1, 1, 1, 1, 1, 1, 0, 1]),
-        "prefill P513 ps16 B8 NB64 T32": dict(
-            p=513, ps=16, h=3, d=64, b=8, nb=64, t=32, masked=(),
-            starts=[0, 16, 512, 992, 5, 100, 0, 17],
-            valids=[32, 32, 17, 32, 0, 1, 0, 31]),
-        "odd P40 ps24 H2 D40 B3 NB5 T7": dict(
-            p=40, ps=24, h=2, d=40, b=3, nb=5, t=7, masked=(),
-            starts=[0, 23, 110], valids=[7, 3, 0]),
-        "odd P40 ps8 B4 NB9 T1 past the table": dict(
-            p=40, ps=8, h=3, d=64, b=4, nb=9, t=1, masked=(),
-            starts=[71, 72, 500, 3], valids=[1, 1, 1, 0]),
-    }
+    """Row 6: bit for bit outside the scratch page 0, one leaf and two in
+    one launch; every row of a real page that no valid row targets keeps
+    its code bytes and its scale.  The pair timed at the decode and chunk
+    serve shapes (bf16 rows)."""
     results = {}
     for mode in MODES:
-        for name, cs in cases.items():
+        for name, cs in QUANT_PAGED.items():
+            p, ps, h, d, b, nb, t = (cs[x] for x in (
+                "p", "ps", "h", "d", "b", "nb", "t"))
+            table = _page_table(dev, b, nb, p, 23, cs["masked"])
+            starts = torch.tensor(cs["starts"], dtype=torch.int32,
+                                  device=dev)
+            valids = torch.tensor(cs["valids"], dtype=torch.int32,
+                                  device=dev)
+            where = (table, starts, valids)
+            pos = torch.clamp(starts.long()[:, None]
+                              + torch.arange(t, device=dev), max=nb * ps - 1)
+            ok = torch.arange(t, device=dev)[None] < valids.long()[:, None]
+            hit = (torch.gather(table.long(), 1, pos // ps) * ps
+                   + pos % ps)[ok]
+            kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
+            kept[hit] = False
+            kept[:ps] = False                       # page 0: undefined
             for dt in (torch.float32, torch.bfloat16):
-                p, ps, h, d, b, nb, t = (cs[x] for x in (
-                    "p", "ps", "h", "d", "b", "nb", "t"))
-                g = torch.Generator(device=dev).manual_seed(22)
-                pool, scales = quant.quantize(torch.randn(
-                    (p, ps, h, d), generator=g, device=dev), mode)
-                new = (3 * torch.randn((b, t, h, d), generator=g,
-                                       device=dev)).to(dt)
-                new[0, 0, 0] = 0.0
-                new[1, 0, 0, :2] = torch.tensor([1e4, -1e4], device=dev)
-                table = _page_table(dev, b, nb, p, 23, cs["masked"])
-                starts = torch.tensor(cs["starts"], dtype=torch.int32,
-                                      device=dev)
-                valids = torch.tensor(cs["valids"], dtype=torch.int32,
-                                      device=dev)
-                args = (new, table, starts, valids, mode)
-                want = ref.quant_paged_cache_update_ref(
-                    pool.clone(), scales.clone(), *args)
-                got = kernel.quant_paged_cache_update_cuda(
-                    pool.clone(), scales.clone(), *args)
-                torch.cuda.synchronize()
-                exact = torch.equal(u8(got[0])[1:], u8(want[0])[1:]) \
-                    and torch.equal(got[1][1:], want[1][1:])
-                pos = torch.clamp(starts.long()[:, None]
-                                  + torch.arange(t, device=dev),
-                                  max=nb * ps - 1)
-                ok = torch.arange(t, device=dev)[None] \
-                    < valids.long()[:, None]
-                hit = (torch.gather(table.long(), 1, pos // ps) * ps
-                       + pos % ps)[ok]
-                kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
-                kept[hit] = False
-                kept[:ps] = False                   # page 0: undefined
-                untouched = torch.equal(
-                    u8(got[0]).view(p * ps, -1)[kept],
-                    u8(pool).view(p * ps, -1)[kept]) and torch.equal(
-                    got[1].view(p * ps, -1)[kept],
-                    scales.view(p * ps, -1)[kept])
-                finite = bool(torch.isfinite(
-                    quant.dequantize(*got)[1:]).all())
-                log(f"  quant_paged_cache_update {mode} {name} "
-                    f"{str(dt)[6:]} rows: outside page 0 "
-                    f"{'equal' if exact else 'DIFFERENT'} bit for bit; "
-                    f"{int(kept.sum())} rows of real pages no valid row "
-                    f"targets {'unchanged' if untouched else 'CHANGED'}; "
-                    f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
-                if not (exact and untouched and finite):
-                    raise AssertionError("quant_paged_cache_update "
-                                         "disagrees with its plain version")
-                if name.startswith(("decode", "prefill")) \
-                        and dt == torch.bfloat16:
-                    n = int(ok.sum()) * h
-                    tm = {
-                        "ms": time_ms(
-                            lambda: kernel.quant_paged_cache_update_cuda(
-                                pool, scales, *args), iters=200),
-                        "plain_ms": time_ms(
-                            lambda: ref.quant_paged_cache_update_ref(
-                                pool, scales, *args), iters=200),
-                        "library_ms": None,
-                        "graph_ms": graph_ms(
-                            lambda: kernel.quant_paged_cache_update_cuda(
-                                pool, scales, *args)),
-                    }
-                    tm["bound_ms"], tm["bound_by"] = bound(
-                        n * d * new.element_size() + n * d + 4 * n
-                        + 4 * int(ok.sum()) + 8 * b, 0.0, dt)
-                    log(f"  quant_paged_cache_update {mode} {name}: kernel "
-                        f"{tm['ms']:.5f} ms, plain {tm['plain_ms']:.5f}, "
-                        f"bound {tm['bound_ms']:.7f}; device time a call "
-                        f"(CUDA graph) {tm_graph(tm)}")
+                for n in (1, 2):
+                    leaves = _quant_leaves(dev, quant, mode, dt, (p, ps),
+                                           (b, t), h, d, n,
+                                           cs.get("skew", False))
+                    call, plain = _quant_calls(kernel, ref, leaves, where,
+                                               mode, paged=True)
+                    got, want = call(_copies(leaves)), plain(_copies(leaves))
+                    torch.cuda.synchronize()
+                    exact = all(torch.equal(u8(gc)[1:], u8(wc)[1:])
+                                and torch.equal(gs[1:], ws[1:])
+                                for (gc, gs), (wc, ws) in zip(got, want))
+                    untouched = all(
+                        torch.equal(u8(gc).view(p * ps, -1)[kept],
+                                    u8(codes).view(p * ps, -1)[kept])
+                        and torch.equal(gs.view(p * ps, -1)[kept],
+                                        scales.view(p * ps, -1)[kept])
+                        for (gc, gs), (codes, scales, _) in zip(got, leaves))
+                    finite = all(bool(torch.isfinite(
+                        quant.dequantize(gc, gs)[1:]).all())
+                        for gc, gs in got)
+                    how = "k and v in one launch" if n == 2 else "one leaf"
+                    log(f"  quant_paged_cache_update {mode} {name} "
+                        f"{str(dt)[6:]} rows, {how}: outside "
+                        f"page 0 {'equal' if exact else 'DIFFERENT'} bit for "
+                        f"bit; {int(kept.sum())} rows of real pages no valid "
+                        f"row targets "
+                        f"{'unchanged' if untouched else 'CHANGED'}; "
+                        f"{'no' if finite else 'SOME'} NaN/Inf dequantized")
+                    if not (exact and untouched and finite):
+                        raise AssertionError("quant_paged_cache_update "
+                                             "disagrees with its plain "
+                                             "version")
+                    if not (name.startswith(("decode", "prefill"))
+                            and dt == torch.bfloat16 and n == 2):
+                        continue
+                    # both leaves' valid rows read and written, one table
+                    # entry a valid row, starts and valids
+                    vec = int(ok.sum()) * h
+                    el = leaves[0][2].element_size()
+                    timed = _quant_leaves(dev, quant, mode, dt, (p, ps),
+                                          (b, t), h, d, n, False,
+                                          planted=False)
+                    tm = _quant_timing(kernel, ref, timed, where, mode,
+                                       True, 2 * vec * (d * el + d + 4)
+                                       + 4 * int(ok.sum()) + 8 * b)
+                    log(f"  quant_paged_cache_update {mode} {name}, k and v "
+                        f"in one launch: kernel {tm['ms']:.5f} ms (host in "
+                        f"the loop), {tm['graph_ms']:.5f} in a CUDA graph "
+                        f"(two one-leaf launches "
+                        f"{tm['two_launches_graph_ms']:.5f}), plain "
+                        f"{tm['plain_ms']:.5f}, bound {tm['bound_ms']:.7f} "
+                        f"(bytes)")
                     if name.startswith("decode"):
                         results[mode] = dict(tm, max_abs_err=0.0)
+                    else:
+                        results[mode].update(
+                            {f"chunk_{k}": tm[k] for k in (
+                                "ms", "graph_ms", "plain_ms", "bound_ms")})
     return results
 
 
@@ -1312,14 +1441,16 @@ _SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"\s*([^;]*);")
 
 
-def sass_functions(library: Path) -> list:
+@functools.lru_cache(maxsize=None)
+def sass_functions(library: Path) -> tuple:
     """(name, instructions) of every function in the built library, as
-    ``cuobjdump -sass`` shows it."""
+    ``cuobjdump -sass`` shows it; one disassembly a library per process
+    (the checks of phases 3b and 3f read it a dozen times)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return [tuple(f.split("\n", 1))
-            for f in re.split(r"\n\s*Function : ", sass)[1:]]
+    return tuple(tuple(f.split("\n", 1))
+                 for f in re.split(r"\n\s*Function : ", sass)[1:])
 
 
 def sass_ops_per_term(library: Path, kernel: str, marker: str) -> tuple:
@@ -1632,6 +1763,13 @@ REDESIGNS = (
     # JACOBI2D's strip walk: 16-byte loads and stores (the 16-byte path)
     # and the element path
     ("jacobi2d_kernel", "jacobi2d.cu", 2, {"LDG", "STG"}, set()),
+    # the quantizing scatters, contiguous and paged: float32, bf16 rows x
+    # int8, fp8_e4m3 codes x the 16-byte path (lane groups) and the
+    # general path (a warp a vector)
+    ("quant_scatter_kernel", "cache_update.cu", 8, {"LDG", "STG", "SHFL"},
+     set()),
+    ("quant_paged_scatter_kernel", "cache_update.cu", 8,
+     {"LDG", "STG", "SHFL"}, set()),
 )
 
 
@@ -1641,17 +1779,29 @@ def check_redesigns(build) -> None:
     kernels on the CUDA cores in float32 (FFMA, no HMMA or HGMMA), the
     gridder's and the degridder's phasor on the SFU (MUFU), JACOBI2D's
     16-byte path loads and stores 16 bytes an instruction (LDG and STG
-    with a .128 width), and none of them, nor the STREAM triad, spills a
-    byte (ptxas)."""
+    with a .128 width), the quantizing scatters' lane-group path loads 16
+    bytes an instruction (LDG.128), and none of them, nor the STREAM
+    triad, spills a byte (ptxas)."""
+    funcs = sass_functions(build.library_path())
     wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
              if ".128" in op}
-            for name, text in sass_functions(build.library_path())
-            if "jacobi2d_kernelILi4E" in name]
+            for name, text in funcs if "jacobi2d_kernelILi4E" in name]
     log(f"  jacobi2d_kernel<4> SASS: opcodes with a .128 width "
         f"{[sorted(f) for f in wide]}")
     if not (len(wide) == 1 and {"LDG", "STG"} <= wide[0]):
         raise AssertionError("jacobi2d's 16-byte path does not load and "
                              "store 16 bytes an instruction")
+    # kVec = true: the template's last argument, "Lb1E" in the name
+    groups = [any(op.startswith("LDG") and ".128" in op
+                  for _, op, _ in _SASS.findall(text))
+              for name, text in funcs
+              if "scatter_kernel" in name and "quant" in name
+              and "Lb1E" in name]
+    log(f"  quantizing scatters' lane-group path: {len(groups)} kernels, "
+        f"{sum(groups)} with a 16-byte LDG")
+    if not (len(groups) == 8 and all(groups)):
+        raise AssertionError("the quantizing scatters' lane-group path does "
+                             "not load 16 bytes an instruction")
     for kernel, source, count, must, must_not in REDESIGNS:
         funcs = sass_opcodes(build.library_path(), kernel)
         usage = ptxas_usage(nvcc_log(build, source), kernel)
@@ -2010,10 +2160,10 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
                            serve_launch) for i in (1, 2)]
     finally:
         reader.close()
-    trace_serve(eng, cfg, Request, rng)
+    traced = trace_serve(eng, cfg, Request, rng)
     session.close()
     return runs[0][0], prompts, runs[0][1], \
-        eng.stats()["kv_cache"]["bytes_per_token"]
+        eng.stats()["kv_cache"]["bytes_per_token"], traced
 
 
 def serve_workload(cfg, Request, rng) -> tuple:
@@ -2172,19 +2322,43 @@ def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
     return launches
 
 
+def count_steps(eng) -> dict:
+    """Wrap the engine's serve steps (both layouts') so that each call
+    adds one to its count: {"decode": steps, "chunk": prefill chunks}."""
+    steps = {"decode": 0, "chunk": 0}
+
+    def counted(fn, key):
+        def call(*args):
+            steps[key] += 1
+            return fn(*args)
+        return call
+
+    for attr in ("_fns", "_paged_fns"):
+        fns = getattr(eng, attr, None)
+        if fns is not None:
+            setattr(eng, attr, fns._replace(
+                decode=counted(fns.decode, "decode"),
+                prefill_chunk=counted(fns.prefill_chunk, "chunk")))
+    return steps
+
+
 def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     others, nvml, pmt, serve_launch, prompts, bf16_tokens,
-                    bf16_bytes):
+                    bf16_bytes, bf16_trace):
     """Phase 5c: phase 5's 16 requests through full-width smollm-135m
     once per quantized cache mode and layout (contiguous; paged, page 16,
     the default pool of 512 usable pages), each on its own engine, all
     through one PMT session (cpuutil + nvml).  ``kernels[layout]`` are
     the three quantized kernels that layout must launch; every counter
     in ``others[layout]`` (the bf16 kernels, the other layout's quantized
-    ones) must stay 0.  Checks the mode in ``stats()``, the footprint under
-    0.6x phase 5's bf16 bytes per token, and everything ``served_run``
-    checks; traces the int8 engines as phases 5 and 5b trace theirs.
-    Returns each kernel's launches summed over both modes."""
+    ones) must stay 0.  The layout's quantizing scatter must launch once a
+    layer per decode step and per prefill chunk (k and v in one launch;
+    contiguous chunks included).  Checks the mode in ``stats()``, the
+    footprint under 0.6x phase 5's bf16 bytes per token, and everything
+    ``served_run`` checks; traces the int8 engines as phases 5 and 5b
+    trace theirs, the contiguous one beside phase 5's ``bf16_trace``
+    (busy ms, launches issued, launches a chunk).  Returns each kernel's
+    launches summed over both modes."""
     cfg = configs.get_config("smollm-135m")
     params = model_mod.init_params(cfg, seed=0, device="cuda")
     session = pmt.Session(["cpuutil", "nvml"])
@@ -2216,6 +2390,7 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     for _ in range(2)])
                 torch.cuda.synchronize()
                 zero_counts(others[layout])
+                steps = count_steps(eng)
                 counts, out = served_run(
                     eng, Request, prompts, kernels[layout],
                     nvml.EnergyMeter(reader), f"{mode} {layout}", session,
@@ -2225,6 +2400,17 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                 if stray:
                     raise AssertionError(f"{mode} {layout} launched other "
                                          f"kernels: {stray}")
+                scatter = "quant_paged_cache_update" if layout == "paged" \
+                    else "quant_cache_update"
+                want = cfg.num_layers * (steps["decode"] + steps["chunk"])
+                log(f"  {mode} {layout}: {scatter} launched {counts[scatter]}"
+                    f" times for {steps['decode']} decode steps and "
+                    f"{steps['chunk']} prefill chunks of {cfg.num_layers} "
+                    f"layers (must be {want}: once a layer a step, k and v "
+                    f"in one launch)")
+                if counts[scatter] != want:
+                    raise AssertionError(f"{mode} {layout}: {scatter} is not "
+                                         f"launched once a layer a step")
                 agree = sum(a == b for a, b in zip(out, bf16_tokens))
                 log(f"  {mode} {layout}: the bf16 kernels and the other "
                     f"layout's stayed at 0; {agree} of {len(out)} requests "
@@ -2235,7 +2421,14 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     # phase 5's and 5b's traced run on this engine: the
                     # same shapes, so its wall clock, device busy time and
                     # launches compare with theirs
-                    trace_serve(eng, cfg, Request, rng)
+                    traced = trace_serve(eng, cfg, Request, rng)
+                    if layout == "contiguous" and None not in traced \
+                            and None not in bf16_trace:
+                        log("  int8 contiguous against phase 5's bf16: busy "
+                            f"{traced[0]:.1f} ms against {bf16_trace[0]:.1f}"
+                            f", {traced[1]} kernel launches issued against "
+                            f"{bf16_trace[1]}, {traced[2]} a prefill chunk "
+                            f"against {bf16_trace[2]}")
                 del eng
     finally:
         reader.close()
@@ -2243,15 +2436,18 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
     return totals
 
 
-def trace_serve(eng, cfg, Request, rng):
+def trace_serve(eng, cfg, Request, rng) -> tuple:
     """Where the time goes: a short serve run (8 requests, 256-token
     prompts, 32 new tokens) under ``torch.profiler``; prints the device
     busy share of the wall clock and the kernels by device time.  The
     profiler records the card's activity only (kernels, copies, the
     runtime calls that launch them), not every host op, which keeps its
     post-processing short; it still slows the host, so the busy share is
-    a lower bound.  A measurement only: it prints why when the profiler
-    sees no device."""
+    a lower bound.  Then, on a contiguous engine, the kernel launches one
+    prefill chunk issues (batch 1, 32 tokens at offset 32 of a fresh chunk
+    cache, after one untraced chunk).  A measurement only: it prints why
+    when the profiler sees no device.  Returns the device busy ms, the
+    launches issued and the launches a chunk (None where not measured)."""
     from torch.profiler import ProfilerActivity, profile
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 256).tolist(),
                     max_new_tokens=32) for _ in range(8)]
@@ -2260,12 +2456,41 @@ def trace_serve(eng, cfg, Request, rng):
         eng.generate(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    trace_summary(prof, wall, ("scatter_rows_kernel", "paged_scatter_kernel",
-                               "quant_scatter_kernel",
-                               "quant_paged_scatter_kernel",
-                               "decode_attention_kernel",
-                               "prefill_attention_kernel",
-                               "prefill_tc_kernel"))
+    busy, _ = trace_summary(prof, wall, (
+        "scatter_rows_kernel", "paged_scatter_kernel",
+        "quant_scatter_kernel", "quant_paged_scatter_kernel",
+        "decode_attention_kernel", "prefill_attention_kernel",
+        "prefill_tc_kernel"))
+    per_chunk = None
+    if eng.kv_layout == "contiguous":
+        from repro_torch.models import model as model_mod
+        caches = model_mod.init_caches(eng.cfg, 1, eng.max_len,
+                                       dtype=eng.cache_dtype,
+                                       device=eng.device)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 32)),
+                               device=eng.device)
+        eng._fns.prefill_chunk(eng.params, caches, toks[:1], 0, 31)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as chunk_prof:
+            eng._fns.prefill_chunk(eng.params, caches, toks[1:], 32, 31)
+            torch.cuda.synchronize()
+        from torch.autograd import DeviceType
+        per_chunk = launches_issued(chunk_prof)
+        ran = sum(e.count for e in chunk_prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation)
+        log(f"  trace: one prefill chunk (B1, 32 tokens, {cfg.num_layers} "
+            f"layers) issues {per_chunk} kernel launches; {ran} device "
+            f"kernels and copies run")
+    return busy, launches_issued(prof) if busy is not None else None, \
+        per_chunk
+
+
+def launches_issued(prof) -> int:
+    """Kernel launches the host issued under ``prof`` (its
+    cudaLaunchKernel and cuLaunchKernelEx calls)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
 
 
 def trace_summary(prof, wall: float, kernel_names) -> tuple:
@@ -2287,11 +2512,9 @@ def trace_summary(prof, wall: float, kernel_names) -> tuple:
     if busy_us <= 0:
         log("  trace: the profiler recorded no device time")
         return None, None
-    # kernel launches the host issued (cudaLaunchKernel and
-    # cuLaunchKernelEx calls), and the device rows' executions (kernels,
-    # copies, sets)
-    issued = sum(e.count for e in averages
-                 if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+    # kernel launches the host issued, and the device rows' executions
+    # (kernels, copies, sets)
+    issued = launches_issued(prof)
     executed = sum(n for _, _, n in rows)
     log(f"  trace: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of "
@@ -2828,7 +3051,7 @@ def main() -> int:
     })
     timings.update(check_gridder(grid_kernel, grid_ref, dev,
                                  build.library_path()))
-    log("  the kernels redesigned for Hopper: SASS and ptxas")
+    log(f"  the kernels redesigned for Hopper: SASS and ptxas {elapsed()}")
     check_redesigns(build)
     log(f"[3f] flash attention against its plain version {elapsed()}")
     if build.build_log:
@@ -2855,7 +3078,7 @@ def main() -> int:
         f"max_len 1024, chunk 32, bf16 {elapsed()}")
     kernels = {"cache_update": cu_kernel, "prefill_attention": pa_kernel,
                "decode_attention": da_kernel}
-    launches, prompts, bf16_tokens, bf16_bytes = serve_full(
+    launches, prompts, bf16_tokens, bf16_bytes, bf16_trace = serve_full(
         configs, model_mod, ServeEngine, Request, kernels, nvml, pmt,
         serve_launch)
 
@@ -2886,7 +3109,8 @@ def main() -> int:
               for layout, ks in quant_kernels.items()}
     quant_launches = serve_quantized(
         configs, model_mod, ServeEngine, Request, quant_kernels, others,
-        nvml, pmt, serve_launch, prompts, bf16_tokens, bf16_bytes)
+        nvml, pmt, serve_launch, prompts, bf16_tokens, bf16_bytes,
+        bf16_trace)
 
     log(f"[5t] train full-width smollm-135m: batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, bf16 on fp32 masters, AdamW, remat full, "
@@ -2930,7 +3154,10 @@ def main() -> int:
     # their bf16 ones.
     for name in ("quant_cache_update", "quant_paged_cache_update"):
         by_mode = quant_timings.pop(name)
-        timings[name] = dict(by_mode["int8"], fp8_e4m3=by_mode["fp8_e4m3"])
+        # a call writes a layer's k and v: ms, graph_ms, bound_ms and
+        # launches are a pair call's (two_launches_graph_ms: a leaf a call)
+        timings[name] = dict(by_mode["int8"], leaves=2,
+                             fp8_e4m3=by_mode["fp8_e4m3"])
         launches[name] = quant_launches[name]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
@@ -2940,8 +3167,10 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                **{k: t[k] for k in keys}}
-        extras = ("graph_ms", "library_graph_ms", "backward_plain_ms",
-                  "copy_ms",
+        extras = ("leaves", "graph_ms", "library_graph_ms",
+                  "backward_plain_ms", "copy_ms", "two_launches_graph_ms",
+                  "chunk_ms", "chunk_graph_ms", "chunk_plain_ms",
+                  "chunk_bound_ms",
                   "ops_per_term", "sfu_per_term", "bound_fp32_ms",
                   "bound_sfu_ms", "bound_bytes_ms")
         row.update({k: t[k] for k in extras if k in t})

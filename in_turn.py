@@ -35,9 +35,19 @@ builds its kernels, then measures with this checkout's
     one row dead): the flash-decode kernel, contiguous and paged, in bf16
     and over int8 codes (rows 3q, 7q), by ``graph_ms``, and row 3's SDPA
     yardstick by ``graph_ms``;
+  * rows 5 and 6, a layer's quantized write (k and v, int8 codes of
+    bf16 rows, 3 kv heads of 64) at the serve shapes, by ``graph_ms``:
+    decode (8 rows into 1024 slots; paged, ``QUANT_PAGED``'s decode case)
+    and a prefill chunk (batch 1, 32 rows at slot 512; paged, its chunk
+    case).  A checkout whose ``cache_update`` kernel module has the pair
+    wrappers makes one pair call; one without makes the calls its serve
+    path made: the two one-leaf launches, and for the contiguous chunk
+    ``quant.quantize`` and four ``chunk_kv_write`` slice copies;
   * phase 5's serve cell (full-width smollm-135m, 8 slots, max_len 1024,
     chunk 32, bf16; ``serve_workload``'s 16 requests, 64 new tokens
-    each) served once after its warm-up: wall seconds and tokens/s;
+    each) served once after its warm-up: wall seconds and tokens/s; then
+    phase 5c's int8 contiguous cell (the same with ``cache_dtype="int8"``,
+    no session) likewise;
   * phase 3f's main case: the flash-attention kernel at the train
     shape (B 8, S 2048, 9 query heads on 3 kv heads, hd 64, bf16,
     causal), ``time_ms`` over 10 calls after 3;
@@ -73,7 +83,8 @@ import repro_torch.core as pmt
 from repro_torch import configs
 from repro_torch.core.backends import nvml
 from repro_torch.data import pipeline as data
-from repro_torch.kernels import build
+from repro_torch.kernels import build, quant
+from repro_torch.kernels.cache_update import kernel as cu_kernel
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.gemm import kernel as gemm_kernel
@@ -81,6 +92,7 @@ from repro_torch.kernels.gridder import kernel as grid_kernel
 from repro_torch.kernels.jacobi2d import kernel as jac_kernel
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel
 from repro_torch.kernels.stream import kernel as st_kernel
+from repro_torch.models import attention
 from repro_torch.models import model as model_mod
 from repro_torch.optim import optimizers as optim
 from repro_torch.serve.engine import Request, ServeEngine
@@ -170,19 +182,77 @@ quant_paged_decode_graph_ms = smoke.graph_ms(
         q, kq, vq, table, lens, scale=scale, k_scale=ks, v_scale=vs))
 del q, k, v, kq, vq
 
+g = torch.Generator(device=dev).manual_seed(21)
+leaf = lambda *lead: quant.quantize(torch.randn(
+    (*lead, 3, 64), generator=g, device=dev), "int8")
+rows = lambda b, t: torch.randn((b, t, 3, 64), generator=g,
+                                device=dev).to(torch.bfloat16)
+pair = hasattr(cu_kernel, "quant_cache_update_pair_cuda")
+(k, ks), (v, vs) = leaf(8, 1024), leaf(8, 1024)
+kn, vn = rows(8, 1), rows(8, 1)
+slots = torch.randint(0, 1024, (8,), generator=g, device=dev,
+                      dtype=torch.int32)
+if pair:
+    write = lambda: cu_kernel.quant_cache_update_pair_cuda(
+        k, ks, kn, v, vs, vn, slots, "int8")
+else:
+    write = lambda: [cu_kernel.quant_cache_update_cuda(
+        c, s, n, slots, "int8") for c, s, n in ((k, ks, kn), (v, vs, vn))]
+quant_write_graph_ms = smoke.graph_ms(write)
+(k, ks), (v, vs) = leaf(1, 1024), leaf(1, 1024)
+kn, vn = rows(1, 32), rows(1, 32)
+offs = torch.tensor([512], dtype=torch.int32, device=dev)
+
+
+def chunk_write():
+    if pair:
+        return cu_kernel.quant_cache_update_pair_cuda(k, ks, kn, v, vs, vn,
+                                                      offs, "int8")
+    for c, s, n in ((k, ks, kn), (v, vs, vn)):
+        codes, scales = quant.quantize(n, "int8")
+        attention.chunk_kv_write(c, codes, 512, 32)
+        attention.chunk_kv_write(s, scales, 512, 32)
+
+
+quant_chunk_write_graph_ms = smoke.graph_ms(chunk_write)
+paged_ms = {}
+for case in ("decode P513 ps16 B8 NB64 T1", "prefill P513 ps16 B8 NB64 T32"):
+    cs = smoke.QUANT_PAGED[case]
+    (k, ks), (v, vs) = leaf(cs["p"], cs["ps"]), leaf(cs["p"], cs["ps"])
+    kn, vn = rows(cs["b"], cs["t"]), rows(cs["b"], cs["t"])
+    where = (smoke._page_table(dev, cs["b"], cs["nb"], cs["p"], 23,
+                               cs["masked"]),
+             torch.tensor(cs["starts"], dtype=torch.int32, device=dev),
+             torch.tensor(cs["valids"], dtype=torch.int32, device=dev))
+    if pair:
+        write = lambda: cu_kernel.quant_paged_cache_update_pair_cuda(
+            k, ks, kn, v, vs, vn, *where, "int8")
+    else:
+        write = lambda: [cu_kernel.quant_paged_cache_update_cuda(
+            c, s, n, *where, "int8") for c, s, n in ((k, ks, kn),
+                                                     (v, vs, vn))]
+    paged_ms[case[:6]] = smoke.graph_ms(write)
+del k, v, ks, vs, kn, vn
+
 scfg = configs.get_config("smollm-135m")
-eng = ServeEngine(scfg, model_mod.init_params(scfg, seed=0, device="cuda"),
-                  batch_size=8, max_len=1024, prefill_chunk=32,
-                  cache_dtype=torch.bfloat16)
+sparams = model_mod.init_params(scfg, seed=0, device="cuda")
 warm, prompts = smoke.serve_workload(scfg, Request, np.random.default_rng(0))
-eng.generate(warm)
-torch.cuda.synchronize()
-t0 = time.perf_counter()
-done = eng.generate([Request(prompt=p, max_new_tokens=64) for p in prompts])
-torch.cuda.synchronize()
-serve_s = time.perf_counter() - t0
-serve_tokens_per_s = sum(len(r.out) for r in done) / serve_s
-del eng, done
+served = {}
+for cache_dtype in (torch.bfloat16, "int8"):
+    eng = ServeEngine(scfg, sparams, batch_size=8, max_len=1024,
+                      prefill_chunk=32, cache_dtype=cache_dtype)
+    eng.generate(warm)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.generate([Request(prompt=p, max_new_tokens=64)
+                         for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served[str(cache_dtype)] = (wall, sum(len(r.out) for r in done) / wall)
+    del eng, done
+del sparams
+serve_s, serve_tokens_per_s = served["torch.bfloat16"]
+int8_serve_s, int8_serve_tokens_per_s = served["int8"]
 
 b, sq, skv, h, kvh, hd, _, _ = smoke.FLASH_CASES["main B8 S2048 H9 KVH3 hd64"]
 q, k, v = smoke._flash_inputs(dev, torch.bfloat16, b, sq, skv, h, kvh, hd)
@@ -216,7 +286,13 @@ print(json.dumps({
     "paged_decode_graph_ms": paged_decode_graph_ms,
     "quant_decode_graph_ms": quant_decode_graph_ms,
     "quant_paged_decode_graph_ms": quant_paged_decode_graph_ms,
+    "quant_write_graph_ms": quant_write_graph_ms,
+    "quant_chunk_write_graph_ms": quant_chunk_write_graph_ms,
+    "quant_paged_write_graph_ms": paged_ms["decode"],
+    "quant_paged_chunk_write_graph_ms": paged_ms["prefil"],
     "serve_s": serve_s, "serve_tokens_per_s": serve_tokens_per_s,
+    "int8_serve_s": int8_serve_s,
+    "int8_serve_tokens_per_s": int8_serve_tokens_per_s,
     "kernel_ms": kernel_ms,
     "step_ms": wall / n * 1e3,
     "tokens_per_s": n * smoke.TRAIN_BATCH * smoke.TRAIN_SEQ / wall,
@@ -231,15 +307,21 @@ KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
         "quant_prefill_graph_ms", "paged_prefill_graph_ms",
         "quant_paged_prefill_graph_ms", "decode_graph_ms",
         "decode_sdpa_graph_ms", "paged_decode_graph_ms",
-        "quant_decode_graph_ms", "quant_paged_decode_graph_ms", "serve_s",
-        "serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
+        "quant_decode_graph_ms", "quant_paged_decode_graph_ms",
+        "quant_write_graph_ms", "quant_chunk_write_graph_ms",
+        "quant_paged_write_graph_ms", "quant_paged_chunk_write_graph_ms",
+        "serve_s", "serve_tokens_per_s", "int8_serve_s",
+        "int8_serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
         "j_per_step", "watts", "busy_ms", "flash_share")
 WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
        "prefill_ms", "prefill_graph_ms", "quant_prefill_graph_ms",
        "paged_prefill_graph_ms", "quant_paged_prefill_graph_ms",
        "decode_graph_ms",
        "paged_decode_graph_ms", "quant_decode_graph_ms",
-       "quant_paged_decode_graph_ms", "serve_s", "kernel_ms", "step_ms")
+       "quant_paged_decode_graph_ms", "quant_write_graph_ms",
+       "quant_chunk_write_graph_ms", "quant_paged_write_graph_ms",
+       "quant_paged_chunk_write_graph_ms", "serve_s", "int8_serve_s",
+       "kernel_ms", "step_ms")
 
 
 def main() -> int:

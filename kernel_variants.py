@@ -1,10 +1,11 @@
-"""Time design variants of the DEGRIDDER, JACOBI2D and tensor-core
-chunked-prefill kernels on one card.
+"""Time design variants of the DEGRIDDER, JACOBI2D, tensor-core
+chunked-prefill and quantizing-scatter kernels on one card.
 
     python3 kernel_variants.py [NAME_PREFIX ...]
 
 Each variant is a shipped source of ``src/repro_torch/kernels/csrc``
-(``gridder.cu``, ``jacobi2d.cu``, ``prefill_attention.cu``) with some of
+(``gridder.cu``, ``jacobi2d.cu``, ``prefill_attention.cu``,
+``cache_update.cu``) with some of
 its ``constexpr int`` constants set to other values, or with a passage
 replaced by another design of the same function, so the sources carry no
 knobs.  Every variant is built alone (``build.NVCC_FLAGS``, one ``nvcc``
@@ -17,7 +18,12 @@ the Fig. 2 sizes (the degridder at P 1024, S 1024, V 2048 with lm in
 ``x.clone()``, which moves the same bytes), or its ``graph_ms`` (100
 calls in a CUDA graph) for prefill at row 2's serve-path case
 (``PREFILL_SERVE``), once with a bf16 cache (row 2) and once with the
-prefix in int8 codes (row 2q).  ROUNDS rounds, each call once a round, the
+prefix in int8 codes (row 2q); the quantizing scatters (rows 5, 6) by
+``graph_ms`` of one call writing a layer's k and v (bf16 rows to int8
+codes, checked bit for bit) at the serve shapes: decode (8 rows into
+1024 slots), the contiguous chunk (batch 1, 32 rows at slot 512) and the paged decode
+(``chip_smoke.QUANT_PAGED``'s decode case).  ROUNDS
+rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
 whose names start with one of them.  Prints the card's name and power
 limit, each variant's registers and spills (ptxas), then one JSON line a
@@ -93,7 +99,13 @@ WIDEN_AHEAD = ((
         }
         if (i + 1 < n_cache) widen_tile((i + 1) % kStages);
       }"""),)
-# name -> (source, entry point, {constant: value}[, ((old, new), ...)]);
+# The quantizing scatters with the general path (a warp a vector, each
+# lane reading its values twice) for every launch: the design before the
+# lane groups, in the pair launch.
+WARP_A_VECTOR = (("  const bool vec = vec16_ok<TIN>(a);",
+                  "  const bool vec = false;"),)
+QUANT_ENTRIES = ("pmt_quant_cache_update", "pmt_quant_paged_cache_update")
+# name -> (source, entry point(s), {constant: value}[, ((old, new), ...)]);
 # {} and no passages is the shipped design
 VARIANTS = {
     "degridder": ("gridder.cu", "pmt_degridder", {}),
@@ -124,6 +136,17 @@ VARIANTS = {
                           {"kStages": 4}),
     "prefill kKT 64": ("prefill_attention.cu", "pmt_prefill_attention_tc",
                        {"kKT": 64}),
+    "quant scatter": ("cache_update.cu", QUANT_ENTRIES, {}),
+    "quant scatter warp a vector": ("cache_update.cu", QUANT_ENTRIES, {},
+                                    WARP_A_VECTOR),
+    "quant scatter 64 threads": ("cache_update.cu", QUANT_ENTRIES,
+                                 {"kQuantThreads": 64}),
+    "quant scatter 256 threads": ("cache_update.cu", QUANT_ENTRIES,
+                                  {"kQuantThreads": 256}),
+    "quant scatter 512 threads": ("cache_update.cu", QUANT_ENTRIES,
+                                  {"kQuantThreads": 512}),
+    "quant scatter 1024 threads": ("cache_update.cu", QUANT_ENTRIES,
+                                   {"kQuantThreads": 1024}),
 }
 
 
@@ -171,8 +194,9 @@ def build_all(build, names, ptxas_usage) -> dict:
                      if "registers" in line or "spill" in line]
         print(f"{name}: ptxas " + " | ".join(ptxas), flush=True)
         lib = ctypes.CDLL(str(path))
-        entry = VARIANTS[name][1]
-        getattr(lib, entry).argtypes = build.SIGNATURES[entry]
+        entries = VARIANTS[name][1]
+        for entry in (entries,) if isinstance(entries, str) else entries:
+            getattr(lib, entry).argtypes = build.SIGNATURES[entry]
         libs[name] = lib
     return libs
 
@@ -220,6 +244,70 @@ def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
     return calls, checks
 
 
+def quant_calls(smoke, cu_ref, quant, dev, stream, libs) -> tuple:
+    """{call name: call} of each quantizing-scatter variant writing a
+    layer's k and v (bf16 rows, int8 codes, in one launch) at the decode,
+    contiguous-chunk and paged-decode serve shapes, and {call name:
+    (got, want)} to check once after a first call: lists of code and
+    scale tensors, bit for bit."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(21)
+
+    def leaves(lead, b, t):
+        out = []
+        for _ in range(2):
+            codes, scales = quant.quantize(torch.randn(
+                (*lead, 3, 64), generator=g, device=dev), "int8")
+            out.append((codes, scales, torch.randn(
+                (b, t, 3, 64), generator=g, device=dev).to(torch.bfloat16)))
+        return out
+
+    cs = smoke.QUANT_PAGED["decode P513 ps16 B8 NB64 T1"]
+    where = (smoke._page_table(dev, cs["b"], cs["nb"], cs["p"], 23,
+                               cs["masked"]),
+             torch.tensor(cs["starts"], dtype=torch.int32, device=dev),
+             torch.tensor(cs["valids"], dtype=torch.int32, device=dev))
+    slots = torch.randint(0, 1024, (8,), generator=g, device=dev,
+                          dtype=torch.int32)
+    shapes = {
+        "decode": (leaves((8, 1024), 8, 1), (slots,)),
+        "chunk": (leaves((1, 1024), 1, 32),
+                  (torch.tensor([512], dtype=torch.int32, device=dev),)),
+        "paged decode": (leaves((cs["p"], cs["ps"]), cs["b"], 1), where)}
+    calls, checks = {}, {}
+    for name, lib in libs.items():
+        if not name.startswith("quant"):
+            continue
+        for shape, (ls, w) in shapes.items():
+            paged = shape.startswith("paged")
+            ref = cu_ref.quant_paged_cache_update_pair_ref if paged \
+                else cu_ref.quant_cache_update_pair_ref
+            args = [x.clone() for leaf in ls for x in leaf]
+            want = [x for pair in ref(*[x.clone() for x in args], *w,
+                                       "int8") for x in pair]
+            b, t = ls[0][2].shape[:2]
+            # the call holds ``args`` and ``w``: the kernel reads and
+            # writes through their pointers
+            if paged:
+                call = (lambda lib=lib, args=args, w=w, b=b, t=t:
+                        lib.pmt_quant_paged_cache_update(
+                            *(x.data_ptr() for x in args), 2,
+                            *(x.data_ptr() for x in w), b, t, cs["nb"],
+                            cs["ps"], 3, 64, 1, 2, stream()))
+            else:
+                call = (lambda lib=lib, args=args, w=w, b=b, t=t:
+                        lib.pmt_quant_cache_update(
+                            *(x.data_ptr() for x in args), 2,
+                            w[0].data_ptr(), b, t, 1024, 3, 64, 1, 2,
+                            stream()))
+            calls[f"{name}, {shape}"] = call
+            got = [args[0], args[1], args[3], args[4]]
+            if paged:               # the scratch page 0 is undefined
+                got, want = [x[1:] for x in got], [x[1:] for x in want]
+            checks[f"{name}, {shape}"] = (got, want)
+    return calls, checks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("prefixes", nargs="*",
@@ -230,7 +318,8 @@ def main() -> int:
     import torch
 
     import chip_smoke as smoke
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, quant
+    from repro_torch.kernels.cache_update import ref as cu_ref
     from repro_torch.kernels.gridder import ref as grid_ref
     from repro_torch.kernels.jacobi2d import ref as jac_ref
     from repro_torch.kernels.prefill_attention import kernel as pa_kernel
@@ -294,6 +383,20 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with the plain version")
     calls.update(pcalls)
     timers.update({name: smoke.graph_ms for name in pcalls})
+    qcalls, checks = quant_calls(smoke, cu_ref, quant, dev, stream, libs)
+    for name, (got, want) in checks.items():
+        if qcalls[name]():
+            raise RuntimeError(f"{name}: the launch failed")
+        torch.cuda.synchronize()
+        differ = [int((smoke.u8(a) != smoke.u8(b)).sum())
+                  for a, b in zip(got, want)]
+        if any(differ):
+            raise AssertionError(f"{name} disagrees with the plain version: "
+                                 f"k codes, k scales, v codes, v scales "
+                                 f"differ in {differ} elements")
+        print(f"{name}: codes and scales equal bit for bit", flush=True)
+    calls.update(qcalls)
+    timers.update({name: smoke.graph_ms for name in qcalls})
     times = {name: [] for name in calls}
     order = list(calls)
     for r in range(ROUNDS):

@@ -38,9 +38,11 @@ SIGNATURES = {
     "pmt_cache_update": [_P, _P, _P, _I, _I, _LL, _P],
     "pmt_paged_cache_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
                                _P],
-    "pmt_quant_cache_update": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "pmt_quant_paged_cache_update": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _I, _I, _P],
+    "pmt_quant_cache_update": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
+    "pmt_quant_paged_cache_update": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
     "pmt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
     "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -7,7 +7,10 @@ version for tensors on the CPU.  ``paged_cache_update`` does the same
 for (P, page_size, *rest) page pools addressed through a page table.
 ``quant_cache_update`` and ``quant_paged_cache_update`` are their
 quantizing twins for int8 / fp8_e4m3 caches: each (row, head) vector is
-quantized to codes plus one float32 scale, both scattered in place.
+quantized to codes plus one float32 scale, both scattered in place; the
+contiguous one also takes a prefill chunk's T rows.  Their ``_pair``
+versions write a layer's k and v leaves in one kernel launch, which is
+what the serve path calls.
 The JAX package returned a new buffer (the Pallas call aliased its
 input); here the caller's cache itself is updated, and also returned.
 """
@@ -18,10 +21,16 @@ import torch
 from repro_torch.kernels import on_card
 from repro_torch.kernels.cache_update.kernel import (
     cache_update_cuda, paged_cache_update_cuda, quant_cache_update_cuda,
-    quant_paged_cache_update_cuda)
+    quant_cache_update_pair_cuda, quant_paged_cache_update_cuda,
+    quant_paged_cache_update_pair_cuda)
 from repro_torch.kernels.cache_update.ref import (
-    cache_update_ref, paged_cache_update_ref, quant_cache_update_ref,
+    cache_update_ref, paged_cache_update_ref, quant_cache_update_pair_ref,
+    quant_cache_update_ref, quant_paged_cache_update_pair_ref,
     quant_paged_cache_update_ref)
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
@@ -35,7 +44,7 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     b, c = cache.shape[:2]
     cache_update_cuda(cache.view(b, c, -1),
                       new.to(cache.dtype).reshape(b, 1, -1).contiguous(),
-                      slots.to(torch.int32).contiguous())
+                      _i32(slots))
     return cache
 
 
@@ -56,10 +65,9 @@ def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
         return paged_cache_update_ref(pool, new, page_table, starts, valids)
     p, ps = pool.shape[:2]
     b, t = new.shape[:2]
-    i32 = lambda x: x.to(torch.int32).contiguous()
     rows = new.to(pool.dtype).reshape(b, t, -1).contiguous()
-    paged_cache_update_cuda(pool.view(p, ps, -1), rows, i32(page_table),
-                            i32(starts), i32(valids))
+    paged_cache_update_cuda(pool.view(p, ps, -1), rows, _i32(page_table),
+                            _i32(starts), _i32(valids))
     return pool
 
 
@@ -69,23 +77,45 @@ def _heads(codes: torch.Tensor) -> torch.Tensor:
     return codes.view(*codes.shape[:2], -1, codes.shape[-1])
 
 
+def _kernel_leaf(codes: torch.Tensor, scales: torch.Tensor,
+                 new: torch.Tensor) -> tuple:
+    """A leaf's codes, scales and rows in the kernels' 4-D layout."""
+    c4 = _heads(codes)
+    return (c4, scales.view(c4.shape[:3]),
+            new.reshape(*new.shape[:2], *c4.shape[2:]).contiguous())
+
+
 def quant_cache_update(cache: torch.Tensor, scales: torch.Tensor,
                        new: torch.Tensor, slots: torch.Tensor, mode: str):
-    """Quantize ``new[b, 0]`` per row and write its codes at
-    ``cache[b, slots[b]]`` and its scales at ``scales[b, slots[b]]``.
+    """Quantize ``new[b, t]`` per row and write its codes at
+    ``cache[b, s + t]`` and its scales at ``scales[b, s + t]``,
+    ``s = slots[b]`` clamped to [0, C - T].
 
     cache: (B, C, *rest) codes of ``mode``   scales: (B, C, *rest[:-1])
-    float32   new: (B, 1, *rest) full precision   slots: (B,) int.
-    Returns ``(cache, scales)``, updated in place.
+    float32   new: (B, T, *rest) full precision, T <= C (1 at decode)
+    slots: (B,) int.  Returns ``(cache, scales)``, updated in place.
     """
     if not on_card(cache, scales, new, slots):
         return quant_cache_update_ref(cache, scales, new, slots, mode)
-    codes = _heads(cache)
-    quant_cache_update_cuda(codes, scales.view(codes.shape[:3]),
-                            new.reshape(*new.shape[:2], *codes.shape[2:])
-                            .contiguous(),
-                            slots.to(torch.int32).contiguous(), mode)
+    quant_cache_update_cuda(*_kernel_leaf(cache, scales, new), _i32(slots),
+                            mode)
     return cache, scales
+
+
+def quant_cache_update_pair(k: torch.Tensor, k_scale: torch.Tensor,
+                            k_new: torch.Tensor, v: torch.Tensor,
+                            v_scale: torch.Tensor, v_new: torch.Tensor,
+                            slots: torch.Tensor, mode: str):
+    """``quant_cache_update`` of a layer's k and v leaves (the same
+    shapes) in one kernel launch.  Returns ``((k, k_scale), (v,
+    v_scale))``, updated in place."""
+    if not on_card(k, k_scale, k_new, v, v_scale, v_new, slots):
+        return quant_cache_update_pair_ref(k, k_scale, k_new, v, v_scale,
+                                           v_new, slots, mode)
+    quant_cache_update_pair_cuda(*_kernel_leaf(k, k_scale, k_new),
+                                 *_kernel_leaf(v, v_scale, v_new),
+                                 _i32(slots), mode)
+    return (k, k_scale), (v, v_scale)
 
 
 def quant_paged_cache_update(pool: torch.Tensor, scales: torch.Tensor,
@@ -104,10 +134,27 @@ def quant_paged_cache_update(pool: torch.Tensor, scales: torch.Tensor,
     if not on_card(pool, scales, new, page_table, starts, valids):
         return quant_paged_cache_update_ref(pool, scales, new, page_table,
                                             starts, valids, mode)
-    codes = _heads(pool)
-    i32 = lambda x: x.to(torch.int32).contiguous()
-    quant_paged_cache_update_cuda(
-        codes, scales.view(codes.shape[:3]),
-        new.reshape(*new.shape[:2], *codes.shape[2:]).contiguous(),
-        i32(page_table), i32(starts), i32(valids), mode)
+    quant_paged_cache_update_cuda(*_kernel_leaf(pool, scales, new),
+                                  _i32(page_table), _i32(starts),
+                                  _i32(valids), mode)
     return pool, scales
+
+
+def quant_paged_cache_update_pair(k: torch.Tensor, k_scale: torch.Tensor,
+                                  k_new: torch.Tensor, v: torch.Tensor,
+                                  v_scale: torch.Tensor, v_new: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  starts: torch.Tensor, valids: torch.Tensor,
+                                  mode: str):
+    """``quant_paged_cache_update`` of a layer's k and v pools (the same
+    shapes) in one kernel launch.  Returns ``((k, k_scale), (v,
+    v_scale))``, updated in place."""
+    if not on_card(k, k_scale, k_new, v, v_scale, v_new, page_table, starts,
+                   valids):
+        return quant_paged_cache_update_pair_ref(
+            k, k_scale, k_new, v, v_scale, v_new, page_table, starts,
+            valids, mode)
+    quant_paged_cache_update_pair_cuda(
+        *_kernel_leaf(k, k_scale, k_new), *_kernel_leaf(v, v_scale, v_new),
+        _i32(page_table), _i32(starts), _i32(valids), mode)
+    return (k, k_scale), (v, v_scale)

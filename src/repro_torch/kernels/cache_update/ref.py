@@ -11,9 +11,14 @@ the scatter through a page table into a shared page pool.
 
 ``quant_cache_update_ref`` / ``quant_paged_cache_update_ref``: the JAX
 package's quantizing twins, quantize then scatter: ``quant.quantize``
-over all rows at once, then the two scatters above for the codes and
-for the scales.  Quantization is per row, so quantizing the whole batch
-here and one row at a time in the kernels gives the same bits.
+over all rows at once, then the scatter for the codes and for the
+scales.  Quantization is per row, so quantizing the whole batch here
+and one row at a time in the kernels gives the same bits.  The
+contiguous one takes T rows a batch row, written from ``slots[b]``
+clamped to [0, C - T], as the JAX twin's ``dynamic_update_slice``
+clamps its start (at T = 1, ``cache_update_ref``'s clamp).  The
+``_pair_ref`` versions are the per-leaf ones for k, then for v: what
+the kernels' one launch for both leaves computes.
 """
 from __future__ import annotations
 
@@ -63,16 +68,39 @@ def paged_cache_update_ref(pool: torch.Tensor, new: torch.Tensor,
     return pool
 
 
+def _slice_rows(cache: torch.Tensor, rows: torch.Tensor,
+                slots: torch.Tensor) -> torch.Tensor:
+    """cache: (B, C, *rest)  rows: (B, T, *rest)  slots: (B,) int.
+    Writes ``rows[b, t]`` at ``cache[b, s + t]``, ``s = slots[b]``
+    clamped to [0, C - T]; returns ``cache``."""
+    b, c = cache.shape[:2]
+    t = rows.shape[1]
+    dev = cache.device
+    start = slots.to(dev).long().clamp(0, c - t)
+    cache[torch.arange(b, device=dev)[:, None],
+          start[:, None] + torch.arange(t, device=dev)] = \
+        rows.to(cache.dtype)
+    return cache
+
+
 def quant_cache_update_ref(cache: torch.Tensor, scales: torch.Tensor,
                            new: torch.Tensor, slots: torch.Tensor,
                            mode: str):
     """cache: (B, C, *rest) codes  scales: (B, C, *rest[:-1]) float32
-    new: (B, 1, *rest) full precision  slots: (B,) int.  Quantizes
-    ``new`` per row and scatters codes and scales in place; returns
-    ``(cache, scales)``."""
+    new: (B, T, *rest) full precision, T <= C  slots: (B,) int.
+    Quantizes ``new`` per row and writes row ``t`` of batch row ``b``
+    at slot ``s + t``, ``s = slots[b]`` clamped to [0, C - T], codes and
+    scales in place; returns ``(cache, scales)``."""
     codes, s = quant.quantize(new, mode)
-    return (cache_update_ref(cache, codes, slots),
-            cache_update_ref(scales, s, slots))
+    return (_slice_rows(cache, codes, slots), _slice_rows(scales, s, slots))
+
+
+def quant_cache_update_pair_ref(k, k_scale, k_new, v, v_scale, v_new,
+                                slots: torch.Tensor, mode: str):
+    """``quant_cache_update_ref`` for k, then for v; returns ``((k,
+    k_scale), (v, v_scale))``."""
+    return (quant_cache_update_ref(k, k_scale, k_new, slots, mode),
+            quant_cache_update_ref(v, v_scale, v_new, slots, mode))
 
 
 def quant_paged_cache_update_ref(pool: torch.Tensor, scales: torch.Tensor,
@@ -88,3 +116,14 @@ def quant_paged_cache_update_ref(pool: torch.Tensor, scales: torch.Tensor,
     codes, s = quant.quantize(new, mode)
     return (paged_cache_update_ref(pool, codes, page_table, starts, valids),
             paged_cache_update_ref(scales, s, page_table, starts, valids))
+
+
+def quant_paged_cache_update_pair_ref(k, k_scale, k_new, v, v_scale, v_new,
+                                      page_table: torch.Tensor,
+                                      starts: torch.Tensor,
+                                      valids: torch.Tensor, mode: str):
+    """``quant_paged_cache_update_ref`` for k, then for v; returns
+    ``((k, k_scale), (v, v_scale))``."""
+    where = (page_table, starts, valids, mode)
+    return (quant_paged_cache_update_ref(k, k_scale, k_new, *where),
+            quant_paged_cache_update_ref(v, v_scale, v_new, *where))

@@ -12,9 +12,12 @@
 // launch as light as it can be: one block per row, each thread moving
 // 16 bytes at a time when the row size and both pointers allow it, the
 // slot read by the block itself from device memory (no host sync), and
-// the cache never copied.  Fusing the k and v scatters, or the scatter
-// into the projection that produces the row, is the lever for later.
+// the cache never copied.  The quantizing scatters below write a layer's
+// k and v in one launch; the same for these two, or the scatter fused into
+// the projection that produces the row, is the lever for later.
 #include "common.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -77,7 +80,8 @@ extern "C" int pmt_cache_update(void* cache, const void* src, const void* slots,
 // card computes; a decode step writes B rows of KVH * hd elements per
 // pool and the launch costs more than the bytes.  One block per (t, b)
 // row, 16-byte moves where the row size and pointers allow.  One launch
-// for k and v together is the lever for later.
+// for k and v together, as the quantizing scatters below make, is the
+// lever for later.
 namespace {
 
 __global__ void paged_scatter_kernel(char* __restrict__ pool, const char* __restrict__ src,
@@ -122,23 +126,29 @@ extern "C" int pmt_paged_cache_update(void* pool, const void* src, const void* p
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // ---------------------------------------------------------------------------
-// Quantizing scatters: each (row, kv head) vector of hd values is
+// Quantizing scatters: each (row, kv head) vector of D values is
 // quantized to codes plus one float32 absmax scale, and both land where
-// the scatters above would put the row: at cache[b, slots[b], h] and
-// scales[b, slots[b], h] (contiguous), or through the page table into a
-// code pool (P, ps, H, D) and a scale pool (P, ps, H) whose pages are
-// the code pool's (paged; masked rows t >= valids[b] write nothing).
+// the scatters above would put the row.  Contiguous: row t of src[b]
+// lands at cache[b, s + t, h] and scales[b, s + t, h], s = slots[b]
+// clamped to [0, C - T] (dynamic_update_slice's clamp of its start,
+// which at T = 1 is the clamp of the scatter above; T > 1 is a prefill
+// chunk).  Paged: through the page table into a code pool (P, ps, H, D)
+// and a scale pool (P, ps, H) whose pages are the code pool's; masked
+// rows t >= valids[b] write nothing.  One launch takes one or two leaves
+// (codes, scales, source), the leaf a grid dimension, so the serve path
+// writes a layer's k and v in one launch.
 //
 // Replace the TPU kernels quant_cache_update_pallas and
 // quant_paged_cache_update_pallas
 // (src/repro/kernels/cache_update/cache_update.py), which quantized one
 // (H, D) row block per grid step and wrote it through the same index
-// maps as the unquantized scatters.
+// maps as the unquantized scatters, one leaf a call.
 //
 // The quantization is the contract of kernels/quant.py, op for op, so
 // codes and scales equal the plain versions' bit for bit:
-//   amax = max |x| (a warp-shuffle max: exact in any order);
+//   amax = max |x| (a shuffle max: exact in any order);
 //   s = fmaxf(amax, 1e-8f) * (float)(1.0 / qmax): a multiply by the
 //     float32 constant, never a division by qmax;
 //   y = x / s, IEEE-rounded (__fdiv_rn; the build has no fast math);
@@ -146,140 +156,297 @@ extern "C" int pmt_paged_cache_update(void* pool, const void* src, const void* p
 //   fp8_e4m3: clip to +-448, then the round-to-nearest-even conversion
 //     (the clip keeps NaN out: e4m3 has no infinity).
 //
-// What bounds it on the H100: as for the scatters above, nothing the
-// card computes; a decode step reads B * H rows of D values and writes
-// as many codes and B * H scales, a few KB, and the launch costs more.
-// One warp per (row, head) vector (2 values a lane at D = 64), four to
-// a block; each lane reads its values twice (amax, then quantize), the
-// second time from L1.  Fusing the k and v scatters into one launch is
-// the lever for later.
+// What bounds it on the H100: nothing the card computes.  A decode step
+// of smollm-135m reads 2 x 8 x 3 vectors of 64 bf16 and writes as many
+// codes and 48 scales, about 4.8 KB; the launch and the chain of
+// dependent steps a vector takes cost more than the bytes.  The design:
+//   * one launch a layer for k and v (blockIdx.y picks the leaf), where
+//     the serve path made two;
+//   * a vector is held by a group of G lanes, D * sizeof(src) / 16 of
+//     them rounded up to a power of two (8 at D 64 in bf16, 16 in
+//     float32), each with one 16-byte load kept in registers; the absmax
+//     is a log2(G)-step xor shuffle within the group, the codes come from
+//     the same registers and leave in one 8-byte (bf16) or 4-byte
+//     (float32) store a lane, the scale from the group's first lane.
+//     Several vectors share a warp; a block holds whole rows (rows x H
+//     vectors, up to kQuantThreads threads);
+//   * where the row's bytes, a pointer or D * sizeof(src) > 512 do not
+//     allow that, the launch takes the general path, chosen once for the
+//     launch: a warp a vector, each lane reading its values twice (amax,
+//     then quantize), the second time from L1.
+// At the serve shapes a launch is latency: a warp a vector is 3-5%
+// slower than the lane groups; 128 threads a block beat 64, 256, 512 and
+// 1024 by 0.5-3% (512 and 1024 lose 18% and 38% on a chunk, fewer
+// blocks).  Every value is divided: a test of the vector's amax
+// (or of each value) would spare a zero vector the division's slow path,
+// but cost every other vector 1-8% of a launch, and k and v rows come
+// from projections of normed states, so a zero vector is not the serve
+// path's case.  Those designs were timed (kernel_variants.py, a pair
+// call in a CUDA graph, H100) and not kept.
 namespace {
+
+constexpr int kQuantThreads = 128;  // a block's threads, at most (whole rows)
 
 template <typename TC> __device__ __forceinline__ float qmax_of();
 template <> __device__ __forceinline__ float qmax_of<int8_t>() { return 127.f; }
 template <> __device__ __forceinline__ float qmax_of<__nv_fp8_e4m3>() { return 448.f; }
 
-template <typename TC> __device__ __forceinline__ TC encode(float y);
-template <> __device__ __forceinline__ int8_t encode<int8_t>(float y) {
-  return static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f));
-}
-template <> __device__ __forceinline__ __nv_fp8_e4m3 encode<__nv_fp8_e4m3>(float y) {
-  __nv_fp8_e4m3 c;
-  c.__x = __nv_cvt_float_to_fp8(fminf(fmaxf(y, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
-  return c;
+template <typename TC> __device__ __forceinline__ float scale_of(float amax) {
+  const float inv = static_cast<float>(1.0 / static_cast<double>(qmax_of<TC>()));
+  return fmaxf(amax, 1e-8f) * inv;
 }
 
-// One warp quantizes one vector of D values: all 32 lanes take part.
+// The code of y, as its byte.
+template <typename TC> __device__ __forceinline__ uint32_t encode(float y);
+template <> __device__ __forceinline__ uint32_t encode<int8_t>(float y) {
+  return static_cast<uint8_t>(static_cast<int8_t>(fminf(fmaxf(rintf(y), -127.f), 127.f)));
+}
+template <> __device__ __forceinline__ uint32_t encode<__nv_fp8_e4m3>(float y) {
+  return __nv_cvt_float_to_fp8(fminf(fmaxf(y, -448.f), 448.f), __NV_SATFINITE, __NV_E4M3);
+}
+
+// 16 bytes of source values, widened to float32 (bf16 exactly: its bits
+// are a float32's upper half).
+__device__ __forceinline__ void load16(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// A group of G lanes (a power of two, aligned in its warp) quantizes one
+// vector: lane g < units holds its 16 bytes g.  Every lane of the warp
+// calls this, `active` or not: the shuffles take the whole warp.  `live`
+// lanes read (a vector that exists), `active` ones write (one whose row
+// has a destination): the read does not wait for the destination's
+// lookup.
 template <typename TIN, typename TC>
-__device__ __forceinline__ void quantize_row(const TIN* __restrict__ x, TC* __restrict__ codes,
-                                             float* __restrict__ scale, int D) {
+__device__ __forceinline__ void quantize_group16(const TIN* x, uint8_t* codes, float* scale,
+                                                 int g, int G, int units, bool live,
+                                                 bool active) {
+  constexpr int N = 16 / sizeof(TIN);
+  float v[N] = {};
+  float amax = 0.f;
+  if (live && g < units) {
+    load16(x + g * N, v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = scale_of<TC>(amax);
+  if (active && g < units) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __fdiv_rn(v[i], s);
+    uint32_t w[N / 4];
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      w[i] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) w[i] |= encode<TC>(v[4 * i + j]) << (8 * j);
+    }
+    if constexpr (N == 8)
+      *reinterpret_cast<uint2*>(codes + g * N) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(codes + g * N) = w[0];
+  }
+  if (active && g == 0) *scale = s;
+}
+
+// The general path: a warp quantizes one vector, each lane its values
+// d = lane, lane + 32, ...; every lane of the warp calls this (`live`
+// and `active` as above).
+template <typename TIN, typename TC>
+__device__ __forceinline__ void quantize_warp(const TIN* x, uint8_t* codes, float* scale, int D,
+                                              bool live, bool active) {
   const int lane = threadIdx.x & 31;
   float amax = 0.f;
-  for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(pmt::to_f(x[d])));
+  if (live)
+    for (int d = lane; d < D; d += 32) amax = fmaxf(amax, fabsf(pmt::to_f(x[d])));
   amax = pmt::warp_max(amax);
-  const float inv = static_cast<float>(1.0 / static_cast<double>(qmax_of<TC>()));
-  const float s = fmaxf(amax, 1e-8f) * inv;
-  for (int d = lane; d < D; d += 32) codes[d] = encode<TC>(__fdiv_rn(pmt::to_f(x[d]), s));
-  if (lane == 0) *scale = s;
+  const float s = scale_of<TC>(amax);
+  if (active) {
+    for (int d = lane; d < D; d += 32)
+      codes[d] = static_cast<uint8_t>(encode<TC>(__fdiv_rn(pmt::to_f(x[d]), s)));
+    if (lane == 0) *scale = s;
+  }
 }
 
-constexpr int kQuantWarps = 4;  // warps (vectors) per block
-
-template <typename TIN, typename TC>
-__global__ void __launch_bounds__(32 * kQuantWarps)
-quant_scatter_kernel(TC* __restrict__ cache, float* __restrict__ scales,
-                     const TIN* __restrict__ src, const int* __restrict__ slots, int B, int C,
-                     int H, int D) {
-  const int w = blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
-  if (w >= B * H) return;  // a whole warp leaves together
-  const int b = w / H, h = w - b * H;
-  int s = slots[b];
-  s = s < 0 ? 0 : (s >= C ? C - 1 : s);  // clamp, as the scatter above
-  const size_t row = ((size_t)b * C + s) * H + h;
-  quantize_row<TIN, TC>(src + ((size_t)b * H + h) * D, cache + row * D, scales + row, D);
-}
-
-template <typename TIN, typename TC>
-__global__ void __launch_bounds__(32 * kQuantWarps)
-quant_paged_scatter_kernel(TC* __restrict__ pool, float* __restrict__ scales,
-                           const TIN* __restrict__ src, const int* __restrict__ page_table,
-                           const int* __restrict__ starts, const int* __restrict__ valids,
-                           int B, int T, int NB, int ps, int H, int D) {
-  const int w = blockIdx.x * kQuantWarps + (threadIdx.x >> 5);
-  if (w >= B * T * H) return;
-  const int b = w / (T * H), rem = w - b * T * H;
-  const int t = rem / H, h = rem - t * H;
-  if (t >= valids[b]) return;  // masked: never touches a page
-  const int cap = NB * ps - 1;
-  int pos = starts[b] + t;
-  pos = pos < 0 ? 0 : (pos > cap ? cap : pos);
-  const size_t prow = (size_t)page_table[(size_t)b * NB + pos / ps] * ps + pos % ps;
-  const size_t row = prow * H + h;
-  quantize_row<TIN, TC>(src + (((size_t)b * T + t) * H + h) * D, pool + row * D,
-                        scales + row, D);
-}
-
-struct QuantArgs {
-  void *codes, *scales;
-  const void *src, *page_table, *starts, *valids;  // page_table: paged only
-  const void* slots;                                // contiguous only
-  int B, T, C, NB, ps, H, D;
+struct QuantLeaf {
+  uint8_t* codes;
+  float* scales;
+  const void* src;  // (B, T, H, D)
 };
 
-template <typename TIN, typename TC, bool kPaged>
-int quant_launch(const QuantArgs& a, cudaStream_t stream) {
+struct QuantLaunch {
+  QuantLeaf k, v;  // v is k again for one leaf
+  int B, T, H, D;
+  int G;           // lanes a vector: a power of two; 32 on the general path
+  int units;       // 16-byte units a vector (the 16-byte path)
+  int vpb;         // vectors a block
+};
+
+// Contiguous caches (B, C, H, D): row t of batch row b at slot s + t.
+struct SlotRows {
+  const int* slots;
+  int C;
+  __device__ __forceinline__ long long operator()(int b, int t, int T) const {
+    int s = slots[b];
+    s = s < 0 ? 0 : (s > C - T ? C - T : s);
+    return (long long)b * C + s + t;
+  }
+};
+
+// Page pools (P, ps, H, D): the paged scatter's routing; -1 when masked.
+struct PageRows {
+  const int *page_table, *starts, *valids;
+  int NB, ps;
+  __device__ __forceinline__ long long operator()(int b, int t, int) const {
+    if (t >= valids[b]) return -1;  // masked: never touches a page
+    const int cap = NB * ps - 1;
+    int pos = starts[b] + t;
+    pos = pos < 0 ? 0 : (pos > cap ? cap : pos);
+    return (long long)page_table[(long long)b * NB + pos / ps] * ps + pos % ps;
+  }
+};
+
+// Vector v of a leaf's source (row r = b * T + t, head h) lands at row
+// `dst` of the cache or pool: the source read depends on v alone, so it
+// is in flight while the slot or page lookup runs.  Vector counts fit in
+// 32 bits (checked at launch).
+template <typename TIN, typename TC, bool kVec, typename Rows>
+__device__ __forceinline__ void quant_scatter_body(const QuantLaunch& a, const Rows& rows) {
+  const QuantLeaf leaf = blockIdx.y ? a.v : a.k;
+  const int local = threadIdx.x / a.G, g = threadIdx.x % a.G;
+  const int vec = blockIdx.x * a.vpb + local;
+  const bool live = local < a.vpb && vec < a.B * a.T * a.H;
+  const int v = live ? vec : 0;
+  const int r = v / a.H, h = v - r * a.H;
+  const int b = r / a.T;
+  const TIN* x = static_cast<const TIN*>(leaf.src) + (long long)v * a.D;
+  const long long dst = live ? rows(b, r - b * a.T, a.T) : -1;
+  const bool active = dst >= 0;
+  const long long at = active ? dst * a.H + h : 0;
+  if constexpr (kVec)
+    quantize_group16<TIN, TC>(x, leaf.codes + at * a.D, leaf.scales + at, g, a.G, a.units,
+                              live, active);
+  else
+    quantize_warp<TIN, TC>(x, leaf.codes + at * a.D, leaf.scales + at, a.D, live, active);
+}
+
+template <typename TIN, typename TC, bool kVec>
+__global__ void quant_scatter_kernel(QuantLaunch a, SlotRows rows) {
+  quant_scatter_body<TIN, TC, kVec>(a, rows);
+}
+
+template <typename TIN, typename TC, bool kVec>
+__global__ void quant_paged_scatter_kernel(QuantLaunch a, PageRows rows) {
+  quant_scatter_body<TIN, TC, kVec>(a, rows);
+}
+
+template <typename TIN>
+bool vec16_ok(const QuantLaunch& a) {
+  constexpr int N = 16 / sizeof(TIN);
+  auto aligned = [](const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; };
+  return a.D % N == 0 && a.D / N <= 32 && aligned(a.k.src, 16) && aligned(a.v.src, 16) &&
+         aligned(a.k.codes, N) && aligned(a.v.codes, N);
+}
+
+template <typename TIN, typename TC, typename Rows>
+int quant_launch(QuantLaunch a, const Rows& rows, int leaves, cudaStream_t stream) {
+  constexpr bool kPaged = std::is_same<Rows, PageRows>::value;
+  const bool vec = vec16_ok<TIN>(a);
+  a.units = a.D / (16 / (int)sizeof(TIN));
+  a.G = 32;
+  if (vec)
+    for (a.G = 1; a.G < a.units;) a.G <<= 1;  // units <= 32
   const long long vectors = (long long)a.B * a.T * a.H;
-  const int blocks = (int)((vectors + kQuantWarps - 1) / kQuantWarps);
+  if (vectors > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const int per_row = a.H * a.G;
+  long long vpb = per_row <= kQuantThreads ? (long long)(kQuantThreads / per_row) * a.H
+                                           : std::max(kQuantThreads / a.G, 1);
+  vpb = std::min(vpb, vectors);
+  a.vpb = (int)vpb;
+  const int threads = (int)((vpb * a.G + 31) / 32 * 32);
+  const dim3 grid((unsigned)((vectors + vpb - 1) / vpb), leaves);
   if constexpr (kPaged) {
-    quant_paged_scatter_kernel<TIN, TC><<<blocks, 32 * kQuantWarps, 0, stream>>>(
-        static_cast<TC*>(a.codes), static_cast<float*>(a.scales),
-        static_cast<const TIN*>(a.src), static_cast<const int*>(a.page_table),
-        static_cast<const int*>(a.starts), static_cast<const int*>(a.valids), a.B, a.T, a.NB,
-        a.ps, a.H, a.D);
+    if (vec)
+      quant_paged_scatter_kernel<TIN, TC, true><<<grid, threads, 0, stream>>>(a, rows);
+    else
+      quant_paged_scatter_kernel<TIN, TC, false><<<grid, threads, 0, stream>>>(a, rows);
   } else {
-    quant_scatter_kernel<TIN, TC><<<blocks, 32 * kQuantWarps, 0, stream>>>(
-        static_cast<TC*>(a.codes), static_cast<float*>(a.scales),
-        static_cast<const TIN*>(a.src), static_cast<const int*>(a.slots), a.B, a.C, a.H,
-        a.D);
+    if (vec)
+      quant_scatter_kernel<TIN, TC, true><<<grid, threads, 0, stream>>>(a, rows);
+    else
+      quant_scatter_kernel<TIN, TC, false><<<grid, threads, 0, stream>>>(a, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPaged>
-int quant_dispatch(const QuantArgs& a, int src_dtype, int code_dtype, void* stream) {
+template <typename Rows>
+int quant_dispatch(QuantLaunch a, const Rows& rows, int leaves, int src_dtype, int code_dtype,
+                   void* stream) {
+  if (leaves != 1 && leaves != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (leaves == 1) a.v = a.k;
   if (a.B == 0 || a.T == 0 || a.H == 0 || a.D == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (src_dtype == 0 && code_dtype == 2) return quant_launch<float, int8_t, kPaged>(a, s);
-  if (src_dtype == 0 && code_dtype == 3) return quant_launch<float, __nv_fp8_e4m3, kPaged>(a, s);
+  if (src_dtype == 0 && code_dtype == 2) return quant_launch<float, int8_t>(a, rows, leaves, s);
+  if (src_dtype == 0 && code_dtype == 3)
+    return quant_launch<float, __nv_fp8_e4m3>(a, rows, leaves, s);
   if (src_dtype == 1 && code_dtype == 2)
-    return quant_launch<__nv_bfloat16, int8_t, kPaged>(a, s);
+    return quant_launch<__nv_bfloat16, int8_t>(a, rows, leaves, s);
   if (src_dtype == 1 && code_dtype == 3)
-    return quant_launch<__nv_bfloat16, __nv_fp8_e4m3, kPaged>(a, s);
+    return quant_launch<__nv_bfloat16, __nv_fp8_e4m3>(a, rows, leaves, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+QuantLeaf leaf_of(void* codes, void* scales, const void* src) {
+  return {static_cast<uint8_t*>(codes), static_cast<float*>(scales), src};
 }
 
 }  // namespace
 
-// cache: (B, C, H, D) codes of code_dtype (2 = int8, 3 = fp8_e4m3);
-// scales: (B, C, H) float32; src: (B, H, D) of src_dtype (0 = float32,
-// 1 = bfloat16); slots: (B,) int32; all on the device.  Returns
+// One or two leaves (k, then v; the v pointers unused for one): codes
+// (B, C, H, D) of code_dtype (2 = int8, 3 = fp8_e4m3), scales (B, C, H)
+// float32, src (B, T, H, D) of src_dtype (0 = float32, 1 = bfloat16),
+// T <= C; slots: (B,) int32; all on the device.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int pmt_quant_cache_update(void* cache, void* scales, const void* src,
-                                      const void* slots, int B, int C, int H, int D,
-                                      int src_dtype, int code_dtype, void* stream) {
-  const QuantArgs a{cache, scales, src, nullptr, nullptr, nullptr, slots, B, 1, C, 1, 1, H, D};
-  return quant_dispatch<false>(a, src_dtype, code_dtype, stream);
+extern "C" int pmt_quant_cache_update(void* k_codes, void* k_scales, const void* k_src,
+                                      void* v_codes, void* v_scales, const void* v_src,
+                                      int leaves, const void* slots, int B, int T, int C, int H,
+                                      int D, int src_dtype, int code_dtype, void* stream) {
+  if (T > C) return static_cast<int>(cudaErrorInvalidValue);
+  QuantLaunch a{};
+  a.k = leaf_of(k_codes, k_scales, k_src);
+  a.v = leaf_of(v_codes, v_scales, v_src);
+  a.B = B, a.T = T, a.H = H, a.D = D;
+  const SlotRows rows{static_cast<const int*>(slots), C};
+  return quant_dispatch(a, rows, leaves, src_dtype, code_dtype, stream);
 }
 
-// pool: (P, ps, H, D) codes of code_dtype; scales: (P, ps, H) float32;
-// src: (B, T, H, D) of src_dtype; page_table: (B, NB) int32; starts,
+// One or two leaves as above, paged: codes (P, ps, H, D), scales
+// (P, ps, H), src (B, T, H, D); page_table: (B, NB) int32; starts,
 // valids: (B,) int32; all on the device.  Returns cudaGetLastError().
-extern "C" int pmt_quant_paged_cache_update(void* pool, void* scales, const void* src,
-                                            const void* page_table, const void* starts,
-                                            const void* valids, int B, int T, int NB, int ps,
-                                            int H, int D, int src_dtype, int code_dtype,
-                                            void* stream) {
-  const QuantArgs a{pool,   scales, src, page_table, starts, valids, nullptr,
-                    B,      T,      0,   NB,         ps,     H,      D};
-  return quant_dispatch<true>(a, src_dtype, code_dtype, stream);
+extern "C" int pmt_quant_paged_cache_update(void* k_codes, void* k_scales, const void* k_src,
+                                            void* v_codes, void* v_scales, const void* v_src,
+                                            int leaves, const void* page_table,
+                                            const void* starts, const void* valids, int B,
+                                            int T, int NB, int ps, int H, int D, int src_dtype,
+                                            int code_dtype, void* stream) {
+  QuantLaunch a{};
+  a.k = leaf_of(k_codes, k_scales, k_src);
+  a.v = leaf_of(v_codes, v_scales, v_src);
+  a.B = B, a.T = T, a.H = H, a.D = D;
+  const PageRows rows{static_cast<const int*>(page_table), static_cast<const int*>(starts),
+                      static_cast<const int*>(valids), NB, ps};
+  return quant_dispatch(a, rows, leaves, src_dtype, code_dtype, stream);
 }

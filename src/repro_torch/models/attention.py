@@ -25,11 +25,15 @@ Caches and pools are updated **in place** — the decode scatters
 the tensors they are given, where the JAX package returned new buffers
 and donated the old ones.  Decode attention always takes the
 length-aware flash path (``kernels/decode_attention``); chunk attention
-takes ``kernels/prefill_attention``.  Quantized decode writes go through
-the quantizing scatters (``quant_cache_update``,
-``quant_paged_cache_update``); a contiguous prefill chunk is quantized
-once with ``quant.quantize`` and written with ``chunk_kv_write``, plain
-ops as in the JAX package.
+takes ``kernels/prefill_attention``.  Quantized writes go through the
+quantizing scatters, a layer's k and v in one launch
+(``quant_cache_update_pair``, ``quant_paged_cache_update_pair``): at
+every decode step, at every paged chunk, and at a contiguous chunk with
+one int offset and no ring, whose T rows the scatter places as the slice
+copy of ``chunk_kv_write`` would (the JAX package quantizes that chunk
+with plain ops, which XLA fuses).  A ring cache's or per-row
+offsets' chunk is still quantized with ``quant.quantize`` and written
+with ``chunk_kv_write``: no served config of the port has either yet.
 """
 from __future__ import annotations
 
@@ -43,8 +47,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.kernels.cache_update.ops import (
-    cache_update, paged_cache_update, quant_cache_update,
-    quant_paged_cache_update)
+    cache_update, paged_cache_update, quant_cache_update_pair,
+    quant_paged_cache_update_pair)
 from repro_torch.kernels.constants import NEG_INF
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_paged)
@@ -271,8 +275,8 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     size = cache["k"].shape[1]
     slots = torch.remainder(cur_len, size) if window \
         else torch.clamp(cur_len, max=size - 1)
-    _scatter(cfg, cache, k_new, v_new, cache_update, quant_cache_update,
-             slots)
+    _scatter(cfg, cache, k_new, v_new, cache_update,
+             quant_cache_update_pair, slots)
     o = decode_attention(q, cache["k"], cache["v"], cur_len,
                          ring=window is not None, softcap=cfg.attn_softcap,
                          scale=attn_scale(cfg), k_scale=cache.get("k_scale"),
@@ -283,14 +287,15 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
 def _scatter(cfg: ModelConfig, cache, k_new, v_new, plain, quantizing,
              *where) -> None:
     """Write the new k/v rows into the cache in place through the scatter
-    ``plain(leaf, rows, *where)``, or with ``cfg.kv_quant`` through its
-    quantizing twin ``quantizing(codes, scales, rows, *where, mode)``."""
-    for name, new in (("k", k_new), ("v", v_new)):
-        if cfg.kv_quant is None:
-            plain(cache[name], new, *where)
-        else:
-            quantizing(cache[name], cache[f"{name}_scale"], new, *where,
-                       cfg.kv_quant)
+    ``plain(leaf, rows, *where)``, once a leaf, or with ``cfg.kv_quant``
+    through its quantizing twin, once for both leaves:
+    ``quantizing(k, k_scale, k_rows, v, v_scale, v_rows, *where, mode)``."""
+    if cfg.kv_quant is None:
+        plain(cache["k"], k_new, *where)
+        plain(cache["v"], v_new, *where)
+    else:
+        quantizing(cache["k"], cache["k_scale"], k_new, cache["v"],
+                   cache["v_scale"], v_new, *where, cfg.kv_quant)
 
 
 def chunk_kv_write(cache: torch.Tensor, new: torch.Tensor,
@@ -307,7 +312,10 @@ def chunk_kv_write(cache: torch.Tensor, new: torch.Tensor,
     mask until a real decode token overwrites them.  Its start clamps
     like ``dynamic_update_slice``.  Ring caches (where a pad write would
     wrap onto a valid older position) and per-row offsets select, per
-    slot, the last valid chunk token that maps there.
+    slot, the last valid chunk token that maps there.  A quantized
+    cache's int-offset chunk goes through ``quant_cache_update_pair``
+    instead, which writes the same slots (``prefill_chunk_self_attention``);
+    its ring and per-row-offset chunks come here as codes and scales.
     """
     b, t = new.shape[:2]
     c = cache.shape[1]
@@ -348,9 +356,15 @@ def prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     after attention.  ``offs`` is ``offset`` as a (B,) int32 tensor on
     x's device (built once per step by the caller).  ``valid_len``:
     tokens ``>= valid_len`` are a final partial chunk's right-padding.
-    A quantized cache quantizes the chunk's k/v once, and its codes and
-    scales (scales are (B, T, KVH) rows) take the same masked write.
-    Returns out (B, T, d).
+    A quantized cache with one int offset and no ring (the engine's
+    chunks: batch 1) takes the quantizing scatter, k and v in one launch:
+    the chunk's T rows from ``offset`` clamped to [0, C - T], pad rows
+    included, which is what ``chunk_kv_write``'s slice copy writes, so
+    codes and scales are those of ``quant.quantize`` then that copy, bit
+    for bit.  A ring or per-row offsets (gemma2's sliding layers; none of
+    the port's served configs yet) quantize the chunk's k/v once with
+    ``quant.quantize``, and codes and scales (scales are (B, T, KVH)
+    rows) take ``chunk_kv_write``'s masked write.  Returns out (B, T, d).
     """
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
     ring = window is not None
@@ -359,11 +373,17 @@ def prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
                           softcap=cfg.attn_softcap, scale=attn_scale(cfg),
                           k_scale=cache.get("k_scale"),
                           v_scale=cache.get("v_scale"))
+    mode = cfg.kv_quant
+    if mode is not None and not ring and isinstance(offset, int):
+        quant_cache_update_pair(cache["k"], cache["k_scale"], k_new,
+                                cache["v"], cache["v_scale"], v_new, offs,
+                                mode)
+        return output_proj(p, o)
     rows = {"k": k_new, "v": v_new}
-    if cfg.kv_quant is not None:
+    if mode is not None:
         for name in ("k", "v"):
             rows[name], rows[f"{name}_scale"] = quant.quantize(
-                rows[name], cfg.kv_quant)
+                rows[name], mode)
     for name, new in rows.items():
         chunk_kv_write(cache[name], new, offset, valid_len, ring=ring)
     return output_proj(p, o)
@@ -409,7 +429,7 @@ def paged_decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     """
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
     _scatter(cfg, cache, k_new, v_new, paged_cache_update,
-             quant_paged_cache_update, page_table, cur_len,
+             quant_paged_cache_update_pair, page_table, cur_len,
              torch.ones_like(cur_len))
     o = decode_attention_paged(q, cache["k"], cache["v"], page_table,
                                cur_len, window=window,
@@ -446,5 +466,5 @@ def paged_prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
                                 k_scale=cache.get("k_scale"),
                                 v_scale=cache.get("v_scale"))
     _scatter(cfg, cache, k_new, v_new, paged_cache_update,
-             quant_paged_cache_update, page_table, offs, valid_len)
+             quant_paged_cache_update_pair, page_table, offs, valid_len)
     return output_proj(p, o)
