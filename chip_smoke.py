@@ -12,6 +12,13 @@ Phases, in order; any failure exits nonzero:
      the four scatters (contiguous, paged, and their quantizing twins)
      also with the host out of the loop: 100 calls in one CUDA graph,
      the kernel and, where there is one, its ``index_copy_`` yardstick;
+     the two copying scatters one leaf and a layer's k and v in one
+     launch, exactly, at the serve shapes, F 51 and views one element off
+     their alignment (the paged one also with ``valids`` None), the pair
+     timed beside two one-leaf launches, two ``index_copy_`` calls, an
+     empty kernel (``csrc/empty.cu``: the floor of a launch, at one block
+     of 32 threads and at the pair's grid) and the two leaves' byte
+     bound, the ``kernels`` line's rows 1 and 4 marked ``leaves: 2``;
      likewise flash-decode (rows 3 and 7, SDPA beside row 3), also at
      its split-KV edges (one long row alone, every row at 0, a wrapped
      ring, ranges ending on split shares, a paged batch of dead rows:
@@ -27,7 +34,8 @@ Phases, in order; any failure exits nonzero:
      built loop (``cuobjdump -sass``); the kernels redesigned for Hopper
      (bf16 prefill on ``mma.sync``, the f32 GEMM and flash-decode on the
      CUDA cores, the STREAM triad, the gridder's and the degridder's
-     phasor on the SFU, JACOBI2D's 16-byte loads and stores) gated on
+     phasor on the SFU, JACOBI2D's and the copying scatters' 16-byte
+     loads and stores, the quantizing scatters' lane groups) gated on
      their SASS and on 0 bytes of ptxas spill.
      The three paged kernels (paged cache_update, decode and prefill
      attention) the same way, at the paged serve path's shapes and at
@@ -73,16 +81,21 @@ Phases, in order; any failure exits nonzero:
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
      16 requests through the continuous-batching engine with chunked
      prefill, twice (the second run gives the spread); check every
-     request's tokens, finite logits, and that every kernel's launch
-     count grew; print tokens/s, stall p95 and the card's joules per
+     request's tokens, finite logits, that every kernel's launch count
+     grew, and that the scatter launched once a layer per decode step (k
+     and v in one launch; the chunks' writes are copies), counted by
+     wrapping the engine's serve steps (``count_steps``); print tokens/s,
+     stall p95 and the card's joules per
      generated token (NVML), measured through a PMT session whose every
      request must have a resolved ``serve/req<N>`` record with
      ``/prefill`` + ``/decode`` within 1% of its total; then a short run
-     under the profiler.
+     under the profiler, and the launches one prefill chunk and one
+     decode step issue.
      5b. the same model through the paged engine (page 16, the default
      pool of 512 usable pages), 16 requests sharing a 256-token system
-     prompt, served cold then warm with the same checks, plus: the
-     paged kernels launched and the contiguous ones not, pool gauges
+     prompt, served cold then warm with the same checks (the paged
+     scatter once a layer per decode step and per prefill chunk), plus:
+     the paged kernels launched and the contiguous ones not, pool gauges
      that add up, the pages held after a run equal to the prefix tree's,
      prefix hits in both runs and priced saved prefill joules in the
      warm one; then a short run under the profiler.
@@ -95,8 +108,8 @@ Phases, in order; any failure exits nonzero:
      v in one launch), ``stats()["kv_cache"]`` names the mode, and bytes
      per token under 0.6x phase 5's bf16 figure; prints how many
      requests generate the bf16 run's tokens (not gated); the int8
-     contiguous trace's busy time, launches and launches a prefill chunk
-     beside phase 5's bf16 ones.
+     contiguous trace's busy time, launches, launches a prefill chunk and
+     a decode step beside phase 5's bf16 ones.
      5t. train full-width smollm-135m (bf16 on fp32 masters, AdamW,
      remat full, attn_impl pallas, batch 8 x 2048 from the synthetic
      pipeline): a warm-up step, then 20 steps through
@@ -123,8 +136,9 @@ Phases, in order; any failure exits nonzero:
      ``EnergyMeter`` reading of the same window.
   7. print the ``{"kernels": [...]}`` line (15 kernels; the attention
      kernels with their quantized launches and times beside, the
-     quantizing scatters with fp8_e4m3's times beside int8's), then the
-     final ``{"ok": true, "device": {...}}`` line.
+     quantizing scatters with fp8_e4m3's times beside int8's, the four
+     scatters' times a pair call's), then the final ``{"ok": true,
+     "device": {...}}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -319,49 +333,159 @@ def read_counts(kernels) -> dict:
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
+# The copying scatters (rows 1 and 4): one leaf and a layer's k and v in
+# one launch, exactly (a copy), at the serve shapes and odd ones (F 51:
+# rows no multiple of 16 bytes, the element path; views one element into
+# their storage, likewise); the pair timed at the serve shapes beside two
+# one-leaf launches, two ``index_copy_`` calls (the library yardstick for
+# two leaves) and an empty kernel (the floor of a launch), in a CUDA
+# graph.
 
-def check_cache_update(kernel, ref, dev):
+def copy_grid(rows: int, units: int, leaves: int) -> tuple:
+    """The grid and block size of one copying-scatter launch of ``rows``
+    rows of ``units`` units a leaf, as ``copy_launch`` in
+    csrc/cache_update.cu sizes it: a block a row, of ``kCopyThreads``
+    (read from the source) threads at most."""
+    src = (ROOT / "src/repro_torch/kernels/csrc/cache_update.cu").read_text()
+    most = int(re.search(r"constexpr int kCopyThreads = (\d+);",
+                         src).group(1))
+    return (rows, leaves), min(most, (units + 31) // 32 * 32)
+
+
+def empty_graph_ms(lib, grid, threads: int) -> float:
+    """``graph_ms`` of an empty kernel (``csrc/empty.cu``) launched on
+    ``grid`` blocks of ``threads``: the floor of a launch."""
+    def call():
+        err = lib.pmt_empty(*grid, threads,
+                            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"pmt_empty failed: error {err}")
+    return graph_ms(call)
+
+
+def _copy_leaves(dev, dt, lead, rows, f, n, seed, skew=False) -> list:
+    """``n`` (cache, new) leaves: caches of ``lead`` + (f,) and rows of
+    ``rows`` + (f,) in ``dt``; with ``skew``, views one element into their
+    storage."""
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        cache = torch.randn((*lead, f), generator=g, device=dev).to(dt)
+        new = torch.randn((*rows, f), generator=g, device=dev).to(dt)
+        out.append((misaligned(cache), misaligned(new)) if skew
+                   else (cache, new))
+    return out
+
+
+def _copy_args(leaves) -> list:
+    """The leaves' tensors, caches copied (a skewed view stays skewed),
+    rows as they are: the arguments of one call."""
+    copy = lambda t: misaligned(t) if t.storage_offset() else t.clone()
+    return [x for cache, new in leaves for x in (copy(cache), new)]
+
+
+def _copy_calls(kernel, ref, n: int, paged: bool):
+    """(kernel call, plain call) over ``n`` leaves: one leaf, or two in
+    one launch.  Each takes the leaves' arguments and the routing and
+    returns the outputs by leaf."""
+    name = "paged_cache_update" if paged else "cache_update"
+    pair = "_pair" if n == 2 else ""
+    kfn = getattr(kernel, f"{name}{pair}_cuda")
+    rfn = getattr(ref, f"{name}{pair}_ref")
+    wrap = (lambda out: list(out)) if pair else (lambda out: [out])
+    return (lambda args, *where: wrap(kfn(*args, *where)),
+            lambda args, *where: wrap(rfn(*args, *where)))
+
+
+def _copy_timing(kernel, ref, lib, leaves, where, paged, flat_idx,
+                 nbytes) -> dict:
+    """The pair call over ``leaves`` at a serve shape: by CUDA events
+    (host in the loop) and in a CUDA graph, beside the plain version, two
+    one-leaf launches (the serve path's call before), two
+    ``index_copy_`` calls of the same rows into the flattened caches at
+    ``flat_idx`` and an empty kernel at one block of 32 threads and at
+    the pair's grid; the bound of ``nbytes``."""
+    call, plain = _copy_calls(kernel, ref, 2, paged)
+    one, _ = _copy_calls(kernel, ref, 1, paged)
+    args = _copy_args(leaves)
+    one_where = where if where[-1] is not None else (
+        *where[:-1], torch.ones_like(where[0][:, 0]))
+    flats = [(c.view(-1, c.shape[-1]), n.reshape(-1, n.shape[-1])[
+        flat_idx[1]]) for c, n in zip(args[::2], args[1::2])]
+    library = lambda: [flat.index_copy_(0, flat_idx[0], rows)
+                       for flat, rows in flats]
+    b, t, f = args[1].shape
+    grid, threads = copy_grid(b * t, f * args[1].element_size() // 16, 2)
+    tm = {"ms": time_ms(lambda: call(args, *where), iters=200),
+          "plain_ms": time_ms(lambda: plain(args, *where), iters=200),
+          "library_ms": time_ms(library, iters=200),
+          "graph_ms": graph_ms(lambda: call(args, *where)),
+          "library_graph_ms": graph_ms(library),
+          "two_launches_graph_ms": graph_ms(
+              lambda: (one(args[:2], *one_where), one(args[2:], *one_where))),
+          "empty_graph_ms": empty_graph_ms(lib, (1, 1), 32),
+          "empty_grid_graph_ms": empty_graph_ms(lib, grid, threads),
+          "grid": [*grid, threads]}
+    tm["bound_ms"], tm["bound_by"] = bound(nbytes, 0.0, torch.bfloat16)
+    return tm
+
+
+def _log_copy_timing(name, case, tm) -> None:
+    log(f"  {name} {case}, k and v in one launch: kernel {tm['ms']:.5f} ms "
+        f"(host in the loop), plain {tm['plain_ms']:.5f}, two index_copy_ "
+        f"{tm['library_ms']:.5f}; in a CUDA graph: the pair "
+        f"{tm['graph_ms']:.7f}, two one-leaf launches "
+        f"{tm['two_launches_graph_ms']:.7f}, two index_copy_ "
+        f"{tm['library_graph_ms']:.7f}, an empty kernel "
+        f"{tm['empty_graph_ms']:.7f} (1 x 32) and "
+        f"{tm['empty_grid_graph_ms']:.7f} (the pair's grid "
+        f"{tm['grid'][:2]} x {tm['grid'][2]}); bound "
+        f"{tm['bound_ms']:.7f} (bytes)")
+
+
+def check_cache_update(kernel, ref, lib, dev):
+    """Row 1: one leaf and two in one launch equal their plain versions
+    exactly; the pair timed at the decode serve shape (bf16)."""
     results = {}
-    for name, (b, c, f) in {"main B8 C1024 F192": (8, 1024, 192),
-                            "odd B5 C77 F51": (5, 77, 51)}.items():
+    cases = {"main B8 C1024 F192": (8, 1024, 192, False),
+             "odd B5 C77 F51": (5, 77, 51, False),
+             "misaligned B8 C1024 F192": (8, 1024, 192, True)}
+    for name, (b, c, f, skew) in cases.items():
+        g = torch.Generator(device=dev).manual_seed(1)
+        slots = torch.randint(0, c, (b,), generator=g, device=dev,
+                              dtype=torch.int32)
+        # the first and last slots, and one past the end (clamped)
+        slots[0], slots[1], slots[-1] = 0, c + 5, c - 1
         for dt in (torch.float32, torch.bfloat16):
-            g = torch.Generator(device=dev).manual_seed(1)
-            cache = torch.randn((b, c, f), generator=g, device=dev).to(dt)
-            new = torch.randn((b, 1, f), generator=g, device=dev).to(dt)
-            slots = torch.randint(0, c, (b,), generator=g, device=dev,
-                                  dtype=torch.int32)
-            slots[0], slots[-1] = 0, c - 1
-            want = ref.cache_update_ref(cache.clone(), new, slots)
-            got = kernel.cache_update_cuda(cache.clone(), new, slots)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            log(f"  cache_update {name} {str(dt)[6:]}: max |err| {err} "
-                f"(must be 0: a copy)")
-            if err != 0.0:
-                raise AssertionError("cache_update disagrees with its plain "
-                                     "version")
-            if name.startswith("main") and dt == torch.bfloat16:
-                el = cache.element_size()
-                idx = (torch.arange(b, device=dev) * c + slots.long())
-                flat, rows = cache.view(b * c, f), new.view(b, f)
-                t = {
-                    "ms": time_ms(lambda: kernel.cache_update_cuda(
-                        cache, new, slots), iters=200),
-                    "plain_ms": time_ms(lambda: ref.cache_update_ref(
-                        cache, new, slots), iters=200),
-                    "library_ms": time_ms(lambda: flat.index_copy_(
-                        0, idx, rows), iters=200),
-                    "graph_ms": graph_ms(lambda: kernel.cache_update_cuda(
-                        cache, new, slots)),
-                    "library_graph_ms": graph_ms(lambda: flat.index_copy_(
-                        0, idx, rows)),
-                }
-                t["bound_ms"], t["bound_by"] = bound(
-                    2 * b * f * el + 4 * b, 0.0, dt)
-                log(f"  cache_update {name}: device time a call, host out "
-                    f"of the loop (CUDA graph): {tm_graph(t)}")
-                results = dict(t, max_abs_err=err)
+            for n in (1, 2):
+                leaves = _copy_leaves(dev, dt, (b, c), (b, 1), f, n, 1, skew)
+                call, plain = _copy_calls(kernel, ref, n, paged=False)
+                got = call(_copy_args(leaves), slots)
+                want = plain(_copy_args(leaves), slots)
+                torch.cuda.synchronize()
+                err = max(max_err(gc, wc) for gc, wc in zip(got, want))
+                exact = all(torch.equal(gc, wc) for gc, wc in zip(got, want))
+                how = "k and v in one launch" if n == 2 else "one leaf"
+                log(f"  cache_update {name} {str(dt)[6:]}, {how}: "
+                    f"{'equal' if exact else 'DIFFERENT'} bit for bit, max "
+                    f"|err| {err} (must be 0: a copy)")
+                if not exact:
+                    raise AssertionError("cache_update disagrees with its "
+                                         "plain version")
+        if not name.startswith("main"):
+            continue
+        dt = torch.bfloat16
+        el = torch.tensor([], dtype=dt).element_size()
+        idx = torch.arange(b, device=dev) * c + slots.long().clamp(0, c - 1)
+        tm = _copy_timing(
+            kernel, ref, lib, _copy_leaves(dev, dt, (b, c), (b, 1), f, 2, 3),
+            (slots,), False, (idx, slice(None)),
+            # both leaves' rows read and written, the slots read
+            2 * 2 * b * f * el + 4 * b)
+        _log_copy_timing("cache_update", name, tm)
+        results = dict(tm, max_abs_err=0.0)
     return results
+
 
 
 def _decode_inputs(dev, dt, b, c, kvh, g, hd, seed=2):
@@ -799,14 +923,8 @@ def check_quant_paged_cache_update(kernel, ref, quant, dev):
             valids = torch.tensor(cs["valids"], dtype=torch.int32,
                                   device=dev)
             where = (table, starts, valids)
-            pos = torch.clamp(starts.long()[:, None]
-                              + torch.arange(t, device=dev), max=nb * ps - 1)
-            ok = torch.arange(t, device=dev)[None] < valids.long()[:, None]
-            hit = (torch.gather(table.long(), 1, pos // ps) * ps
-                   + pos % ps)[ok]
-            kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
-            kept[hit] = False
-            kept[:ps] = False                       # page 0: undefined
+            _, ok, kept = _paged_targets(dev, table, starts, valids, t, p,
+                                         ps)
             for dt in (torch.float32, torch.bfloat16):
                 for n in (1, 2):
                     leaves = _quant_leaves(dev, quant, mode, dt, (p, ps),
@@ -840,6 +958,30 @@ def check_quant_paged_cache_update(kernel, ref, quant, dev):
                         raise AssertionError("quant_paged_cache_update "
                                              "disagrees with its plain "
                                              "version")
+                    if n == 2:
+                        # valids None (every row valid): the kernel
+                        # against the plain version with valids of T
+                        every = (table, starts, torch.full_like(valids, t))
+                        call, _ = _quant_calls(kernel, ref, leaves,
+                                               (table, starts, None), mode,
+                                               paged=True)
+                        _, plain = _quant_calls(kernel, ref, leaves, every,
+                                                mode, paged=True)
+                        got, want = call(_copies(leaves)), plain(
+                            _copies(leaves))
+                        torch.cuda.synchronize()
+                        exact = all(torch.equal(u8(gc)[1:], u8(wc)[1:])
+                                    and torch.equal(gs[1:], ws[1:])
+                                    for (gc, gs), (wc, ws) in zip(got, want))
+                        log(f"  quant_paged_cache_update {mode} {name} "
+                            f"{str(dt)[6:]} rows, k and v in one launch, "
+                            f"valids None: outside page 0 "
+                            f"{'equal' if exact else 'DIFFERENT'} bit for "
+                            f"bit to every row valid")
+                        if not exact:
+                            raise AssertionError(
+                                "quant_paged_cache_update with valids None "
+                                "disagrees with its plain version")
                     if not (name.startswith(("decode", "prefill"))
                             and dt == torch.bfloat16 and n == 2):
                         continue
@@ -885,9 +1027,27 @@ def _page_table(dev, b, nb, num_pages, seed, masked=()):
     return torch.tensor(ids, dtype=torch.int32, device=dev)
 
 
-def check_paged_cache_update(kernel, ref, dev):
-    """Exact outside page 0 (a copy); every row of a real page that no
-    valid row targets keeps its bits."""
+def _paged_targets(dev, table, starts, valids, t, p, ps):
+    """The physical rows the valid rows target, the (B, T) mask of valid
+    rows, and the (p * ps,) mask of rows of real pages that none
+    targets."""
+    nb = table.shape[1]
+    pos = torch.clamp(starts.long()[:, None] + torch.arange(t, device=dev),
+                      0, nb * ps - 1)
+    ok = torch.arange(t, device=dev)[None] < valids.long()[:, None]
+    hit = (torch.gather(table.long(), 1, pos // ps) * ps + pos % ps)[ok]
+    kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
+    kept[hit] = False
+    kept[:ps] = False                       # page 0: undefined
+    return hit, ok, kept
+
+
+def check_paged_cache_update(kernel, ref, lib, dev):
+    """Row 4: exact outside page 0 (a copy), one leaf and two in one
+    launch, with valids and, for the pair, with None (every row valid);
+    every row of a real page that no valid row targets keeps its bits.
+    The pair timed at the decode serve shape (valids None, the serve
+    path's call) and at a chunk (bf16)."""
     cases = {
         # decode: T = 1; row 6 masked (valids 0), row 7 a dead row whose
         # table is masked to page 0 and whose position is past the table
@@ -906,70 +1066,75 @@ def check_paged_cache_update(kernel, ref, dev):
         "odd P40 ps8 F51 B4 NB9 T1 past the table": dict(
             p=40, ps=8, f=51, b=4, nb=9, t=1, masked=(),
             starts=[71, 72, 500, 3], valids=[1, 1, 1, 0]),
+        "misaligned prefill P513 ps16 F192 B8 NB64 T32": dict(
+            p=513, ps=16, f=192, b=8, nb=64, t=32, masked=(),
+            starts=[0, 16, 512, 992, 5, 100, 0, 17],
+            valids=[32, 32, 17, 32, 0, 1, 0, 31], skew=True),
     }
     results = {}
     for name, cs in cases.items():
-        for dt in (torch.float32, torch.bfloat16):
-            p, ps, f, b, nb, t = (cs[x] for x in ("p", "ps", "f", "b", "nb",
-                                                  "t"))
-            g = torch.Generator(device=dev).manual_seed(12)
-            pool = torch.randn((p, ps, f), generator=g, device=dev).to(dt)
-            new = torch.randn((b, t, f), generator=g, device=dev).to(dt)
-            table = _page_table(dev, b, nb, p, 13, cs["masked"])
-            starts = torch.tensor(cs["starts"], dtype=torch.int32,
-                                  device=dev)
-            valids = torch.tensor(cs["valids"], dtype=torch.int32,
-                                  device=dev)
-            want = ref.paged_cache_update_ref(pool.clone(), new, table,
-                                              starts, valids)
-            got = kernel.paged_cache_update_cuda(pool.clone(), new, table,
-                                                 starts, valids)
-            torch.cuda.synchronize()
-            err = max_err(got[1:], want[1:])
-            # physical rows the valid rows target
-            pos = torch.clamp(starts.long()[:, None]
-                              + torch.arange(t, device=dev), max=nb * ps - 1)
-            ok = torch.arange(t, device=dev)[None] < valids.long()[:, None]
-            hit = (torch.gather(table.long(), 1, pos // ps) * ps
-                   + pos % ps)[ok]
-            kept = torch.ones(p * ps, dtype=torch.bool, device=dev)
-            kept[hit] = False
-            kept[:ps] = False                       # page 0: undefined
-            untouched = bool(torch.equal(got.view(p * ps, f)[kept],
-                                         pool.view(p * ps, f)[kept]))
-            log(f"  paged_cache_update {name} {str(dt)[6:]}: max |err| "
-                f"{err} outside page 0 (must be 0: a copy); "
-                f"{int(kept.sum())} rows of real pages no valid row "
-                f"targets {'unchanged' if untouched else 'CHANGED'}")
-            if err != 0.0 or not untouched:
-                raise AssertionError("paged_cache_update disagrees with its "
-                                     "plain version")
-            if name.startswith(("decode", "prefill")) \
-                    and dt == torch.bfloat16:
-                n = int(ok.sum())
-                el = pool.element_size()
-                flat, rows = pool.view(p * ps, f), new[ok]
-                tm = {
-                    "ms": time_ms(lambda: kernel.paged_cache_update_cuda(
-                        pool, new, table, starts, valids), iters=200),
-                    "plain_ms": time_ms(lambda: ref.paged_cache_update_ref(
-                        pool, new, table, starts, valids), iters=200),
-                    "library_ms": time_ms(lambda: flat.index_copy_(
-                        0, hit, rows), iters=200),
-                    "graph_ms": graph_ms(
-                        lambda: kernel.paged_cache_update_cuda(
-                            pool, new, table, starts, valids)),
-                    "library_graph_ms": graph_ms(lambda: flat.index_copy_(
-                        0, hit, rows)),
-                }
-                tm["bound_ms"], tm["bound_by"] = bound(
-                    2 * n * f * el + 4 * n + 8 * b, 0.0, dt)
-                log(f"  paged_cache_update {name}: kernel {tm['ms']:.5f} "
-                    f"ms, plain {tm['plain_ms']:.5f}, index_copy_ "
-                    f"{tm['library_ms']:.5f}, bound {tm['bound_ms']:.7f}; "
-                    f"device time a call (CUDA graph) {tm_graph(tm)}")
-                if name.startswith("decode"):
-                    results = dict(tm, max_abs_err=err)
+        p, ps, f, b, nb, t = (cs[x] for x in ("p", "ps", "f", "b", "nb",
+                                              "t"))
+        table = _page_table(dev, b, nb, p, 13, cs["masked"])
+        starts = torch.tensor(cs["starts"], dtype=torch.int32, device=dev)
+        given = torch.tensor(cs["valids"], dtype=torch.int32, device=dev)
+        for valids in (given, None):
+            every = torch.full_like(given, t) if valids is None else valids
+            hit, ok, kept = _paged_targets(dev, table, starts, every, t, p,
+                                           ps)
+            for dt in (torch.float32, torch.bfloat16):
+                for n in (1, 2) if valids is not None else (2,):
+                    leaves = _copy_leaves(dev, dt, (p, ps), (b, t), f, n, 12,
+                                          cs.get("skew", False))
+                    call, plain = _copy_calls(kernel, ref, n, paged=True)
+                    where = (table, starts, valids)
+                    got = call(_copy_args(leaves), *where)
+                    want = plain(_copy_args(leaves), *where)
+                    torch.cuda.synchronize()
+                    err = max(max_err(gc[1:], wc[1:])
+                              for gc, wc in zip(got, want))
+                    exact = all(torch.equal(gc[1:], wc[1:])
+                                for gc, wc in zip(got, want))
+                    untouched = all(
+                        torch.equal(gc.view(p * ps, f)[kept],
+                                    pool.view(p * ps, f)[kept])
+                        for gc, (pool, _) in zip(got, leaves))
+                    how = "k and v in one launch" if n == 2 else "one leaf"
+                    log(f"  paged_cache_update {name} {str(dt)[6:]}, {how}"
+                        f"{', valids None' if valids is None else ''}: "
+                        f"outside page 0 {'equal' if exact else 'DIFFERENT'} "
+                        f"bit for bit, max |err| {err} (must be 0: a copy); "
+                        f"{int(kept.sum())} rows of real pages no valid row "
+                        f"targets {'unchanged' if untouched else 'CHANGED'}")
+                    if not (exact and untouched):
+                        raise AssertionError("paged_cache_update disagrees "
+                                             "with its plain version")
+            # the serve path's calls: decode with valids None, a chunk
+            # with its valid lengths
+            serve = valids is None if name.startswith("decode") \
+                else valids is not None and name.startswith("prefill")
+            if not serve:
+                continue
+            dt = torch.bfloat16
+            el = torch.tensor([], dtype=dt).element_size()
+            nrows = int(ok.sum())
+            tm = _copy_timing(
+                kernel, ref, lib,
+                _copy_leaves(dev, dt, (p, ps), (b, t), f, 2, 14),
+                (table, starts, valids), True, (hit, ok.reshape(-1)),
+                # both leaves' valid rows read and written, a table entry
+                # a valid row, starts (and valids where given)
+                2 * 2 * nrows * f * el + 4 * nrows
+                + (4 if valids is None else 8) * b)
+            _log_copy_timing("paged_cache_update",
+                             name + (", valids None" if valids is None
+                                     else ""), tm)
+            if name.startswith("decode"):
+                results = dict(tm, max_abs_err=0.0)
+            else:
+                results.update({f"chunk_{k}": tm[k] for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms",
+                    "library_graph_ms", "two_launches_graph_ms")})
     return results
 
 
@@ -1770,6 +1935,9 @@ REDESIGNS = (
      set()),
     ("quant_paged_scatter_kernel", "cache_update.cu", 8,
      {"LDG", "STG", "SHFL"}, set()),
+    # the copying scatters, contiguous and paged x the 16-byte path and
+    # the element path, flat packed
+    ("copy_scatter_kernel", "cache_update.cu", 4, {"LDG", "STG"}, set()),
 )
 
 
@@ -1780,8 +1948,9 @@ def check_redesigns(build) -> None:
     gridder's and the degridder's phasor on the SFU (MUFU), JACOBI2D's
     16-byte path loads and stores 16 bytes an instruction (LDG and STG
     with a .128 width), the quantizing scatters' lane-group path loads 16
-    bytes an instruction (LDG.128), and none of them, nor the STREAM
-    triad, spills a byte (ptxas)."""
+    bytes an instruction (LDG.128), the copying scatters' 16-byte path
+    loads and stores 16 bytes an instruction (LDG.128, STG.128), and
+    none of them, nor the STREAM triad, spills a byte (ptxas)."""
     funcs = sass_functions(build.library_path())
     wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
              if ".128" in op}
@@ -1802,6 +1971,15 @@ def check_redesigns(build) -> None:
     if not (len(groups) == 8 and all(groups)):
         raise AssertionError("the quantizing scatters' lane-group path does "
                              "not load 16 bytes an instruction")
+    copies = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
+               if ".128" in op}
+              for name, text in funcs
+              if "copy_scatter_kernel" in name and "Lb1E" in name]
+    log(f"  copying scatters' 16-byte path: opcodes with a .128 width "
+        f"{[sorted(f) for f in copies]}")
+    if not (len(copies) == 2 and all({"LDG", "STG"} <= f for f in copies)):
+        raise AssertionError("the copying scatters' 16-byte path does not "
+                             "load and store 16 bytes an instruction")
     for kernel, source, count, must, must_not in REDESIGNS:
         funcs = sass_opcodes(build.library_path(), kernel)
         usage = ptxas_usage(nvcc_log(build, source), kernel)
@@ -2151,13 +2329,20 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
     log(f"  prompts {min(lengths)}-{max(lengths)} tokens, 64 new tokens "
         f"each")
     reader = nvml.NvmlReader(0)
+    steps = count_steps(eng)
+    runs = []
     try:
         log(f"  NVML: {reader.name()}, enforced power limit "
             f"{reader.power_limit_watts():.0f} W, now "
             f"{reader.power_watts():.0f} W")
-        runs = [served_run(eng, Request, prompts, kernels,
-                           nvml.EnergyMeter(reader), i, session, energy,
-                           serve_launch) for i in (1, 2)]
+        for i in (1, 2):
+            steps.update(decode=0, chunk=0)
+            runs.append(served_run(eng, Request, prompts, kernels,
+                                   nvml.EnergyMeter(reader), i, session,
+                                   energy, serve_launch))
+            # the bf16 contiguous chunk is two slice copies a layer
+            check_once_a_layer(cfg, runs[-1][0], steps, "cache_update",
+                               f"run {i}", chunks=False)
     finally:
         reader.close()
     traced = trace_serve(eng, cfg, Request, rng)
@@ -2272,15 +2457,19 @@ def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
     eng.generate(warm)
     torch.cuda.synchronize()
     reader = nvml.NvmlReader(0)
+    steps = count_steps(eng)
     outs, launches = [], None
     try:
         for index, name in ((1, "cold"), (2, "warm")):
             hit0 = eng.prefix_hit_tokens
             saved0 = eng.saved_prefill_joules
             zero_counts(serve_kernels)
+            steps.update(decode=0, chunk=0)
             counts, out = served_run(eng, Request, prompts, kernels,
                                      nvml.EnergyMeter(reader), index,
                                      session, energy, serve_launch)
+            check_once_a_layer(cfg, counts, steps, "paged_cache_update",
+                               f"run {index}", chunks=True)
             contiguous = read_counts(serve_kernels)
             log(f"  run {index}: contiguous kernel launches {contiguous} "
                 f"(must be 0: the path is paged)")
@@ -2340,6 +2529,26 @@ def count_steps(eng) -> dict:
                 decode=counted(fns.decode, "decode"),
                 prefill_chunk=counted(fns.prefill_chunk, "chunk")))
     return steps
+
+
+def check_once_a_layer(cfg, counts, steps, scatter, label,
+                       chunks: bool) -> None:
+    """The scatter launched once a layer per decode step and, where
+    ``chunks``, per prefill chunk: k and v in one launch.  Prints its
+    launches a decode step beside the two a layer that one launch a leaf
+    made."""
+    n_steps = steps["decode"] + (steps["chunk"] if chunks else 0)
+    want = cfg.num_layers * n_steps
+    where = "decode step and prefill chunk" if chunks else \
+        "decode step (the chunks' writes are copies)"
+    log(f"  {label}: {scatter} launched {counts[scatter]} times for "
+        f"{steps['decode']} decode steps and {steps['chunk']} prefill "
+        f"chunks of {cfg.num_layers} layers (must be {want}: once a layer a "
+        f"{where}, k and v in one launch); {counts[scatter] / n_steps:g} a "
+        f"step, where one launch a leaf made {2 * cfg.num_layers}")
+    if counts[scatter] != want:
+        raise AssertionError(f"{label}: {scatter} is not launched once a "
+                             f"layer a step")
 
 
 def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
@@ -2402,15 +2611,8 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                                          f"kernels: {stray}")
                 scatter = "quant_paged_cache_update" if layout == "paged" \
                     else "quant_cache_update"
-                want = cfg.num_layers * (steps["decode"] + steps["chunk"])
-                log(f"  {mode} {layout}: {scatter} launched {counts[scatter]}"
-                    f" times for {steps['decode']} decode steps and "
-                    f"{steps['chunk']} prefill chunks of {cfg.num_layers} "
-                    f"layers (must be {want}: once a layer a step, k and v "
-                    f"in one launch)")
-                if counts[scatter] != want:
-                    raise AssertionError(f"{mode} {layout}: {scatter} is not "
-                                         f"launched once a layer a step")
+                check_once_a_layer(cfg, counts, steps, scatter,
+                                   f"{mode} {layout}", chunks=True)
                 agree = sum(a == b for a, b in zip(out, bf16_tokens))
                 log(f"  {mode} {layout}: the bf16 kernels and the other "
                     f"layout's stayed at 0; {agree} of {len(out)} requests "
@@ -2428,7 +2630,8 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                             f"{traced[0]:.1f} ms against {bf16_trace[0]:.1f}"
                             f", {traced[1]} kernel launches issued against "
                             f"{bf16_trace[1]}, {traced[2]} a prefill chunk "
-                            f"against {bf16_trace[2]}")
+                            f"against {bf16_trace[2]}, {traced[3]} a decode "
+                            f"step against {bf16_trace[3]}")
                 del eng
     finally:
         reader.close()
@@ -2445,9 +2648,11 @@ def trace_serve(eng, cfg, Request, rng) -> tuple:
     post-processing short; it still slows the host, so the busy share is
     a lower bound.  Then, on a contiguous engine, the kernel launches one
     prefill chunk issues (batch 1, 32 tokens at offset 32 of a fresh chunk
-    cache, after one untraced chunk).  A measurement only: it prints why
-    when the profiler sees no device.  Returns the device busy ms, the
-    launches issued and the launches a chunk (None where not measured)."""
+    cache, after one untraced chunk), and on either layout the launches one
+    decode step issues (``decode_step_launches``).  A measurement only: it
+    prints why when the profiler sees no device.  Returns the device busy
+    ms, the launches issued, the launches a chunk and the launches a
+    decode step (None where not measured)."""
     from torch.profiler import ProfilerActivity, profile
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, 256).tolist(),
                     max_new_tokens=32) for _ in range(8)]
@@ -2457,8 +2662,8 @@ def trace_serve(eng, cfg, Request, rng) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy, _ = trace_summary(prof, wall, (
-        "scatter_rows_kernel", "paged_scatter_kernel",
-        "quant_scatter_kernel", "quant_paged_scatter_kernel",
+        "copy_scatter_kernel", "quant_scatter_kernel",
+        "quant_paged_scatter_kernel",
         "decode_attention_kernel", "prefill_attention_kernel",
         "prefill_tc_kernel"))
     per_chunk = None
@@ -2482,8 +2687,41 @@ def trace_serve(eng, cfg, Request, rng) -> tuple:
         log(f"  trace: one prefill chunk (B1, 32 tokens, {cfg.num_layers} "
             f"layers) issues {per_chunk} kernel launches; {ran} device "
             f"kernels and copies run")
+    per_decode = decode_step_launches(eng, rng)
+    log(f"  trace: one decode step (B{eng.batch}, {cfg.num_layers} layers, "
+        f"{eng.kv_layout}) issues {per_decode} kernel launches")
     return busy, launches_issued(prof) if busy is not None else None, \
-        per_chunk
+        per_chunk, per_decode
+
+
+def decode_step_launches(eng, rng) -> int:
+    """Kernel launches one decode step of the engine's batch issues, by
+    ``torch.profiler``: a fresh cache (or fresh pools of 4 pages a slot)
+    at positions 3, 10, ..., after one untraced step there."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_mod
+    b, dev = eng.batch, eng.device
+    toks = torch.as_tensor(rng.integers(0, eng.cfg.vocab_size, (b, 1)),
+                           device=dev)
+    cur = torch.arange(b, dtype=torch.int32, device=dev) * 7 + 3
+    if eng.kv_layout == "paged":
+        nb, ps = 4, eng.kv_page_size
+        caches = model_mod.init_paged_caches(eng.cfg, 1 + b * nb, ps,
+                                             eng.cache_dtype, dev)
+        table = torch.arange(1, 1 + b * nb, dtype=torch.int32,
+                             device=dev).reshape(b, nb)
+        step = lambda: eng._paged_fns.decode(eng.params, caches, toks, cur,
+                                             table)
+    else:
+        caches = model_mod.init_caches(eng.cfg, b, eng.max_len,
+                                       dtype=eng.cache_dtype, device=dev)
+        step = lambda: eng._fns.decode(eng.params, caches, toks, cur)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return launches_issued(prof)
 
 
 def launches_issued(prof) -> int:
@@ -3005,11 +3243,12 @@ def main() -> int:
     dev = torch.device("cuda")
     log("[3] kernels against their plain versions")
     timings = {
-        "cache_update": check_cache_update(cu_kernel, cu_ref, dev),
+        "cache_update": check_cache_update(cu_kernel, cu_ref,
+                                           build.library(), dev),
         "prefill_attention": check_prefill(pa_kernel, pa_ref, dev),
         "decode_attention": check_decode(da_kernel, da_ref, dev),
-        "paged_cache_update": check_paged_cache_update(cu_kernel, cu_ref,
-                                                       dev),
+        "paged_cache_update": check_paged_cache_update(
+            cu_kernel, cu_ref, build.library(), dev),
         "prefill_attention_paged": check_paged_prefill(pa_kernel, pa_ref,
                                                        dev),
         "decode_attention_paged": check_paged_decode(da_kernel, da_ref,
@@ -3152,6 +3391,10 @@ def main() -> int:
     # int8's with fp8_e4m3's beside them; the four attention kernels carry
     # their quantized launches (phase 5c, both modes) and times beside
     # their bf16 ones.
+    # The copying scatters' numbers are a pair call's too, k and v in one
+    # launch (two_launches_graph_ms: a leaf a call).
+    for name in ("cache_update", "paged_cache_update"):
+        timings[name]["leaves"] = 2
     for name in ("quant_cache_update", "quant_paged_cache_update"):
         by_mode = quant_timings.pop(name)
         # a call writes a layer's k and v: ms, graph_ms, bound_ms and
@@ -3170,7 +3413,9 @@ def main() -> int:
         extras = ("leaves", "graph_ms", "library_graph_ms",
                   "backward_plain_ms", "copy_ms", "two_launches_graph_ms",
                   "chunk_ms", "chunk_graph_ms", "chunk_plain_ms",
-                  "chunk_bound_ms",
+                  "chunk_bound_ms", "chunk_library_graph_ms",
+                  "chunk_two_launches_graph_ms", "empty_graph_ms",
+                  "empty_grid_graph_ms", "grid",
                   "ops_per_term", "sfu_per_term", "bound_fp32_ms",
                   "bound_sfu_ms", "bound_bytes_ms")
         row.update({k: t[k] for k in extras if k in t})

@@ -43,6 +43,16 @@ builds its kernels, then measures with this checkout's
     wrappers makes one pair call; one without makes the calls its serve
     path made: the two one-leaf launches, and for the contiguous chunk
     ``quant.quantize`` and four ``chunk_kv_write`` slice copies;
+  * rows 1 and 4, a layer's bf16 write (k and v, 3 kv heads of 64) at
+    the serve shapes, by ``graph_ms``: decode (8 rows into 1024 slots;
+    paged, ``QUANT_PAGED``'s decode case, every row valid) and a paged
+    prefill chunk (its chunk case).  A checkout whose ``cache_update``
+    kernel module has ``cache_update_pair_cuda`` makes one pair call
+    (paged decode with ``valids`` None); one without makes the two
+    one-leaf launches its serve path made (paged decode with a vector of
+    ones);
+  * the kernel launches one bf16 decode step issues (phase 5's
+    ``decode_step_launches``), contiguous and paged (page 16);
   * phase 5's serve cell (full-width smollm-135m, 8 slots, max_len 1024,
     chunk 32, bf16; ``serve_workload``'s 16 requests, 64 new tokens
     each) served once after its warm-up: wall seconds and tokens/s; then
@@ -234,6 +244,38 @@ for case in ("decode P513 ps16 B8 NB64 T1", "prefill P513 ps16 B8 NB64 T32"):
     paged_ms[case[:6]] = smoke.graph_ms(write)
 del k, v, ks, vs, kn, vn
 
+# rows 1 and 4: a layer's bf16 write, k and v (3 kv heads of 64)
+bf16 = lambda *shape: torch.randn(shape, generator=g, device=dev).to(
+    torch.bfloat16)
+pair = hasattr(cu_kernel, "cache_update_pair_cuda")
+k, v, kn, vn = bf16(8, 1024, 192), bf16(8, 1024, 192), bf16(8, 1, 192), \
+    bf16(8, 1, 192)
+if pair:
+    write = lambda: cu_kernel.cache_update_pair_cuda(k, kn, v, vn, slots)
+else:
+    write = lambda: (cu_kernel.cache_update_cuda(k, kn, slots),
+                     cu_kernel.cache_update_cuda(v, vn, slots))
+bf16_write_graph_ms = smoke.graph_ms(write)
+for case in ("decode P513 ps16 B8 NB64 T1", "prefill P513 ps16 B8 NB64 T32"):
+    cs = smoke.QUANT_PAGED[case]
+    k, v = bf16(cs["p"], cs["ps"], 192), bf16(cs["p"], cs["ps"], 192)
+    kn, vn = bf16(cs["b"], cs["t"], 192), bf16(cs["b"], cs["t"], 192)
+    table = smoke._page_table(dev, cs["b"], cs["nb"], cs["p"], 23,
+                              cs["masked"])
+    starts = torch.tensor(cs["starts"], dtype=torch.int32, device=dev)
+    valids = torch.tensor(cs["valids"], dtype=torch.int32, device=dev)
+    # the serve path's calls: a decode step's rows are all valid (the
+    # pair takes None; the one-leaf calls a vector of ones built a layer)
+    if pair:
+        write = lambda: cu_kernel.paged_cache_update_pair_cuda(
+            k, kn, v, vn, table, starts, valids if cs["t"] > 1 else None)
+    else:
+        write = lambda: [cu_kernel.paged_cache_update_cuda(
+            c, n, table, starts, valids if cs["t"] > 1
+            else torch.ones_like(starts)) for c, n in ((k, kn), (v, vn))]
+    paged_ms["bf16 " + case[:6]] = smoke.graph_ms(write)
+del k, v, kn, vn
+
 scfg = configs.get_config("smollm-135m")
 sparams = model_mod.init_params(scfg, seed=0, device="cuda")
 warm, prompts = smoke.serve_workload(scfg, Request, np.random.default_rng(0))
@@ -243,6 +285,15 @@ for cache_dtype in (torch.bfloat16, "int8"):
                       prefill_chunk=32, cache_dtype=cache_dtype)
     eng.generate(warm)
     torch.cuda.synchronize()
+    if cache_dtype == torch.bfloat16:
+        decode_launches = smoke.decode_step_launches(
+            eng, np.random.default_rng(3))
+        paged = ServeEngine(scfg, sparams, batch_size=8, max_len=1024,
+                            prefill_chunk=32, cache_dtype=cache_dtype,
+                            kv_layout="paged", kv_page_size=16)
+        paged_decode_launches = smoke.decode_step_launches(
+            paged, np.random.default_rng(3))
+        del paged
     t0 = time.perf_counter()
     done = eng.generate([Request(prompt=p, max_new_tokens=64)
                          for p in prompts])
@@ -290,6 +341,11 @@ print(json.dumps({
     "quant_chunk_write_graph_ms": quant_chunk_write_graph_ms,
     "quant_paged_write_graph_ms": paged_ms["decode"],
     "quant_paged_chunk_write_graph_ms": paged_ms["prefil"],
+    "bf16_write_graph_ms": bf16_write_graph_ms,
+    "bf16_paged_write_graph_ms": paged_ms["bf16 decode"],
+    "bf16_paged_chunk_write_graph_ms": paged_ms["bf16 prefil"],
+    "decode_launches": decode_launches,
+    "paged_decode_launches": paged_decode_launches,
     "serve_s": serve_s, "serve_tokens_per_s": serve_tokens_per_s,
     "int8_serve_s": int8_serve_s,
     "int8_serve_tokens_per_s": int8_serve_tokens_per_s,
@@ -310,7 +366,10 @@ KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
         "quant_decode_graph_ms", "quant_paged_decode_graph_ms",
         "quant_write_graph_ms", "quant_chunk_write_graph_ms",
         "quant_paged_write_graph_ms", "quant_paged_chunk_write_graph_ms",
-        "serve_s", "serve_tokens_per_s", "int8_serve_s",
+        "bf16_write_graph_ms", "bf16_paged_write_graph_ms",
+        "bf16_paged_chunk_write_graph_ms", "decode_launches",
+        "paged_decode_launches", "serve_s", "serve_tokens_per_s",
+        "int8_serve_s",
         "int8_serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
         "j_per_step", "watts", "busy_ms", "flash_share")
 WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
@@ -320,7 +379,9 @@ WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
        "paged_decode_graph_ms", "quant_decode_graph_ms",
        "quant_paged_decode_graph_ms", "quant_write_graph_ms",
        "quant_chunk_write_graph_ms", "quant_paged_write_graph_ms",
-       "quant_paged_chunk_write_graph_ms", "serve_s", "int8_serve_s",
+       "quant_paged_chunk_write_graph_ms", "bf16_write_graph_ms",
+       "bf16_paged_write_graph_ms", "bf16_paged_chunk_write_graph_ms",
+       "serve_s", "int8_serve_s",
        "kernel_ms", "step_ms")
 
 

@@ -1,5 +1,5 @@
 """Time design variants of the DEGRIDDER, JACOBI2D, tensor-core
-chunked-prefill and quantizing-scatter kernels on one card.
+chunked-prefill and KV-scatter kernels on one card.
 
     python3 kernel_variants.py [NAME_PREFIX ...]
 
@@ -22,7 +22,13 @@ prefix in int8 codes (row 2q); the quantizing scatters (rows 5, 6) by
 ``graph_ms`` of one call writing a layer's k and v (bf16 rows to int8
 codes, checked bit for bit) at the serve shapes: decode (8 rows into
 1024 slots), the contiguous chunk (batch 1, 32 rows at slot 512) and the paged decode
-(``chip_smoke.QUANT_PAGED``'s decode case).  ROUNDS
+(``chip_smoke.QUANT_PAGED``'s decode case); the copying scatters (rows
+1, 4) by ``graph_ms`` and by ``time_ms`` over 200 calls (host in the
+loop) of one call writing a layer's bf16 k and v (3 kv heads of 64,
+checked bit for bit) at decode (8 rows into 1024 slots), the paged
+decode (every row valid: ``valids`` None) and the paged chunk (B 8, T
+32, masked rows), beside an empty kernel (``csrc/empty.cu``) on one
+block of 32 threads and on the pair's grids.  ROUNDS
 rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
 whose names start with one of them.  Prints the card's name and power
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import math
 import re
@@ -105,6 +112,97 @@ WIDEN_AHEAD = ((
 WARP_A_VECTOR = (("  const bool vec = vec16_ok<TIN>(a);",
                   "  const bool vec = false;"),)
 QUANT_ENTRIES = ("pmt_quant_cache_update", "pmt_quant_paged_cache_update")
+# The copying scatters' block-a-row body and grid, as shipped, which the
+# passages below replace; the layouts that give a block several rows
+# also count the rows a leaf.
+COPY_BODY = """  const int r = blockIdx.x, b = r / a.T;  // source row b * T + t
+  const int u = threadIdx.x;
+  const Unit* from = reinterpret_cast<const Unit*>(leaf.src) + (long long)r * a.units;
+  const Unit x = u < a.units ? from[u] : Unit{};
+  const long long dst = rows(b, r - b * a.T, a.T);
+  if (dst < 0) return;
+  Unit* to = reinterpret_cast<Unit*>(leaf.dst) + dst * a.units;
+  if (u < a.units) to[u] = x;
+  for (int i = u + blockDim.x; i < a.units; i += blockDim.x) to[i] = from[i];"""
+COPY_GRID = """  const int threads = (int)std::min<long long>(kCopyThreads, (units + 31) / 32 * 32);
+  const dim3 grid((unsigned)nrows, leaves);"""
+ROWS_FIELD = (("  int T;\n", "  int T;\n  int rows;\n"),
+              ("  a.units = (int)units;\n",
+               "  a.units = (int)units;\n  a.rows = (int)nrows;\n"))
+# A warp a row, kCopyThreads / 32 rows a block (the row is the warp's, but
+# the compiler cannot know that a warp's threadIdx.x / 32 is one value).
+WARP_A_ROW = ROWS_FIELD + (
+    (COPY_BODY,
+     """  const int r = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (r >= a.rows) return;
+  const int lane = threadIdx.x % 32, b = r / a.T;
+  const Unit* from = reinterpret_cast<const Unit*>(leaf.src) + (long long)r * a.units;
+  const Unit x = lane < a.units ? from[lane] : Unit{};
+  const long long dst = rows(b, r - b * a.T, a.T);
+  if (dst < 0) return;
+  Unit* to = reinterpret_cast<Unit*>(leaf.dst) + dst * a.units;
+  if (lane < a.units) to[lane] = x;
+  for (int i = lane + 32; i < a.units; i += 32) to[i] = from[i];"""),
+    (COPY_GRID,
+     """  const int per = (int)std::min<long long>(kCopyThreads / 32, nrows);
+  const int threads = 32 * per;
+  const dim3 grid((unsigned)((nrows + per - 1) / per), leaves);"""),
+)
+# Flat packing: the launch's work is rows x units and thread j copies
+# unit j % units of row j / units (no idle lane; every thread divides by
+# the units a row, and by T, before its lookup can issue).
+FLAT = ROWS_FIELD + (
+    (COPY_BODY,
+     """  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= a.rows * a.units) return;
+  const Unit x = reinterpret_cast<const Unit*>(leaf.src)[j];
+  const int r = j / a.units;  // source row b * T + t
+  const int b = r / a.T;
+  const long long dst = rows(b, r - b * a.T, a.T);
+  if (dst >= 0) reinterpret_cast<Unit*>(leaf.dst)[dst * a.units + (j - r * a.units)] = x;"""),
+    (COPY_GRID,
+     """  const long long items = nrows * units;
+  const int threads = (int)std::min<long long>(kCopyThreads, (items + 31) / 32 * 32);
+  const dim3 grid((unsigned)((items + threads - 1) / threads), leaves);"""),
+)
+# Two-dimensional blocks: x the unit of a row, y the row (kCopyThreads /
+# units rows a block), so no thread divides by the units a row and no
+# lane of a row idles but the block's last.
+ROWS_OF_UNITS = ROWS_FIELD + (
+    (COPY_BODY,
+     """  const int r = blockIdx.x * blockDim.y + threadIdx.y, u = threadIdx.x;
+  if (r >= a.rows) return;
+  const Unit x = reinterpret_cast<const Unit*>(leaf.src)[(long long)r * a.units + u];
+  const int b = r / a.T;
+  const long long dst = rows(b, r - b * a.T, a.T);
+  if (dst >= 0) reinterpret_cast<Unit*>(leaf.dst)[dst * a.units + u] = x;"""),
+    (COPY_GRID,
+     """  const int per = std::max(1, kCopyThreads / (int)units);
+  const dim3 threads((unsigned)units, per);
+  const dim3 grid((unsigned)((nrows + per - 1) / per), leaves);"""),
+)
+# The copying scatters launched with Hopper's programmatic dependent
+# launch: a launch may start while the one before it on the stream runs
+# its last blocks, and waits (griddepcontrol.wait) for that grid's
+# completion and its memory before the first source load.
+PDL = (
+    ("  const CopyLeaf leaf = blockIdx.y ? a.v : a.k;",
+     """  asm volatile("griddepcontrol.launch_dependents;");
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const CopyLeaf leaf = blockIdx.y ? a.v : a.k;"""),
+    ("  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, rows);",
+     """  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, a, rows);"""),
+)
+COPY_ENTRIES = ("pmt_cache_update", "pmt_paged_cache_update")
 # name -> (source, entry point(s), {constant: value}[, ((old, new), ...)]);
 # {} and no passages is the shipped design
 VARIANTS = {
@@ -147,6 +245,21 @@ VARIANTS = {
                                   {"kQuantThreads": 512}),
     "quant scatter 1024 threads": ("cache_update.cu", QUANT_ENTRIES,
                                    {"kQuantThreads": 1024}),
+    "scatter": ("cache_update.cu", COPY_ENTRIES, {}),
+    "scatter a warp a row": ("cache_update.cu", COPY_ENTRIES, {},
+                             WARP_A_ROW),
+    "scatter a warp a row 256 threads": ("cache_update.cu", COPY_ENTRIES,
+                                         {"kCopyThreads": 256}, WARP_A_ROW),
+    "scatter flat": ("cache_update.cu", COPY_ENTRIES, {}, FLAT),
+    "scatter flat 64 threads": ("cache_update.cu", COPY_ENTRIES,
+                                {"kCopyThreads": 64}, FLAT),
+    "scatter flat 256 threads": ("cache_update.cu", COPY_ENTRIES,
+                                 {"kCopyThreads": 256}, FLAT),
+    "scatter flat 512 threads": ("cache_update.cu", COPY_ENTRIES,
+                                 {"kCopyThreads": 512}, FLAT),
+    "scatter rows of units": ("cache_update.cu", COPY_ENTRIES, {},
+                              ROWS_OF_UNITS),
+    "scatter PDL": ("cache_update.cu", COPY_ENTRIES, {}, PDL),
 }
 
 
@@ -308,6 +421,82 @@ def quant_calls(smoke, cu_ref, quant, dev, stream, libs) -> tuple:
     return calls, checks
 
 
+def copy_calls(smoke, cu_ref, dev, stream, libs) -> tuple:
+    """{call name: call} of each copying-scatter variant writing a layer's
+    k and v (bf16, 3 kv heads of 64: F 192) in one launch at the serve
+    shapes: decode (8 rows into 1024 slots), the paged decode (valids
+    None, the serve path's call) and the paged chunk (``chip_smoke``'s
+    cases: B 8, T 32, masked rows), and {call name: (got, want)} to check
+    once after a first call, bit for bit (paged: outside page 0)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(31)
+    f, nb, ps = 192, 64, 16
+
+    def leaves(lead, b, t):
+        return [x for _ in range(2) for x in (
+            torch.randn((*lead, f), generator=g, device=dev).to(
+                torch.bfloat16),
+            torch.randn((b, t, f), generator=g, device=dev).to(
+                torch.bfloat16))]
+
+    table = smoke._page_table(dev, 8, nb, 513, 13, (7,))
+    starts = torch.tensor([0, 1, 15, 16, 511, 1023, 700, 1500],
+                          dtype=torch.int32, device=dev)
+    chunk_table = smoke._page_table(dev, 8, nb, 513, 13)
+    chunk_starts = torch.tensor([0, 16, 512, 992, 5, 100, 0, 17],
+                                dtype=torch.int32, device=dev)
+    chunk_valids = torch.tensor([32, 32, 17, 32, 0, 1, 0, 31],
+                                dtype=torch.int32, device=dev)
+    slots = torch.randint(0, 1024, (8,), generator=g, device=dev,
+                          dtype=torch.int32)
+    # shape -> (leaves' tensors, routing, T, paged)
+    shapes = {
+        "decode": (leaves((8, 1024), 8, 1), (slots,), 1, False),
+        "paged decode": (leaves((513, ps), 8, 1), (table, starts, None), 1,
+                         True),
+        "paged chunk": (leaves((513, ps), 8, 32),
+                        (chunk_table, chunk_starts, chunk_valids), 32,
+                        True)}
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    calls, checks = {}, {}
+    if any(name.startswith("scatter") for name in libs):
+        # the floor of a launch: an empty kernel on one block of 32
+        # threads, and on the shipped pair's grids at decode (8 rows x 2
+        # leaves) and at the paged chunk (256 x 2), blocks of 32
+        from repro_torch.kernels import build
+        for grid, threads in (((1, 1), 32), ((8, 2), 32), ((256, 2), 32)):
+            calls[f"empty kernel {grid} x {threads}"] = (
+                lambda grid=grid, threads=threads: build.library().pmt_empty(
+                    *grid, threads, stream()))
+    for name, lib in libs.items():
+        if not name.startswith("scatter"):
+            continue
+        for shape, (ls, w, t, paged) in shapes.items():
+            args = [x.clone() for x in ls]
+            ref = cu_ref.paged_cache_update_pair_ref if paged \
+                else cu_ref.cache_update_pair_ref
+            want = list(ref(*[x.clone() for x in args], *w))
+            # the call holds ``args`` and ``w``: the kernel reads and
+            # writes through their pointers
+            if paged:
+                call = (lambda lib=lib, args=args, w=w, t=t:
+                        lib.pmt_paged_cache_update(
+                            *(x.data_ptr() for x in args), 2,
+                            *(ptr(x) for x in w), 8, t, nb, ps, 2 * f,
+                            stream()))
+            else:
+                call = (lambda lib=lib, args=args, w=w:
+                        lib.pmt_cache_update(
+                            *(x.data_ptr() for x in args), 2,
+                            w[0].data_ptr(), 8, 1024, 2 * f, stream()))
+            calls[f"{name}, {shape}"] = call
+            got = [args[0], args[2]]
+            if paged:               # the scratch page 0 is undefined
+                got, want = [x[1:] for x in got], [x[1:] for x in want]
+            checks[f"{name}, {shape}"] = (got, want)
+    return calls, checks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("prefixes", nargs="*",
@@ -397,6 +586,20 @@ def main() -> int:
         print(f"{name}: codes and scales equal bit for bit", flush=True)
     calls.update(qcalls)
     timers.update({name: smoke.graph_ms for name in qcalls})
+    ccalls, checks = copy_calls(smoke, cu_ref, dev, stream, libs)
+    for name, (got, want) in checks.items():
+        if ccalls[name]():
+            raise RuntimeError(f"{name}: the launch failed")
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} disagrees with the plain version")
+        print(f"{name}: k and v equal bit for bit", flush=True)
+    # in a CUDA graph and by CUDA events (host in the loop) both
+    for name, call in ccalls.items():
+        calls[f"{name}, graph"] = calls[f"{name}, event loop"] = call
+        timers[f"{name}, graph"] = smoke.graph_ms
+        timers[f"{name}, event loop"] = functools.partial(smoke.time_ms,
+                                                          iters=200)
     times = {name: [] for name in calls}
     order = list(calls)
     for r in range(ROUNDS):

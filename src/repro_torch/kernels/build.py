@@ -35,9 +35,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # C entry points of csrc/*.cu and their argument types.
 SIGNATURES = {
-    "pmt_cache_update": [_P, _P, _P, _I, _I, _LL, _P],
-    "pmt_paged_cache_update": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL,
-                               _P],
+    "pmt_cache_update": [_P, _P, _P, _P, _I, _P, _I, _I, _LL, _P],
+    "pmt_paged_cache_update": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                               _I, _LL, _P],
     "pmt_quant_cache_update": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                                _I, _I, _I, _I, _P],
     "pmt_quant_paged_cache_update": [_P, _P, _P, _P, _P, _P, _I, _P, _P,
@@ -70,6 +70,7 @@ SIGNATURES = {
     "pmt_jacobi2d": [_P, _P, _I, _I, _P],
     "pmt_gridder": [_P, _P, _P, _P, _I, _I, _I, _P],
     "pmt_degridder": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "pmt_empty": [_I, _I, _I, _P],
 }
 ERROR_STRING = "pmt_error_string"
 

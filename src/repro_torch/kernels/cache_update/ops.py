@@ -8,29 +8,51 @@ for (P, page_size, *rest) page pools addressed through a page table.
 ``quant_cache_update`` and ``quant_paged_cache_update`` are their
 quantizing twins for int8 / fp8_e4m3 caches: each (row, head) vector is
 quantized to codes plus one float32 scale, both scattered in place; the
-contiguous one also takes a prefill chunk's T rows.  Their ``_pair``
-versions write a layer's k and v leaves in one kernel launch, which is
-what the serve path calls.
+contiguous one also takes a prefill chunk's T rows.  The ``_pair``
+versions of all four write a layer's k and v leaves in one kernel
+launch, which is what the serve path calls; the paged ones take
+``valids=None`` for every row valid (a decode step's write).
 The JAX package returned a new buffer (the Pallas call aliased its
 input); here the caller's cache itself is updated, and also returned.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import on_card
 from repro_torch.kernels.cache_update.kernel import (
-    cache_update_cuda, paged_cache_update_cuda, quant_cache_update_cuda,
+    cache_update_cuda, cache_update_pair_cuda, paged_cache_update_cuda,
+    paged_cache_update_pair_cuda, quant_cache_update_cuda,
     quant_cache_update_pair_cuda, quant_paged_cache_update_cuda,
     quant_paged_cache_update_pair_cuda)
 from repro_torch.kernels.cache_update.ref import (
-    cache_update_ref, paged_cache_update_ref, quant_cache_update_pair_ref,
+    cache_update_pair_ref, cache_update_ref, paged_cache_update_pair_ref,
+    paged_cache_update_ref, quant_cache_update_pair_ref,
     quant_cache_update_ref, quant_paged_cache_update_pair_ref,
     quant_paged_cache_update_ref)
 
 
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.int32).contiguous()
+def _i32(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.to(torch.int32).contiguous()
+
+
+def _given(*tensors) -> list:
+    """The tensors that are not None (for ``on_card``)."""
+    return [t for t in tensors if t is not None]
+
+
+def _rows(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """new (B, T, *rest) as the kernels' contiguous (B, T, F) rows of the
+    cache's dtype."""
+    return new.to(cache.dtype).reshape(*new.shape[:2], -1).contiguous()
+
+
+def _flat(cache: torch.Tensor) -> torch.Tensor:
+    """A cache (B, C, *rest) or pool (P, page_size, *rest) as the kernels'
+    (B, C, F) view."""
+    return cache.view(*cache.shape[:2], -1)
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
@@ -41,11 +63,19 @@ def cache_update(cache: torch.Tensor, new: torch.Tensor,
     """
     if not on_card(cache, new, slots):
         return cache_update_ref(cache, new, slots)
-    b, c = cache.shape[:2]
-    cache_update_cuda(cache.view(b, c, -1),
-                      new.to(cache.dtype).reshape(b, 1, -1).contiguous(),
-                      _i32(slots))
+    cache_update_cuda(_flat(cache), _rows(cache, new), _i32(slots))
     return cache
+
+
+def cache_update_pair(k: torch.Tensor, k_new: torch.Tensor, v: torch.Tensor,
+                      v_new: torch.Tensor, slots: torch.Tensor):
+    """``cache_update`` of a layer's k and v caches (the same shapes) in
+    one kernel launch.  Returns ``(k, v)``, updated in place."""
+    if not on_card(k, k_new, v, v_new, slots):
+        return cache_update_pair_ref(k, k_new, v, v_new, slots)
+    cache_update_pair_cuda(_flat(k), _rows(k, k_new), _flat(v),
+                           _rows(v, v_new), _i32(slots))
+    return k, v
 
 
 def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
@@ -63,12 +93,26 @@ def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
     """
     if not on_card(pool, new, page_table, starts, valids):
         return paged_cache_update_ref(pool, new, page_table, starts, valids)
-    p, ps = pool.shape[:2]
-    b, t = new.shape[:2]
-    rows = new.to(pool.dtype).reshape(b, t, -1).contiguous()
-    paged_cache_update_cuda(pool.view(p, ps, -1), rows, _i32(page_table),
+    paged_cache_update_cuda(_flat(pool), _rows(pool, new), _i32(page_table),
                             _i32(starts), _i32(valids))
     return pool
+
+
+def paged_cache_update_pair(k: torch.Tensor, k_new: torch.Tensor,
+                            v: torch.Tensor, v_new: torch.Tensor,
+                            page_table: torch.Tensor, starts: torch.Tensor,
+                            valids: Optional[torch.Tensor] = None):
+    """``paged_cache_update`` of a layer's k and v pools (the same shapes)
+    in one kernel launch; ``valids`` None means every one of the T rows
+    is valid.  Returns ``(k, v)``, updated in place."""
+    if not on_card(*_given(k, k_new, v, v_new, page_table, starts,
+                           valids)):
+        return paged_cache_update_pair_ref(k, k_new, v, v_new, page_table,
+                                           starts, valids)
+    paged_cache_update_pair_cuda(_flat(k), _rows(k, k_new), _flat(v),
+                                 _rows(v, v_new), _i32(page_table),
+                                 _i32(starts), _i32(valids))
+    return k, v
 
 
 def _heads(codes: torch.Tensor) -> torch.Tensor:
@@ -144,13 +188,14 @@ def quant_paged_cache_update_pair(k: torch.Tensor, k_scale: torch.Tensor,
                                   k_new: torch.Tensor, v: torch.Tensor,
                                   v_scale: torch.Tensor, v_new: torch.Tensor,
                                   page_table: torch.Tensor,
-                                  starts: torch.Tensor, valids: torch.Tensor,
-                                  mode: str):
+                                  starts: torch.Tensor,
+                                  valids: Optional[torch.Tensor], mode: str):
     """``quant_paged_cache_update`` of a layer's k and v pools (the same
-    shapes) in one kernel launch.  Returns ``((k, k_scale), (v,
-    v_scale))``, updated in place."""
-    if not on_card(k, k_scale, k_new, v, v_scale, v_new, page_table, starts,
-                   valids):
+    shapes) in one kernel launch; ``valids`` None means every one of the
+    T rows is valid.  Returns ``((k, k_scale), (v, v_scale))``, updated in
+    place."""
+    if not on_card(*_given(k, k_scale, k_new, v, v_scale, v_new, page_table,
+                           starts, valids)):
         return quant_paged_cache_update_pair_ref(
             k, k_scale, k_new, v, v_scale, v_new, page_table, starts,
             valids, mode)

@@ -16,11 +16,16 @@ scales.  Quantization is per row, so quantizing the whole batch here
 and one row at a time in the kernels gives the same bits.  The
 contiguous one takes T rows a batch row, written from ``slots[b]``
 clamped to [0, C - T], as the JAX twin's ``dynamic_update_slice``
-clamps its start (at T = 1, ``cache_update_ref``'s clamp).  The
-``_pair_ref`` versions are the per-leaf ones for k, then for v: what
-the kernels' one launch for both leaves computes.
+clamps its start (at T = 1, ``cache_update_ref``'s clamp).
+
+The ``_pair_ref`` versions are the per-leaf ones for k, then for v: what
+the kernels' one launch for both leaves computes.  The paged ones take
+``valids=None`` for every one of the T rows valid (a decode step's
+write), which the per-leaf ones, as the JAX package's, do not.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -35,6 +40,21 @@ def cache_update_ref(cache: torch.Tensor, new: torch.Tensor,
     rows = torch.arange(b, device=cache.device)
     cache[rows, slots.long().clamp(0, c - 1)] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def cache_update_pair_ref(k, k_new, v, v_new, slots: torch.Tensor):
+    """``cache_update_ref`` for k, then for v; returns ``(k, v)``."""
+    return (cache_update_ref(k, k_new, slots),
+            cache_update_ref(v, v_new, slots))
+
+
+def _all_valid(valids: Optional[torch.Tensor],
+               new: torch.Tensor) -> torch.Tensor:
+    """``valids``, or for None every one of new's T rows valid."""
+    if valids is not None:
+        return valids
+    return torch.full(new.shape[:1], new.shape[1], dtype=torch.int32,
+                      device=new.device)
 
 
 def paged_cache_update_ref(pool: torch.Tensor, new: torch.Tensor,
@@ -66,6 +86,17 @@ def paged_cache_update_ref(pool: torch.Tensor, new: torch.Tensor,
     flat[(page * ps + row).reshape(-1)] = \
         new.reshape(b * t, -1).to(pool.dtype)
     return pool
+
+
+def paged_cache_update_pair_ref(k, k_new, v, v_new,
+                                page_table: torch.Tensor,
+                                starts: torch.Tensor,
+                                valids: Optional[torch.Tensor] = None):
+    """``paged_cache_update_ref`` for k, then for v, ``valids`` None for
+    every row valid; returns ``(k, v)``."""
+    where = (page_table, starts, _all_valid(valids, k_new))
+    return (paged_cache_update_ref(k, k_new, *where),
+            paged_cache_update_ref(v, v_new, *where))
 
 
 def _slice_rows(cache: torch.Tensor, rows: torch.Tensor,
@@ -121,9 +152,10 @@ def quant_paged_cache_update_ref(pool: torch.Tensor, scales: torch.Tensor,
 def quant_paged_cache_update_pair_ref(k, k_scale, k_new, v, v_scale, v_new,
                                       page_table: torch.Tensor,
                                       starts: torch.Tensor,
-                                      valids: torch.Tensor, mode: str):
-    """``quant_paged_cache_update_ref`` for k, then for v; returns
-    ``((k, k_scale), (v, v_scale))``."""
-    where = (page_table, starts, valids, mode)
+                                      valids: Optional[torch.Tensor],
+                                      mode: str):
+    """``quant_paged_cache_update_ref`` for k, then for v, ``valids`` None
+    for every row valid; returns ``((k, k_scale), (v, v_scale))``."""
+    where = (page_table, starts, _all_valid(valids, k_new), mode)
     return (quant_paged_cache_update_ref(k, k_scale, k_new, *where),
             quant_paged_cache_update_ref(v, v_scale, v_new, *where))

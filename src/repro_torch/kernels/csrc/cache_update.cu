@@ -1,142 +1,194 @@
-// Per-row KV-cache scatter: cache[b, slots[b], :] = src[b, :] in place.
-//
-// Replaces the TPU kernel cache_update_pallas
-// (src/repro/kernels/cache_update/cache_update.py), which aliased the
-// cache to its output and wrote one (1, 1, F) block per batch row.
-//
-// What bounds it on the H100: nothing the card computes.  A decode step
-// moves B * F elements per call (8 rows of 192 bf16 for smollm-135m,
-// about 3 KB), which the memory system moves in well under a
-// microsecond; the launch itself costs more, and the serve path makes
-// two calls (k and v) per layer per decode step.  The design keeps the
-// launch as light as it can be: one block per row, each thread moving
-// 16 bytes at a time when the row size and both pointers allow it, the
-// slot read by the block itself from device memory (no host sync), and
-// the cache never copied.  The quantizing scatters below write a layer's
-// k and v in one launch; the same for these two, or the scatter fused into
-// the projection that produces the row, is the lever for later.
+// The KV-cache scatters: a layer's new k and v rows written in place
+// into its caches, contiguous (B, C, ...) or page pools (P, ps, ...)
+// through a page table; copied as they are (rows 1 and 4 of PERF.md's
+// table) or quantized to codes plus row scales (rows 5 and 6).  One
+// launch takes one leaf or two (a layer's k and v), the leaf a grid
+// dimension, and the routing of a row to its destination is shared.
 #include "common.cuh"
 
 #include <algorithm>
 
 namespace {
 
-__global__ void scatter_rows_kernel(char* __restrict__ cache,
-                                    const char* __restrict__ src,
-                                    const int* __restrict__ slots, int C,
-                                    long long row_bytes, int vec16) {
-  const int b = blockIdx.x;
-  int s = slots[b];
-  // Clamp like the reference's dynamic_update_slice: an out-of-range
-  // slot writes the nearest row instead of memory outside the cache.
-  s = s < 0 ? 0 : (s >= C ? C - 1 : s);
-  char* dst = cache + ((long long)b * C + s) * row_bytes;
-  const char* from = src + (long long)b * row_bytes;
-  if (vec16) {
-    const int4* f4 = reinterpret_cast<const int4*>(from);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (long long i = threadIdx.x; i < row_bytes / 16; i += blockDim.x) d4[i] = f4[i];
-  } else {
-    for (long long i = threadIdx.x; i < row_bytes; i += blockDim.x) dst[i] = from[i];
+// Where row t of batch row b's source lands: a row of the cache or pool
+// seen as rows (of elements, or of (H, D) vectors), or -1 for nowhere.
+// Both read device memory (no host sync) and run after the thread's
+// source load is issued, so the two reads are in flight together.
+
+// Contiguous caches (B, C, ...): row t at slot s + t, s = slots[b]
+// clamped to [0, C - T] (dynamic_update_slice's clamp of its start; at
+// T = 1 the clamp of the slot to [0, C - 1]: an out-of-range slot writes
+// the nearest row, never memory outside the cache).
+struct SlotRows {
+  const int* slots;
+  int C;
+  __device__ __forceinline__ long long operator()(int b, int t, int T) const {
+    int s = slots[b];
+    s = s < 0 ? 0 : (s > C - T ? C - T : s);
+    return (long long)b * C + s + t;
   }
+};
+
+// Page pools (P, ps, ...): logical position pos = min(starts[b] + t,
+// NB * ps - 1) of row b (a negative one, which the engine never makes,
+// clamps to 0), i.e. physical row page_table[b, pos / ps] * ps + pos % ps;
+// -1 for a masked row, t >= valids[b].  A null `valids` means every one
+// of the T rows is valid (a decode step's), so no per-step tensor of
+// ones is built for it.  The clamp of pos to the table's last slot is
+// the TPU kernels': rows that keep decoding past the end of their table
+// (dead rows in a device-side decode burst) write the last slot instead
+// of reading the page table out of bounds.  Page ids are the caller's to
+// keep inside the pool.
+struct PageRows {
+  const int *page_table, *starts, *valids;
+  int NB, ps;
+  __device__ __forceinline__ long long operator()(int b, int t, int) const {
+    if (valids && t >= valids[b]) return -1;  // masked: never touches a page
+    const int cap = NB * ps - 1;
+    int pos = starts[b] + t;
+    pos = pos < 0 ? 0 : (pos > cap ? cap : pos);
+    return (long long)page_table[(long long)b * NB + pos / ps] * ps + pos % ps;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Copying scatters (rows 1 and 4): row t of src[b] lands, as it is, where
+// SlotRows (T = 1) or PageRows routes it.
+//
+// Replace the TPU kernels cache_update_pallas and
+// paged_cache_update_pallas (src/repro/kernels/cache_update/cache_update.py),
+// which aliased the cache to the output and wrote one (1, 1, F) row block
+// a grid step, the paged one through an out index map that read the page
+// table from scalar prefetch and routed masked rows to the scratch page 0.
+// Here a masked row is not written at all: the scratch page's content is
+// undefined by contract, and no masked write can reach a real page.
+//
+// What bounds them on the H100: a launch, not bytes.  A decode step of
+// smollm-135m moves 8 rows of 192 bf16 (384 B) a leaf, about 6 KB for k
+// and v, which 3.35 TB/s moves in ~0.002 us; an empty kernel takes
+// 0.00098-0.00100 ms a launch in a CUDA graph, on one block or on the
+// pair's grid (chip_smoke.py phase 3, kernel_variants.py; H100 at 700 W),
+// and the pair at decode 0.0011-0.0013.  The design spends as few
+// launches, and as little of each, as it can:
+//   * one launch a layer for k and v (blockIdx.y picks the leaf), where
+//     the serve path made two;
+//   * a block a row: thread u moves the row's 16-byte unit u (24 units at
+//     F 192 in bf16: one warp, 8 lanes idle), and the row is the block's
+//     index, so its slot or page lookup is the same for every thread and
+//     waits for no per-thread arithmetic;
+//   * each thread issues its 16-byte source load before it reads the
+//     slot, or valids and the page table: the source address depends on
+//     (leaf, row, unit) alone, so the load flies with the lookup;
+//   * plain stores, not evict-first ones: the attention kernel reads
+//     these rows right after, from L2;
+//   * where the row's bytes are not a multiple of 16 or a pointer is off
+//     16-byte alignment, the launch takes the element path (a byte a
+//     thread), chosen once for the launch.
+// Timed and not kept (kernel_variants.py "scatter": a pair call at decode
+// / paged decode / paged chunk in a CUDA graph, H100, against this design's
+// 0.00129 / 0.00154 / 0.00192 ms): flat packing, thread j moving unit
+// j % units of row j / units so that no lane idles, 0.00149 / 0.00169 /
+// 0.00203 (64-512 threads within 3% of that): every thread divides by
+// the units a row and by T before its lookup can issue; blocks of rows x
+// units 0.00149 / 0.00166 / 0.00199; a warp a row, 4 rows a block,
+// 0.00133 / 0.00152 / 0.00188 (8 rows: 0.00181 on the chunk), 3% slower
+// on the serve path's most frequent call, contiguous decode, 1-2% faster
+// on paged rows; a programmatic dependent launch 0.00080 / 0.00109 /
+// 0.00131, which overlaps each launch with the previous scatter's tail: a
+// neighbour the serve path never gives it (the scatter follows the k/v
+// projection, whose kernels do not trigger it), and host-bound event
+// loops cannot resolve it.
+constexpr int kCopyThreads = 128;  // a block's threads, at most (wider rows loop)
+
+struct CopyLeaf {
+  char* dst;        // the cache or pool, as rows of the row's bytes
+  const char* src;  // (B, T) rows, contiguous
+};
+
+struct CopyLaunch {
+  CopyLeaf k, v;  // v is k again for one leaf
+  int T;
+  int units;      // units a row: 16 bytes each (kVec), else one byte
+};
+
+template <bool kVec, typename Rows>
+__global__ void __launch_bounds__(kCopyThreads)
+    copy_scatter_kernel(CopyLaunch a, Rows rows) {
+  using Unit = typename std::conditional<kVec, int4, char>::type;
+  const CopyLeaf leaf = blockIdx.y ? a.v : a.k;
+  const int r = blockIdx.x, b = r / a.T;  // source row b * T + t
+  const int u = threadIdx.x;
+  const Unit* from = reinterpret_cast<const Unit*>(leaf.src) + (long long)r * a.units;
+  const Unit x = u < a.units ? from[u] : Unit{};
+  const long long dst = rows(b, r - b * a.T, a.T);
+  if (dst < 0) return;
+  Unit* to = reinterpret_cast<Unit*>(leaf.dst) + dst * a.units;
+  if (u < a.units) to[u] = x;
+  for (int i = u + blockDim.x; i < a.units; i += blockDim.x) to[i] = from[i];
 }
 
-}  // namespace
-
-// cache: (B, C, F) elements of row_bytes / F bytes; src: (B, F); slots: (B,)
-// int32, all on the device.  Returns cudaGetLastError() after the launch.
-extern "C" int pmt_cache_update(void* cache, const void* src, const void* slots,
-                                int B, int C, long long row_bytes, void* stream) {
-  if (B == 0 || row_bytes == 0) return 0;
-  const int vec16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(cache) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const long long units = vec16 ? row_bytes / 16 : row_bytes;
-  const int threads = units >= 256 ? 256 : (units <= 32 ? 32 : (int)((units + 31) / 32) * 32);
-  scatter_rows_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(cache), static_cast<const char*>(src),
-      static_cast<const int*>(slots), C, row_bytes, vec16);
+template <typename Rows>
+int copy_launch(CopyLaunch a, const Rows& rows, int leaves, int B, long long row_bytes,
+                void* stream) {
+  if (leaves != 1 && leaves != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (leaves == 1) a.v = a.k;
+  if (B == 0 || a.T == 0 || row_bytes == 0) return 0;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool vec = row_bytes % 16 == 0 && aligned(a.k.dst) && aligned(a.k.src) &&
+                   aligned(a.v.dst) && aligned(a.v.src);
+  const long long units = vec ? row_bytes / 16 : row_bytes;
+  const long long nrows = (long long)B * a.T;
+  if (nrows > INT32_MAX || units > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  a.units = (int)units;
+  const int threads = (int)std::min<long long>(kCopyThreads, (units + 31) / 32 * 32);
+  const dim3 grid((unsigned)nrows, leaves);
+  auto kernel = vec ? copy_scatter_kernel<true, Rows> : copy_scatter_kernel<false, Rows>;
+  kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---------------------------------------------------------------------------
-// Paged scatter: row t of src[b] lands at logical position
-// pos = min(starts[b] + t, NB * ps - 1) of row b's paged cache, i.e. at
-// physical row page_table[b, pos / ps] * ps + pos % ps of the pool, for
-// t < valids[b].
-//
-// Replaces the TPU kernel paged_cache_update_pallas
-// (src/repro/kernels/cache_update/cache_update.py), whose out index map
-// read the page table from scalar prefetch and routed masked rows to the
-// scratch page 0.  Here a masked row is not written at all: the scratch
-// page's content is undefined by contract, and no masked write can reach
-// a real page.  The clamp of pos to the table's last slot is the TPU
-// kernel's: rows that keep decoding past the end of their table (dead
-// rows in a device-side decode burst) write the last slot instead of
-// reading the page table out of bounds (a negative position, which the
-// engine never makes, clamps to 0).  Page ids are the caller's to keep
-// inside the pool.
-//
-// What bounds it on the H100: as for the contiguous scatter, nothing the
-// card computes; a decode step writes B rows of KVH * hd elements per
-// pool and the launch costs more than the bytes.  One block per (t, b)
-// row, 16-byte moves where the row size and pointers allow.  One launch
-// for k and v together, as the quantizing scatters below make, is the
-// lever for later.
-namespace {
-
-__global__ void paged_scatter_kernel(char* __restrict__ pool, const char* __restrict__ src,
-                                     const int* __restrict__ page_table,
-                                     const int* __restrict__ starts,
-                                     const int* __restrict__ valids, int T, int NB, int ps,
-                                     long long row_bytes, int vec16) {
-  const int t = blockIdx.x, b = blockIdx.y;
-  if (t >= valids[b]) return;  // masked: never touches a page
-  const int cap = NB * ps - 1;
-  int pos = starts[b] + t;
-  pos = pos < 0 ? 0 : (pos > cap ? cap : pos);
-  const long long row = (long long)page_table[(long long)b * NB + pos / ps] * ps + pos % ps;
-  char* dst = pool + row * row_bytes;
-  const char* from = src + ((long long)b * T + t) * row_bytes;
-  if (vec16) {
-    const int4* f4 = reinterpret_cast<const int4*>(from);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (long long i = threadIdx.x; i < row_bytes / 16; i += blockDim.x) d4[i] = f4[i];
-  } else {
-    for (long long i = threadIdx.x; i < row_bytes; i += blockDim.x) dst[i] = from[i];
-  }
-}
-
 }  // namespace
 
-// pool: (P, ps, F) elements of row_bytes / F bytes; src: (B, T, F);
-// page_table: (B, NB) int32; starts, valids: (B,) int32; all on the
-// device.  Returns cudaGetLastError() after the launch.
-extern "C" int pmt_paged_cache_update(void* pool, const void* src, const void* page_table,
+// One or two leaves (k, then v; the v pointers unused for one): caches
+// (B, C, F) and src (B, F), rows of row_bytes; slots: (B,) int32; all on
+// the device.  Returns cudaGetLastError() after the launch.
+extern "C" int pmt_cache_update(void* k_cache, const void* k_src, void* v_cache,
+                                const void* v_src, int leaves, const void* slots, int B, int C,
+                                long long row_bytes, void* stream) {
+  CopyLaunch a{};
+  a.k = {static_cast<char*>(k_cache), static_cast<const char*>(k_src)};
+  a.v = {static_cast<char*>(v_cache), static_cast<const char*>(v_src)};
+  a.T = 1;
+  const SlotRows rows{static_cast<const int*>(slots), C};
+  return copy_launch(a, rows, leaves, B, row_bytes, stream);
+}
+
+// One or two leaves as above, paged: pools (P, ps, F), src (B, T, F);
+// page_table: (B, NB) int32; starts: (B,) int32; valids: (B,) int32, or
+// null for every row valid; all on the device.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int pmt_paged_cache_update(void* k_pool, const void* k_src, void* v_pool,
+                                      const void* v_src, int leaves, const void* page_table,
                                       const void* starts, const void* valids, int B, int T,
                                       int NB, int ps, long long row_bytes, void* stream) {
-  if (B == 0 || T == 0 || row_bytes == 0) return 0;
-  const int vec16 = row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(pool) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const long long units = vec16 ? row_bytes / 16 : row_bytes;
-  const int threads = units >= 256 ? 256 : (units <= 32 ? 32 : (int)((units + 31) / 32) * 32);
-  paged_scatter_kernel<<<dim3(T, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(pool), static_cast<const char*>(src),
-      static_cast<const int*>(page_table), static_cast<const int*>(starts),
-      static_cast<const int*>(valids), T, NB, ps, row_bytes, vec16);
-  return static_cast<int>(cudaGetLastError());
+  CopyLaunch a{};
+  a.k = {static_cast<char*>(k_pool), static_cast<const char*>(k_src)};
+  a.v = {static_cast<char*>(v_pool), static_cast<const char*>(v_src)};
+  a.T = T;
+  const PageRows rows{static_cast<const int*>(page_table), static_cast<const int*>(starts),
+                      static_cast<const int*>(valids), NB, ps};
+  return copy_launch(a, rows, leaves, B, row_bytes, stream);
 }
 
-
 // ---------------------------------------------------------------------------
-// Quantizing scatters: each (row, kv head) vector of D values is
-// quantized to codes plus one float32 absmax scale, and both land where
-// the scatters above would put the row.  Contiguous: row t of src[b]
-// lands at cache[b, s + t, h] and scales[b, s + t, h], s = slots[b]
-// clamped to [0, C - T] (dynamic_update_slice's clamp of its start,
-// which at T = 1 is the clamp of the scatter above; T > 1 is a prefill
-// chunk).  Paged: through the page table into a code pool (P, ps, H, D)
-// and a scale pool (P, ps, H) whose pages are the code pool's; masked
-// rows t >= valids[b] write nothing.  One launch takes one or two leaves
+// Quantizing scatters (rows 5 and 6): each (row, kv head) vector of D
+// values is quantized to codes plus one float32 absmax scale, and both
+// land where SlotRows or PageRows routes the row.  Contiguous: row t of
+// src[b] lands at cache[b, s + t, h] and scales[b, s + t, h], s =
+// slots[b] clamped to [0, C - T] (T > 1 is a prefill chunk).  Paged:
+// through the page table into a code pool (P, ps, H, D) and a scale pool
+// (P, ps, H) whose pages are the code pool's; masked rows t >= valids[b]
+// write nothing.  One launch takes one or two leaves
 // (codes, scales, source), the leaf a grid dimension, so the serve path
 // writes a layer's k and v in one launch.
 //
@@ -295,30 +347,6 @@ struct QuantLaunch {
   int vpb;         // vectors a block
 };
 
-// Contiguous caches (B, C, H, D): row t of batch row b at slot s + t.
-struct SlotRows {
-  const int* slots;
-  int C;
-  __device__ __forceinline__ long long operator()(int b, int t, int T) const {
-    int s = slots[b];
-    s = s < 0 ? 0 : (s > C - T ? C - T : s);
-    return (long long)b * C + s + t;
-  }
-};
-
-// Page pools (P, ps, H, D): the paged scatter's routing; -1 when masked.
-struct PageRows {
-  const int *page_table, *starts, *valids;
-  int NB, ps;
-  __device__ __forceinline__ long long operator()(int b, int t, int) const {
-    if (t >= valids[b]) return -1;  // masked: never touches a page
-    const int cap = NB * ps - 1;
-    int pos = starts[b] + t;
-    pos = pos < 0 ? 0 : (pos > cap ? cap : pos);
-    return (long long)page_table[(long long)b * NB + pos / ps] * ps + pos % ps;
-  }
-};
-
 // Vector v of a leaf's source (row r = b * T + t, head h) lands at row
 // `dst` of the cache or pool: the source read depends on v alone, so it
 // is in flight while the slot or page lookup runs.  Vector counts fit in
@@ -434,8 +462,9 @@ extern "C" int pmt_quant_cache_update(void* k_codes, void* k_scales, const void*
 }
 
 // One or two leaves as above, paged: codes (P, ps, H, D), scales
-// (P, ps, H), src (B, T, H, D); page_table: (B, NB) int32; starts,
-// valids: (B,) int32; all on the device.  Returns cudaGetLastError().
+// (P, ps, H), src (B, T, H, D); page_table: (B, NB) int32; starts:
+// (B,) int32; valids: (B,) int32, or null for every row valid; all on
+// the device.  Returns cudaGetLastError().
 extern "C" int pmt_quant_paged_cache_update(void* k_codes, void* k_scales, const void* k_src,
                                             void* v_codes, void* v_scales, const void* v_src,
                                             int leaves, const void* page_table,

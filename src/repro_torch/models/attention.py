@@ -25,8 +25,11 @@ Caches and pools are updated **in place** — the decode scatters
 the tensors they are given, where the JAX package returned new buffers
 and donated the old ones.  Decode attention always takes the
 length-aware flash path (``kernels/decode_attention``); chunk attention
-takes ``kernels/prefill_attention``.  Quantized writes go through the
-quantizing scatters, a layer's k and v in one launch
+takes ``kernels/prefill_attention``.  The scatters write a layer's k and
+v in one launch (``cache_update_pair``, ``paged_cache_update_pair``),
+at every decode step and every paged chunk; a bf16 contiguous chunk is
+two slice copies (``chunk_kv_write``), no kernel launch.  Quantized
+writes go through the quantizing scatters, likewise one launch a layer
 (``quant_cache_update_pair``, ``quant_paged_cache_update_pair``): at
 every decode step, at every paged chunk, and at a contiguous chunk with
 one int offset and no ring, whose T rows the scatter places as the slice
@@ -47,7 +50,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import quant
 from repro_torch.kernels.cache_update.ops import (
-    cache_update, paged_cache_update, quant_cache_update_pair,
+    cache_update_pair, paged_cache_update_pair, quant_cache_update_pair,
     quant_paged_cache_update_pair)
 from repro_torch.kernels.constants import NEG_INF
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
@@ -263,19 +266,21 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
 
     x: (B, 1, d).  cur_len: (B,) int32 — each row's count of tokens
     already in the cache (the new token's position).  The new k/v land
-    at each row's slot through the ``kernels/cache_update`` scatter:
-    ``cur % C`` in a ring, else ``min(cur, C - 1)`` (a retired row that
-    keeps decoding garbage past the end overwrites the last slot instead
-    of writing outside its row).  Attention then runs the length-aware
-    ``kernels/decode_attention`` path.  A quantized cache takes the
-    quantizing scatter and passes its scales to attention.  Returns out
-    (B, 1, d).
+    at each row's slot through the ``kernels/cache_update`` scatter, k
+    and v in one launch: ``cur % C`` in a ring, else ``min(cur, C - 1)``
+    (a retired row that keeps decoding garbage past the end overwrites
+    the last slot instead of writing outside its row), the slots the
+    JAX layer's ``jnp.minimum`` computes.  Outside a ring ``cur_len``
+    itself is passed: every scatter, kernel or plain, clamps its slots
+    to [0, C - 1], so no clamp is launched here.  Attention then runs the
+    length-aware ``kernels/decode_attention`` path.  A quantized cache
+    takes the quantizing scatter and passes its scales to attention.
+    Returns out (B, 1, d).
     """
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
-    size = cache["k"].shape[1]
-    slots = torch.remainder(cur_len, size) if window \
-        else torch.clamp(cur_len, max=size - 1)
-    _scatter(cfg, cache, k_new, v_new, cache_update,
+    slots = torch.remainder(cur_len, cache["k"].shape[1]) if window \
+        else cur_len
+    _scatter(cfg, cache, k_new, v_new, cache_update_pair,
              quant_cache_update_pair, slots)
     o = decode_attention(q, cache["k"], cache["v"], cur_len,
                          ring=window is not None, softcap=cfg.attn_softcap,
@@ -286,13 +291,12 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
 
 def _scatter(cfg: ModelConfig, cache, k_new, v_new, plain, quantizing,
              *where) -> None:
-    """Write the new k/v rows into the cache in place through the scatter
-    ``plain(leaf, rows, *where)``, once a leaf, or with ``cfg.kv_quant``
-    through its quantizing twin, once for both leaves:
+    """Write the new k/v rows into the cache in place, both leaves in one
+    call: through the scatter ``plain(k, k_rows, v, v_rows, *where)``, or
+    with ``cfg.kv_quant`` through its quantizing twin
     ``quantizing(k, k_scale, k_rows, v, v_scale, v_rows, *where, mode)``."""
     if cfg.kv_quant is None:
-        plain(cache["k"], k_new, *where)
-        plain(cache["v"], v_new, *where)
+        plain(cache["k"], k_new, cache["v"], v_new, *where)
     else:
         quantizing(cache["k"], cache["k_scale"], k_new, cache["v"],
                    cache["v_scale"], v_new, *where, cfg.kv_quant)
@@ -422,15 +426,17 @@ def paged_decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     (B, NB) int32 — rows the scheduler has masked to 0 (mid-prefill or
     dead slots) read and write only the scratch page, so their garbage
     decode tokens cannot touch a live request's pages.  The new k/v land
-    at ``cur_len`` through ``paged_cache_update`` (clamped to the table's
-    last slot), then ``decode_attention_paged`` reads each row's pages.
-    Quantized pools take the quantizing scatter and pass their scale
-    pools to attention.  Returns out (B, 1, d).
+    at ``cur_len`` through ``paged_cache_update_pair`` (clamped to the
+    table's last slot), k and v in one launch, with ``valids`` None: the
+    one row of each slot is valid, which the JAX layer says with a vector
+    of ones and the scatters without building one.  Then
+    ``decode_attention_paged`` reads each row's pages.  Quantized pools
+    take the quantizing scatter and pass their scale pools to attention.
+    Returns out (B, 1, d).
     """
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
-    _scatter(cfg, cache, k_new, v_new, paged_cache_update,
-             quant_paged_cache_update_pair, page_table, cur_len,
-             torch.ones_like(cur_len))
+    _scatter(cfg, cache, k_new, v_new, paged_cache_update_pair,
+             quant_paged_cache_update_pair, page_table, cur_len, None)
     o = decode_attention_paged(q, cache["k"], cache["v"], page_table,
                                cur_len, window=window,
                                softcap=cfg.attn_softcap,
@@ -465,6 +471,6 @@ def paged_prefill_chunk_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
                                 scale=attn_scale(cfg),
                                 k_scale=cache.get("k_scale"),
                                 v_scale=cache.get("v_scale"))
-    _scatter(cfg, cache, k_new, v_new, paged_cache_update,
+    _scatter(cfg, cache, k_new, v_new, paged_cache_update_pair,
              quant_paged_cache_update_pair, page_table, offs, valid_len)
     return output_proj(p, o)
