@@ -53,6 +53,9 @@ Phases, in order; any failure exits nonzero:
      without a zero vector, checked bit for bit too (CUDA events and a
      CUDA graph, beside two one-leaf launches) with the two leaves' byte
      bound, the ``kernels`` line's rows 5 and 6 marked ``leaves: 2``;
+     the contiguous one also writing a whole prompt's T 1024 rows at
+     offset 0 into 2048 slots (batch 1 and 8: phase 5w's prefill), timed
+     likewise (``serve_prefill`` in row 5);
      the four attention kernels over codes and row
      scales against their plain versions with the same tolerances and
      cases as above; each timed with its byte bound at code width (the
@@ -69,7 +72,10 @@ Phases, in order; any failure exits nonzero:
      (``pmt_flash_smem_bytes``) must equal the wrapper's ``smem_bytes``;
      timed beside the plain version,
      ``scaled_dot_product_attention`` and its operation bound, with its
-     TFLOP/s, share of the bound and factor against SDPA.
+     TFLOP/s, share of the bound and factor against SDPA; the same gates
+     and times at the serve path's whole-prompt prefill shapes (batch 1
+     at S 8, 64, 512, 1024, batch 8 at S 1024; ``serve_prefill`` in row
+     9).
   4. small reference: reduced smollm-135m in fp32 on the card (kernels)
      against the same model on the CPU (plain versions), contiguous and
      paged; the paged engine's greedy tokens on the card equal the
@@ -78,6 +84,12 @@ Phases, in order; any failure exits nonzero:
      every code agrees, else QUANT_CARD_TOL; codes at most one step
      apart, greedy tokens equal), and the drift gate of
      tests/test_quant_serve.py on the card.
+     4w. the serve baselines, reduced fp32: blocking admission (fp32 and
+     int8 caches), waves and the dense decode give the card's greedy
+     tokens equal to the CPU's; the int8 blocking run's quantizing
+     scatter once a layer a whole-prompt prefill and a decode step; a
+     sampled run repeats its tokens under its seed and another seed
+     differs.
   5. serve full-width smollm-135m (random weights from a seed, bf16) for
      16 requests through the continuous-batching engine with chunked
      prefill, twice (the second run gives the spread); check every
@@ -110,6 +122,19 @@ Phases, in order; any failure exits nonzero:
      requests generate the bf16 run's tokens (not gated); the int8
      contiguous trace's busy time, launches, launches a prefill chunk and
      a decode step beside phase 5's bf16 ones.
+     5w. the serve baselines at full width: phase 5's 16 requests through
+     smollm-135m (bf16 weights, attn_impl "pallas", 8 slots, max_len
+     2048) under ``Session(["cpuutil", "nvml"])``, with blocking
+     admission and in waves of 8 over a bf16 cache, then blocking over an
+     int8 cache: phase 5's checks (a wave's ``serve/wave<N>`` regions in
+     place of request spans), the flash kernel once a layer a
+     whole-prompt prefill, flash decode once a layer a decode step, the
+     scatter once a layer a step (the quantizing one also once a layer a
+     prefill, T = the bucket at offset 0), no other serve kernel;
+     tokens/s, J/token and stall p95 beside
+     phase 5's chunked run; the first prefill's last logits through the
+     kernel against the dense attend (BASELINE_LOGIT_TOL); one decode
+     step's device time with the dense attend beside flash.
      5t. train full-width smollm-135m (bf16 on fp32 masters, AdamW,
      remat full, attn_impl pallas, batch 8 x 2048 from the synthetic
      pipeline): a warm-up step, then 20 steps through
@@ -137,8 +162,10 @@ Phases, in order; any failure exits nonzero:
   7. print the ``{"kernels": [...]}`` line (15 kernels; the attention
      kernels with their quantized launches and times beside, the
      quantizing scatters with fp8_e4m3's times beside int8's, the four
-     scatters' times a pair call's), then the final ``{"ok": true,
-     "device": {...}}`` line.
+     scatters' times a pair call's; row 9 with its launches on phase 5w's
+     prefills and its times at their shapes, row 5 with phase 5w's int8
+     blocking launches and its times at the prefill's write), then the
+     final ``{"ok": true, "device": {...}}`` line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -810,12 +837,20 @@ QUANT_CONTIGUOUS = {
                                  slots=[0, 43, 49]),
     "misaligned decode B8 T1 C1024 KVH3 hd64": dict(b=8, t=1, c=1024, h=3,
                                                     d=64, skew=True),
+    # the whole-prompt prefill's write (phase 5w's cache of 2048 slots):
+    # a bucket of 1024 rows a batch row at offset 0, blocking (B1) and a
+    # wave (B8)
+    "prefill B1 T1024 C2048 off0": dict(b=1, t=1024, c=2048, h=3, d=64,
+                                        slots=[0]),
+    "prefill B8 T1024 C2048 off0": dict(b=8, t=1024, c=2048, h=3, d=64,
+                                        slots=[0] * 8),
 }
 
 
 def check_quant_cache_update(kernel, ref, quant, dev):
     """Row 5: one leaf and two (k and v in one launch) bit for bit; the
-    pair timed at the decode and chunk serve shapes (bf16 rows)."""
+    pair timed at the decode and chunk serve shapes and at the whole-prompt
+    prefill's (bf16 rows; ``serve_prefill`` in the result)."""
     results = {}
     for mode in MODES:
         for name, cs in QUANT_CONTIGUOUS.items():
@@ -850,7 +885,8 @@ def check_quant_cache_update(kernel, ref, quant, dev):
                     if not (exact and finite):
                         raise AssertionError("quant_cache_update disagrees "
                                              "with its plain version")
-                    if not ((name.startswith("decode") or "off512" in name)
+                    if not ((name.startswith(("decode", "prefill"))
+                             or "off512" in name)
                             and dt == torch.bfloat16 and n == 2):
                         continue
                     # read both leaves' rows, write their codes and
@@ -870,7 +906,12 @@ def check_quant_cache_update(kernel, ref, quant, dev):
                         f"{tm['plain_ms']:.5f}, bound {tm['bound_ms']:.7f} "
                         f"(bytes)")
                     if name.startswith("decode"):
-                        results[mode] = dict(tm, max_abs_err=0.0)
+                        results[mode] = dict(tm, max_abs_err=0.0,
+                                             serve_prefill={})
+                    elif name.startswith("prefill"):
+                        results[mode]["serve_prefill"][name.split()[1]] = {
+                            k: tm[k] for k in ("ms", "graph_ms", "plain_ms",
+                                               "bound_ms", "bound_by")}
                     else:
                         results[mode].update(
                             {f"chunk_{k}": tm[k] for k in (
@@ -1823,6 +1864,18 @@ FLASH_LARGE_SCORES = ("large scores B2 S1024 H9 KVH3 hd64",
                       (2, 1024, 1024, 9, 3, 64, None, None), 3.5)
 
 
+# The serve path's whole-prompt prefill (phase 5w, attn_impl "pallas"):
+# batch 1 (blocking admission) at power-of-two buckets, and a wave of 8
+# at the largest, 9 query heads on 3 kv heads of 64, bf16, causal.  S 8
+# is one partial tile of queries and of keys a head.  Each is held to
+# the plain version with the bf16 gates above and timed beside SDPA and
+# its operation bound.
+FLASH_SERVE_CASES = {f"serve prefill B{b} S{s}": (b, s, s, 9, 3, 64, None,
+                                                  None)
+                     for b, s in ((1, 8), (1, 64), (1, 512), (1, 1024),
+                                  (8, 1024))}
+
+
 def _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd, seed=7, amp=1.0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     mk = lambda *s: torch.randn(s, generator=gen, device=dev)
@@ -2027,17 +2080,54 @@ def _backward_ms(ref, q, k, v, kw) -> float:
     return time_ms(backward, iters=5, warmup=1)
 
 
+def _flash_timing(kernel, ref, q, k, v, kw, b, sq, h, hd) -> dict:
+    """Times of the kernel, its plain version and SDPA on one causal case
+    (CUDA events), with the operation bound of its causal pairs."""
+    pairs = sq * (sq + 1) // 2
+    flops = 4 * b * h * hd * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    qh, kh, vh = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
+    tm = {
+        "ms": time_ms(lambda: kernel.flash_attention_cuda(q, k, v, **kw),
+                      iters=10),
+        "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw),
+                            iters=5),
+        "library_ms": library_time(
+            lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True, enable_gqa=True,
+                scale=kw["scale"])),
+        "flops": flops,
+    }
+    tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, q.dtype)
+    return tm
+
+
+def _flash_line(name, tm) -> str:
+    sdpa = tm["library_ms"]
+    return (f"  flash_attention {name} bf16: kernel {tm['ms']:.4f} ms, "
+            f"{tm['flops'] / tm['ms'] / 1e9:.1f} TFLOP/s on "
+            f"{tm['flops'] / 1e9:.3f} GFLOP, {tm['bound_ms'] / tm['ms']:.1%} "
+            f"of its bound {tm['bound_ms']:.5f} ms ({tm['bound_by']}), plain "
+            f"{tm['plain_ms']:.4f} ms; SDPA " + (
+                "unavailable" if sdpa is None else
+                f"{sdpa:.4f} ms, the kernel {tm['ms'] / sdpa:.2f}x its time"))
+
+
 def check_flash(kernel, ref, ops, dev, library: Path):
     """Phase 3f: the flash-attention kernel against ``flash_attention_ref``
-    on every case of FLASH_CASES and, in bf16, FLASH_LARGE_SCORES; the
-    bf16 kernels' SASS; the op's gradients against the oracle's; times
-    at the train path's shapes."""
+    on every case of FLASH_CASES and, in bf16, FLASH_LARGE_SCORES and
+    FLASH_SERVE_CASES; the bf16 kernels' SASS; the op's gradients against
+    the oracle's; times at the train path's shapes and at the serve
+    prefill's (``serve_prefill`` in the result)."""
     check_flash_sass(library)
     results = {}
+    serve = {}
     large, large_case, amp = FLASH_LARGE_SCORES
     cases = [(name, case, dt, 1.0) for name, case in FLASH_CASES.items()
              for dt in (torch.float32, torch.bfloat16)]
     cases.append((large, large_case, torch.bfloat16, amp))
+    cases += [(name, case, torch.bfloat16, 1.0)
+              for name, case in FLASH_SERVE_CASES.items()]
     for name, (b, sq, skv, h, kvh, hd, window, softcap), dt, amp in cases:
         q, k, v = _flash_inputs(dev, dt, b, sq, skv, h, kvh, hd, amp=amp)
         kw = dict(causal=True, window=window, softcap=softcap,
@@ -2069,31 +2159,17 @@ def check_flash(kernel, ref, ops, dev, library: Path):
             raise AssertionError("flash_attention disagrees with its "
                                  "plain version")
         if name.startswith("main") and dt == torch.bfloat16:
-            pairs = sq * (sq + 1) // 2
-            flops = 4 * b * h * hd * pairs
-            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-            qh, kh, vh = (t.view(b, -1, t.shape[1], hd) for t in (q, k, v))
-            tm = {
-                "ms": time_ms(lambda: kernel.flash_attention_cuda(
-                    q, k, v, **kw), iters=10),
-                "plain_ms": time_ms(lambda: ref.flash_attention_ref(
-                    q, k, v, **kw), iters=5),
-                "backward_plain_ms": _backward_ms(ref, q, k, v, kw),
-                "library_ms": library_time(
-                    lambda: F.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=True, enable_gqa=True,
-                        scale=kw["scale"])),
-            }
-            tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
-            sdpa = tm["library_ms"]
-            log(f"  flash_attention {name} bf16: kernel {tm['ms']:.4f} ms, "
-                f"{flops / tm['ms'] / 1e9:.1f} TFLOP/s on {flops / 1e9:.2f} "
-                f"GFLOP, {tm['bound_ms'] / tm['ms']:.1%} of its bound "
-                f"{tm['bound_ms']:.4f} ms; SDPA " + (
-                    "unavailable" if sdpa is None else
-                    f"{sdpa:.4f} ms, the kernel {tm['ms'] / sdpa:.2f}x its "
-                    f"time"))
+            tm = _flash_timing(kernel, ref, q, k, v, kw, b, sq, h, hd)
+            tm["backward_plain_ms"] = _backward_ms(ref, q, k, v, kw)
+            log(_flash_line(name, tm))
             results = dict(tm, max_abs_err=err)
+        elif name in FLASH_SERVE_CASES:
+            tm = _flash_timing(kernel, ref, q, k, v, kw, b, sq, h, hd)
+            log(_flash_line(name, tm))
+            serve[name.replace("serve prefill ", "")] = {
+                key: tm[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")} | {
+                "max_abs_err": err}
     # gradients: the op's backward is the oracle's VJP, so they agree to
     # the last bit up to the order of the card's sums (TOL)
     for dt in (torch.float32, torch.bfloat16):
@@ -2117,7 +2193,8 @@ def check_flash(kernel, ref, ops, dev, library: Path):
         if not err <= TOL[dt]:
             raise AssertionError("flash_attention's gradients disagree with "
                                  "the oracle's")
-    return results
+    results.pop("flops")
+    return dict(results, serve_prefill=serve)
 
 
 # -- phase 4: small reference ---------------------------------------------------
@@ -2306,6 +2383,67 @@ def check_small_quantized(configs, model_mod, ServeEngine, Request):
             raise AssertionError(f"{mode} engine tokens differ: {runs}")
 
 
+def check_small_baselines(configs, model_mod, ServeEngine, Request,
+                          cu_kernel) -> None:
+    """Reduced smollm-135m, fp32: the serve baselines' engines on the card
+    against the CPU.  Blocking admission (fp32 and int8 caches), waves and
+    the dense decode give the same greedy tokens on both; a sampled run
+    repeats its tokens under its seed on the card and another seed gives
+    others.  The int8 blocking run on the card launches the quantizing
+    scatter once a layer a whole-prompt prefill and a decode step."""
+    cfg = dataclasses.replace(configs.get_config("smollm-135m", reduced=True),
+                              dtype="float32")
+    params = model_mod.init_params(cfg, seed=0, device="cpu")
+    mix = [([1, 2, 3], 8), ([4, 5], 3), ([6], 1),
+           ([7, 8, 9, 10, 11, 12, 13, 14, 15], 5), ([2], 12)]
+    reqs = lambda: [Request(prompt=p, max_new_tokens=n) for p, n in mix]
+    for label, kw in (
+            ("blocking", dict(prefill_chunk=0)),
+            ("blocking int8", dict(prefill_chunk=0, cache_dtype="int8")),
+            ("wave", dict(mode="wave")),
+            ("dense decode", dict(prefill_chunk=4,
+                                  decode_attn_impl="dense"))):
+        kw.setdefault("cache_dtype", torch.float32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                              device=dev, **kw)
+            if dev == "cuda":
+                steps = count_steps(eng)
+                cu_kernel.quant_launches = 0
+            runs[dev] = [r.out for r in eng.generate(reqs())]
+        same = runs["cuda"] == runs["cpu"]
+        log(f"  reduced fp32 {label} engine greedy tokens, card equal to "
+            f"CPU: {same}")
+        if not same:
+            raise AssertionError(f"{label} engine tokens differ: {runs}")
+        if label == "blocking int8":
+            # one quantizing write a layer a whole-prompt prefill and a
+            # decode step
+            want = cfg.num_layers * (steps["prefill"] + steps["decode"])
+            log(f"  reduced int8 blocking on the card: quant_cache_update "
+                f"launched {cu_kernel.quant_launches} times for "
+                f"{steps['prefill']} whole-prompt prefills and "
+                f"{steps['decode']} decode steps of {cfg.num_layers} layers "
+                f"(must be {want})")
+            if cu_kernel.quant_launches != want:
+                raise AssertionError("the quantizing scatter is not launched "
+                                     "once a layer a prefill and a step")
+
+    def sampled(seed):
+        eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                          prefill_chunk=4, cache_dtype=torch.float32,
+                          greedy=False, temperature=1.5, seed=seed,
+                          device="cuda")
+        return [r.out for r in eng.generate(reqs())]
+
+    a, b, c = sampled(0), sampled(0), sampled(1)
+    log(f"  reduced fp32 sampling on the card (temperature 1.5): seed 0 "
+        f"twice equal {a == b}, seed 1 differs {a != c}")
+    if not (a == b and a != c):
+        raise AssertionError("sampling is not deterministic per seed")
+
+
 # -- phase 5: serve at full width --------------------------------------------------
 
 def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
@@ -2348,7 +2486,7 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
     traced = trace_serve(eng, cfg, Request, rng)
     session.close()
     return runs[0][0], prompts, runs[0][1], \
-        eng.stats()["kv_cache"]["bytes_per_token"], traced
+        eng.stats()["kv_cache"]["bytes_per_token"], traced, runs[0][2]
 
 
 def serve_workload(cfg, Request, rng) -> tuple:
@@ -2365,8 +2503,10 @@ def serve_workload(cfg, Request, rng) -> tuple:
 def served_run(eng, Request, prompts, kernels, meter, index, session,
                energy, serve_launch):
     """One timed, metered serve run with every launch count set to 0
-    just before it; checks its output and its PMT records, and returns
-    the counts read just after it and each request's tokens."""
+    just before it; checks its output and its PMT records (a wave engine
+    opens no request spans: its ``serve/wave<N>`` regions are checked
+    instead), and returns the counts read just after it, each request's
+    tokens and the run's figures (tokens/s, J/token, stall p95 ms)."""
     reqs = [Request(prompt=p, max_new_tokens=64) for p in prompts]
     session.flush()
     n_before = len(energy.records)
@@ -2393,6 +2533,15 @@ def served_run(eng, Request, prompts, kernels, meter, index, session,
     session.flush()
     records = energy.records[n_before:]
     by_req = serve_launch.request_energy(records)
+    waves = {rec.path: rec.tokens for rec in records
+             if rec.path.startswith("serve/wave")}
+    if eng.mode == "wave":
+        # one region a wave of a batch, counting its generated tokens
+        want = math.ceil(len(done) / eng.batch)
+        if by_req or len(waves) != want or sum(waves.values()) != gen:
+            raise AssertionError(f"wave regions {waves} are not {want} "
+                                 f"counting {gen} tokens")
+        done = []
     for r in done:
         d = by_req.get(f"serve/req{r.id}")
         if d is None or d["joules"] <= 0:
@@ -2404,21 +2553,31 @@ def served_run(eng, Request, prompts, kernels, meter, index, session,
                 f"request {r.id}: prefill + decode {split:.4f} J against "
                 f"its span's {d['joules']:.4f} J (more than 1% apart)")
     agg = sum(rec.joules for rec in records
-              if rec.path.startswith("serve/batch") and rec.sensor == "nvml")
+              if rec.path.startswith(("serve/batch", "serve/wave"))
+              and rec.sensor == "nvml")
     st = eng.stats()
-    log(f"  run {index}: {len(done)} requests, {gen} generated tokens in "
+    stalls = "whole-prompt prefills" if eng.mode == "wave" \
+        or not eng.prefill_chunk else "chunks"
+    log(f"  run {index}: {len(reqs)} requests, {gen} generated tokens in "
         f"{wall:.3f} s: {gen / wall:.1f} tokens/s; stall p95 "
         f"{st['stall_p95_s'] * 1e3:.2f} ms over {st['stall_events']} "
-        f"chunks; energy {joules:.1f} J ({meter.method}): "
+        f"{stalls}; energy {joules:.1f} J ({meter.method}): "
         f"{joules / gen:.4f} J per generated token; through the PMT "
         f"session (nvml) {agg:.1f} J, {agg / gen:.4f} J/token")
-    log(f"  run {index}: every request's serve/req<N> span resolved, "
-        f"prefill + decode within 1% of its total")
+    if eng.mode == "wave":
+        log(f"  run {index}: {len(waves)} serve/wave<N> regions, counting "
+            f"{gen} generated tokens")
+    else:
+        log(f"  run {index}: every request's serve/req<N> span resolved, "
+            f"prefill + decode within 1% of its total")
     for line in serve_launch.energy_report(records, gen,
                                            ["cpuutil", "nvml"]):
         log(f"  run {index}: {line}")
     log(f"  run {index}: kernel launches {launches}")
-    return launches, [r.out for r in done]
+    figures = {"tokens_per_s": gen / wall, "joules_per_token": joules / gen,
+               "stall_p95_ms": st["stall_p95_s"] * 1e3,
+               "stall_events": st["stall_events"], "wall_s": wall}
+    return launches, [r.out for r in reqs], figures
 
 
 def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
@@ -2465,9 +2624,9 @@ def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
             saved0 = eng.saved_prefill_joules
             zero_counts(serve_kernels)
             steps.update(decode=0, chunk=0)
-            counts, out = served_run(eng, Request, prompts, kernels,
-                                     nvml.EnergyMeter(reader), index,
-                                     session, energy, serve_launch)
+            counts, out, _ = served_run(eng, Request, prompts, kernels,
+                                        nvml.EnergyMeter(reader), index,
+                                        session, energy, serve_launch)
             check_once_a_layer(cfg, counts, steps, "paged_cache_update",
                                f"run {index}", chunks=True)
             contiguous = read_counts(serve_kernels)
@@ -2513,8 +2672,9 @@ def serve_paged(configs, model_mod, ServeEngine, Request, kernels, nvml,
 
 def count_steps(eng) -> dict:
     """Wrap the engine's serve steps (both layouts') so that each call
-    adds one to its count: {"decode": steps, "chunk": prefill chunks}."""
-    steps = {"decode": 0, "chunk": 0}
+    adds one to its count: {"decode": steps, "chunk": prefill chunks,
+    "prefill": whole-prompt prefills}."""
+    steps = {"decode": 0, "chunk": 0, "prefill": 0}
 
     def counted(fn, key):
         def call(*args):
@@ -2525,9 +2685,12 @@ def count_steps(eng) -> dict:
     for attr in ("_fns", "_paged_fns"):
         fns = getattr(eng, attr, None)
         if fns is not None:
-            setattr(eng, attr, fns._replace(
+            fns = fns._replace(
                 decode=counted(fns.decode, "decode"),
-                prefill_chunk=counted(fns.prefill_chunk, "chunk")))
+                prefill_chunk=counted(fns.prefill_chunk, "chunk"))
+            if hasattr(fns, "prefill"):
+                fns = fns._replace(prefill=counted(fns.prefill, "prefill"))
+            setattr(eng, attr, fns)
     return steps
 
 
@@ -2600,7 +2763,7 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                 torch.cuda.synchronize()
                 zero_counts(others[layout])
                 steps = count_steps(eng)
-                counts, out = served_run(
+                counts, out, _ = served_run(
                     eng, Request, prompts, kernels[layout],
                     nvml.EnergyMeter(reader), f"{mode} {layout}", session,
                     energy, serve_launch)
@@ -2637,6 +2800,186 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
         reader.close()
     session.close()
     return totals
+
+
+# -- phase 5w: the serve baselines at full width ----------------------------------
+# The first whole-prompt prefill's last logits through the flash kernel
+# against the same prefill through the dense attend, both in bf16: the
+# dense attend rounds its probabilities to bf16 before p @ v where the
+# kernel keeps them to fp32 (p_hi + p_lo), ~2^-8 relative on each layer's
+# attention output, which 30 layers carry into the logits.  Gate: 2^-5 of
+# the larger of max |logit| and 1 (0.0644 at seed 0's max |logit| of
+# 2.062, where an H100 measured 0.0254).
+BASELINE_LOGIT_TOL = 2.0 ** -5
+BASELINE_MAX_LEN = 2048      # a bucket of 1024 plus 64 new tokens
+
+
+def step_device_ms(step) -> float:
+    """Device time of one call of ``step`` by ``torch.profiler`` (the
+    kernels' and copies' time summed, after one untraced call), or NaN
+    where the profiler sees no device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.is_user_annotation)
+    return us / 1e3 if us > 0 else float("nan")
+
+
+def serve_baselines(configs, model_mod, ServeEngine, Request, cu_kernel,
+                    da_kernel, fa_kernel, pa_kernel, nvml, pmt,
+                    serve_launch, prompts, chunked):
+    """Phase 5w: phase 5's 16 requests through full-width smollm-135m
+    (bf16 weights, random from seed 0, attn_impl "pallas", 8 slots,
+    max_len 2048) under one PMT session (cpuutil + nvml): with blocking
+    admission and in waves of 8 over a bf16 cache, then with blocking
+    admission over an int8 cache.  Checks what ``served_run`` checks,
+    every whole-prompt prefill launching the flash kernel once a layer,
+    flash decode once a layer a decode step, the cache's scatter once a
+    layer a decode step (and, quantizing, a whole-prompt prefill: row 5
+    writing the bucket at offset 0), no other serve kernel; prints
+    tokens/s, J/token and stall p95 beside phase 5's chunked run
+    (``chunked``).  Then the first prefill's last logits under "pallas"
+    against "dense", and one decode step's device time with the dense
+    attend beside flash at this cache size.  Returns the flash kernel's
+    launches by run, the int8 blocking run's quantizing-scatter launches
+    with its prefills and decode steps, and the figures."""
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("smollm-135m", attn_impl="pallas")
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    reader = nvml.NvmlReader(0)
+    rng = np.random.default_rng(5)
+    bf16_kernels = {"cache_update": cu_kernel, "decode_attention": da_kernel,
+                    "flash_attention": fa_kernel}
+    int8_kernels = {"quant_cache_update": cu_kernel,
+                    "decode_attention quant": da_kernel,
+                    "flash_attention": fa_kernel}
+    serve = dict(bf16_kernels, **int8_kernels,
+                 prefill_attention=pa_kernel,
+                 **{"prefill_attention quant": pa_kernel})
+    flash, figures, blocking_int8 = {}, {}, None
+    try:
+        for label, kw, kernels in (
+                ("blocking", dict(prefill_chunk=0), bf16_kernels),
+                ("wave", dict(mode="wave"), bf16_kernels),
+                ("blocking int8", dict(prefill_chunk=0, cache_dtype="int8"),
+                 int8_kernels)):
+            kw.setdefault("cache_dtype", torch.bfloat16)
+            absent = {k: m for k, m in serve.items() if k not in kernels}
+            scatter, decode = list(kernels)[:2]
+            eng = ServeEngine(cfg, params, batch_size=8,
+                              max_len=BASELINE_MAX_LEN, session=session,
+                              **kw)
+            eng.generate([Request(prompt=rng.integers(
+                0, cfg.vocab_size, 40).tolist(), max_new_tokens=4)
+                for _ in range(2)])
+            torch.cuda.synchronize()
+            steps = count_steps(eng)
+            zero_counts(absent)
+            counts, _, fig = served_run(eng, Request, prompts, kernels,
+                                        nvml.EnergyMeter(reader), label,
+                                        session, energy, serve_launch)
+            stray = {k: n for k, n in read_counts(absent).items() if n}
+            if stray:
+                raise AssertionError(f"{label} launched {stray}")
+            want = cfg.num_layers * steps["prefill"]
+            log(f"  {label}: flash_attention launched "
+                f"{counts['flash_attention']} times for {steps['prefill']} "
+                f"whole-prompt prefills of {cfg.num_layers} layers (must be "
+                f"{want}); no other serve kernel launched")
+            if counts["flash_attention"] != want:
+                raise AssertionError("the flash kernel is not launched once "
+                                     "a layer a prefill")
+            want = cfg.num_layers * steps["decode"]
+            log(f"  {label}: {decode} launched {counts[decode]} times for "
+                f"{steps['decode']} decode steps of {cfg.num_layers} layers "
+                f"(must be {want})")
+            if counts[decode] != want:
+                raise AssertionError(f"{label}: flash decode is not launched "
+                                     f"once a layer a decode step")
+            if scatter == "quant_cache_update":
+                # one quantizing write a layer a whole-prompt prefill (the
+                # bucket's rows at offset 0) and a decode step
+                want = cfg.num_layers * (steps["prefill"] + steps["decode"])
+                blocking_int8 = dict(prefill=steps["prefill"],
+                                     decode=steps["decode"],
+                                     launches=counts[scatter])
+                log(f"  {label}: {scatter} launched {counts[scatter]} times "
+                    f"for {steps['prefill']} whole-prompt prefills and "
+                    f"{steps['decode']} decode steps of {cfg.num_layers} "
+                    f"layers (must be {want})")
+                if counts[scatter] != want:
+                    raise AssertionError(f"{label}: the quantizing scatter is "
+                                         f"not launched once a layer a "
+                                         f"prefill and a step")
+            else:
+                check_once_a_layer(cfg, counts, steps, scatter, label,
+                                   chunks=False)
+            log(f"  {label} against phase 5's chunked run 1: "
+                f"{fig['tokens_per_s']:.2f} tokens/s against "
+                f"{chunked['tokens_per_s']:.2f}, "
+                f"{fig['joules_per_token']:.4f} J/token against "
+                f"{chunked['joules_per_token']:.4f}, stall p95 "
+                f"{fig['stall_p95_ms']:.2f} ms over {fig['stall_events']} "
+                f"whole-prompt prefills against {chunked['stall_p95_ms']:.2f}"
+                f" ms over {chunked['stall_events']} chunks")
+            flash[label] = counts["flash_attention"]
+            figures[label] = dict(fig, prefills=steps["prefill"],
+                                  decode_steps=steps["decode"])
+            serve_params = eng.params
+            del eng
+    finally:
+        reader.close()
+        session.close()
+    # the first request's blocking prefill, through the kernel and dense
+    from repro_torch.serve.engine import prompt_bucket
+    plen = len(prompts[0])
+    bucket = prompt_bucket(plen)
+    toks = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+    toks[0, bucket - plen:] = torch.as_tensor(prompts[0])
+    logits = {}
+    for impl in ("pallas", "dense"):
+        fns = model_mod.make_serve_fns(dataclasses.replace(cfg,
+                                                           attn_impl=impl))
+        logits[impl] = fns.prefill(serve_params, {"tokens": toks},
+                                   BASELINE_MAX_LEN)[0].float()
+    top = max(float(logits["dense"].abs().max()), 1.0)
+    err = max_err(logits["pallas"], logits["dense"])
+    log(f"  first prefill (S {bucket}, {plen} tokens), last logits through "
+        f"the flash kernel against the dense attend: max |err| {err:.4g} "
+        f"(gate {BASELINE_LOGIT_TOL * top:.4g}: 2^-5 of max(max |logit|, "
+        f"1) = {top:.4g}); argmax equal "
+        f"{bool((logits['pallas'].argmax(-1) == logits['dense'].argmax(-1)).all())}")
+    if not err <= BASELINE_LOGIT_TOL * top:
+        raise AssertionError("the flash prefill's logits disagree with the "
+                             "dense attend's")
+    # one decode step at this cache size, each impl
+    caches = model_mod.init_caches(cfg, 8, BASELINE_MAX_LEN, torch.bfloat16,
+                                   "cuda")
+    tok1 = toks[:, -8:].reshape(8, 1)
+    cur = torch.full((8,), bucket + 32, dtype=torch.int32, device="cuda")
+    for impl in ("flash", "dense"):
+        fns = model_mod.make_serve_fns(dataclasses.replace(
+            cfg, decode_attn_impl=impl))
+        step = lambda: fns.decode(serve_params, caches, tok1, cur)
+        figures[f"decode_{impl}_device_ms"] = step_device_ms(step)
+        figures[f"decode_{impl}_ms"] = time_ms(step, iters=10)
+    log(f"  one decode step, B8 at position {bucket + 32} of a "
+        f"{BASELINE_MAX_LEN}-slot cache: flash "
+        f"{figures['decode_flash_device_ms']:.4f} ms of device time "
+        f"({figures['decode_flash_ms']:.4f} ms by events, host in the "
+        f"loop), dense {figures['decode_dense_device_ms']:.4f} ms "
+        f"({figures['decode_dense_ms']:.4f})")
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 5w took {figures['phase_s']:.1f} s")
+    return flash, blocking_int8, figures
 
 
 def trace_serve(eng, cfg, Request, rng) -> tuple:
@@ -3312,14 +3655,18 @@ def main() -> int:
         f"{elapsed()}")
     check_small_reference(configs, model_mod, ServeEngine, Request)
     check_small_quantized(configs, model_mod, ServeEngine, Request)
+    log(f"[4w] small reference, the serve baselines: blocking, waves, "
+        f"dense decode, sampling {elapsed()}")
+    check_small_baselines(configs, model_mod, ServeEngine, Request,
+                          cu_kernel)
 
     log(f"[5] serve full-width smollm-135m, 16 requests, 8 slots, "
         f"max_len 1024, chunk 32, bf16 {elapsed()}")
     kernels = {"cache_update": cu_kernel, "prefill_attention": pa_kernel,
                "decode_attention": da_kernel}
-    launches, prompts, bf16_tokens, bf16_bytes, bf16_trace = serve_full(
-        configs, model_mod, ServeEngine, Request, kernels, nvml, pmt,
-        serve_launch)
+    launches, prompts, bf16_tokens, bf16_bytes, bf16_trace, chunked = \
+        serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
+                   pmt, serve_launch)
 
     log(f"[5b] serve full-width smollm-135m paged: 16 requests sharing a "
         f"256-token system prompt, 8 slots, max_len 1024, chunk 32, page 16, "
@@ -3350,6 +3697,14 @@ def main() -> int:
         configs, model_mod, ServeEngine, Request, quant_kernels, others,
         nvml, pmt, serve_launch, prompts, bf16_tokens, bf16_bytes,
         bf16_trace)
+
+    log(f"[5w] serve full-width smollm-135m's baselines: phase 5's 16 "
+        f"requests, blocking (prefill_chunk 0) then waves of 8 over a bf16 "
+        f"cache, then blocking over an int8 cache, 8 slots, max_len "
+        f"{BASELINE_MAX_LEN}, attn_impl pallas, bf16 weights {elapsed()}")
+    flash_serve, blocking_int8, baselines = serve_baselines(
+        configs, model_mod, ServeEngine, Request, cu_kernel, da_kernel,
+        fa_kernel, pa_kernel, nvml, pmt, serve_launch, prompts, chunked)
 
     log(f"[5t] train full-width smollm-135m: batch {TRAIN_BATCH} x "
         f"{TRAIN_SEQ}, bf16 on fp32 masters, AdamW, remat full, "
@@ -3402,6 +3757,12 @@ def main() -> int:
         timings[name] = dict(by_mode["int8"], leaves=2,
                              fp8_e4m3=by_mode["fp8_e4m3"])
         launches[name] = quant_launches[name]
+    # the serve baselines' path: row 9 on phase 5w's whole-prompt
+    # prefills (by run), row 5 on phase 5w's int8 blocking run (its
+    # prefills' and decode steps' writes), both beside their times
+    # at the serve prefill's shapes (``serve_prefill``)
+    timings["flash_attention"]["serve_launches"] = flash_serve
+    timings["quant_cache_update"]["blocking_launches"] = blocking_int8
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err")
     rows = []
@@ -3417,7 +3778,8 @@ def main() -> int:
                   "chunk_two_launches_graph_ms", "empty_graph_ms",
                   "empty_grid_graph_ms", "grid",
                   "ops_per_term", "sfu_per_term", "bound_fp32_ms",
-                  "bound_sfu_ms", "bound_bytes_ms")
+                  "bound_sfu_ms", "bound_bytes_ms", "serve_prefill",
+                  "serve_launches", "blocking_launches")
         row.update({k: t[k] for k in extras if k in t})
         if "fp8_e4m3" in t:
             row["fp8_e4m3"] = {k: t["fp8_e4m3"][k] for k in keys + extras
@@ -3430,6 +3792,7 @@ def main() -> int:
                             for m in MODES}
         rows.append(row)
     log(f"[7] results {elapsed()}")
+    log(json.dumps({"serve_baselines": baselines, "chunked": chunked}))
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

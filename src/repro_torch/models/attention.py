@@ -23,9 +23,13 @@ XLA code in JAX — and ``pallas``, the flash-attention kernel
 Caches and pools are updated **in place** — the decode scatters
 (``kernels/cache_update``) and the prefill chunk writes all write into
 the tensors they are given, where the JAX package returned new buffers
-and donated the old ones.  Decode attention always takes the
-length-aware flash path (``kernels/decode_attention``); chunk attention
-takes ``kernels/prefill_attention``.  The scatters write a layer's k and
+and donated the old ones.  Decode attention takes the length-aware flash
+path (``kernels/decode_attention``) or, with ``impl="dense"``, a masked
+attend over the whole cache (XLA code in JAX, plain PyTorch here); chunk
+attention takes ``kernels/prefill_attention``.  ``prefill_kv_cache``
+builds a layer's cache from a whole-prompt prefill's k and v: a slice
+copy at slot 0, or with ``cfg.kv_quant`` the quantizing scatter's T rows
+at offset 0.  The scatters write a layer's k and
 v in one launch (``cache_update_pair``, ``paged_cache_update_pair``),
 at every decode step and every paged chunk; a bf16 contiguous chunk is
 two slice copies (``chunk_kv_write``), no kernel launch.  Quantized
@@ -258,10 +262,54 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     return _zeros(kv_leaf_specs(cfg, (batch, size), dtype), device)
 
 
+def prefill_kv_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                     max_len: int, window: Optional[int] = None,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """One layer's cache built from a whole-prompt prefill's k and v
+    (B, S, KVH, hd), on their device.
+
+    bf16 / fp32: k and v cast to ``dtype`` at slots 0..S-1 of a
+    zero-filled (B, size, KVH, hd) cache, one slice copy each (XLA's
+    ``dynamic_update_slice`` in JAX).  With ``cfg.kv_quant`` the
+    quantizing scatter writes both leaves' codes and scales in one launch,
+    S rows a batch row at offset 0: what ``quant.quantize`` followed by
+    that slice copy writes, bit for bit.  A ring layer (``window``) whose
+    prompt outruns it keeps the last ``size`` positions, rolled so that
+    position p sits at slot p % size (codes quantized once with
+    ``quant.quantize``; per-row quantization commutes with the roll)."""
+    b, s = k.shape[:2]
+    size = min(max_len, window) if window else max_len
+    mode = cfg.kv_quant
+    if window and s > size:
+        if mode is None:
+            leaves = {"k": k.to(dtype), "v": v.to(dtype)}
+        else:
+            (kc, ks), (vc, vs) = (quant.quantize(x, mode) for x in (k, v))
+            leaves = {"k": kc, "v": vc, "k_scale": ks, "v_scale": vs}
+        start = s - size
+        return {name: torch.roll(x[:, start:], start % size, dims=1)
+                for name, x in leaves.items()}
+    if s > size:
+        raise ValueError(f"prefill of {s} positions exceeds the cache's "
+                         f"{size}")
+    cache = init_kv_cache(cfg, b, max_len, window=window, dtype=dtype,
+                          device=k.device)
+    if mode is not None:
+        offs = torch.zeros((b,), dtype=torch.int32, device=k.device)
+        quant_cache_update_pair(cache["k"], cache["k_scale"], k, cache["v"],
+                                cache["v_scale"], v, offs, mode)
+        return cache
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    return cache
+
+
 def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
                           cache: Dict[str, torch.Tensor],
                           cur_len: torch.Tensor, rope_tables, *,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          impl: str = "flash") -> torch.Tensor:
     """One-token decode against a cache, which is updated in place.
 
     x: (B, 1, d).  cur_len: (B,) int32 — each row's count of tokens
@@ -272,20 +320,45 @@ def decode_self_attention(cfg: ModelConfig, p, x: torch.Tensor,
     the last slot instead of writing outside its row), the slots the
     JAX layer's ``jnp.minimum`` computes.  Outside a ring ``cur_len``
     itself is passed: every scatter, kernel or plain, clamps its slots
-    to [0, C - 1], so no clamp is launched here.  Attention then runs the
-    length-aware ``kernels/decode_attention`` path.  A quantized cache
-    takes the quantizing scatter and passes its scales to attention.
-    Returns out (B, 1, d).
+    to [0, C - 1], so no clamp is launched here.  A quantized cache takes
+    the quantizing scatter.  Attention then runs, by ``impl``: "flash",
+    the length-aware ``kernels/decode_attention`` path (a quantized
+    cache's scales passed to it); "dense", the JAX layer's masked attend
+    over the whole cache against each slot's position (a ring's slot s
+    holds the largest position p <= cur with p % C == s; negative p was
+    never written), a quantized cache dequantized first and cast to q's
+    dtype.  Returns out (B, 1, d).
     """
     q, k_new, v_new = project_qkv(cfg, p, x, rope_tables)
-    slots = torch.remainder(cur_len, cache["k"].shape[1]) if window \
-        else cur_len
+    c = cache["k"].shape[1]
+    slots = torch.remainder(cur_len, c) if window else cur_len
     _scatter(cfg, cache, k_new, v_new, cache_update_pair,
              quant_cache_update_pair, slots)
-    o = decode_attention(q, cache["k"], cache["v"], cur_len,
-                         ring=window is not None, softcap=cfg.attn_softcap,
-                         scale=attn_scale(cfg), k_scale=cache.get("k_scale"),
-                         v_scale=cache.get("v_scale"))
+    if impl == "flash":
+        o = decode_attention(q, cache["k"], cache["v"], cur_len,
+                             ring=window is not None,
+                             softcap=cfg.attn_softcap, scale=attn_scale(cfg),
+                             k_scale=cache.get("k_scale"),
+                             v_scale=cache.get("v_scale"))
+        return output_proj(p, o)
+    if impl != "dense":
+        raise ValueError(f"unknown decode attention impl {impl!r}")
+    cols = torch.arange(c, dtype=torch.int32, device=x.device)[None]
+    cur_col = cur_len[:, None]                                  # (B, 1)
+    if window:
+        kv_pos = cur_col - torch.remainder(cur_col - cols, c)
+        kv_valid = kv_pos >= 0
+        kv_pos = torch.clamp(kv_pos, min=0)
+    else:
+        kv_pos, kv_valid = cols, cols <= cur_col
+    if cfg.kv_quant is not None:
+        k_att = quant.dequantize(cache["k"], cache["k_scale"]).to(q.dtype)
+        v_att = quant.dequantize(cache["v"], cache["v_scale"]).to(q.dtype)
+    else:
+        k_att, v_att = cache["k"].to(q.dtype), cache["v"].to(q.dtype)
+    o = attention(cfg, q, k_att, v_att, q_pos=cur_col, kv_pos=kv_pos,
+                  causal=True, window=window, kv_valid=kv_valid,
+                  impl="dense")
     return output_proj(p, o)
 
 

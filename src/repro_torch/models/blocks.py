@@ -1,6 +1,8 @@
 """Per-layer block assembly: the attention + MLP block (kind "A"), over
-the full sequence (train path) or one step against contiguous caches or
-page pools (serve path).
+the full sequence (train path and whole-prompt prefill) or one step
+against contiguous caches or page pools (serve path).  Paged decode
+always takes the flash kernel, as in the JAX package, whatever
+``cfg.decode_attn_impl`` says.
 
 PyTorch counterparts of the kind-"A" branches of the JAX package's
 ``models/blocks.py``.  The other kinds (mamba "M", xLSTM "m"/"s",
@@ -32,9 +34,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "pos_embed": (cfg.pos_embed != "rope",
                       "the other-archs slice (sinusoidal / none)"),
         "mtp": (cfg.mtp, "the other-archs slice (deepseek-v3 MTP)"),
-        "dense decode attention": (
-            cfg.decode_attn_impl not in ("auto", "flash"),
-            "no slice: decode attention always runs the flash kernel"),
     }
     for name, (hit, where) in later.items():
         if hit:
@@ -73,6 +72,20 @@ def attn_impl(cfg: ModelConfig, seq_len: int) -> str:
     if seq_len <= cfg.attn_chunk or seq_len % cfg.attn_chunk:
         return "dense"
     return "chunked"
+
+
+def decode_attn_impl(cfg: ModelConfig) -> str:
+    """The decode attention path of ``cfg.decode_attn_impl``: "auto" and
+    "flash" take the flash-decode kernel (its plain version on the CPU),
+    "dense" the masked attend over the whole cache.  The JAX package
+    resolves "auto" by its backend (flash on the TPU); the port's decode
+    kernel runs on the card, so "auto" is flash everywhere."""
+    impl = cfg.decode_attn_impl
+    if impl == "auto":
+        return "flash"
+    if impl not in ("dense", "flash"):
+        raise ValueError(f"unknown decode_attn_impl {impl!r}")
+    return impl
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig):
@@ -145,7 +158,8 @@ def block_decode(cfg: ModelConfig, p, x: torch.Tensor, cache,
     h = layers.apply_norm(cfg, p["norm_1"], x)
     out = attn.decode_self_attention(cfg, p["mixer"], h, cache, cur_len,
                                      rope_tables,
-                                     window=layer_window(cfg, idx))
+                                     window=layer_window(cfg, idx),
+                                     impl=decode_attn_impl(cfg))
     return _tail(cfg, p, x, out)
 
 
@@ -160,6 +174,19 @@ def block_prefill_chunk(cfg: ModelConfig, p, x: torch.Tensor, cache,
         cfg, p["mixer"], h, cache, offset, offs, valid_len, rope_tables,
         window=layer_window(cfg, idx))
     return _tail(cfg, p, x, out)
+
+
+def prefill_block_cache(cfg: ModelConfig, idx: int, kv, max_len: int,
+                        dtype: torch.dtype = torch.bfloat16
+                        ) -> Dict[str, torch.Tensor]:
+    """Layer ``idx``'s decode cache from the (k, v) that ``block_forward``
+    collected over a whole prompt (kind "A" only)."""
+    if layer_kind(cfg, idx) != "A":
+        raise NotImplementedError(f"{cfg.name}: block kind of layer {idx} "
+                                  "comes with the other-archs slice")
+    k, v = kv
+    return attn.prefill_kv_cache(cfg, k, v, max_len,
+                                 window=layer_window(cfg, idx), dtype=dtype)
 
 
 # -- paged decode / prefill (page pools + page tables) --------------------------

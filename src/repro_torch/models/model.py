@@ -18,7 +18,8 @@ Entry points:
   serving_params(cfg, params, device)     -> the tree on the device,
                                              weight matrices in cfg.dtype
   init_caches(cfg, batch, max_len, ...)   -> decode caches
-  make_serve_fns(cfg)                     -> ServeFns(decode, prefill_chunk)
+  make_serve_fns(cfg, cache_dtype)        -> ServeFns(prefill, decode,
+                                                      prefill_chunk)
   init_paged_caches(cfg, pages, ps, ...)  -> page pools
   make_paged_serve_fns(cfg)               -> PagedServeFns(decode,
                                                            prefill_chunk)
@@ -29,9 +30,10 @@ unit under ``torch.utils.checkpoint`` when ``cfg.remat`` asks for it
 products, as ``jax.checkpoint_policies.checkpoint_dots``), with the
 attention impl of ``blocks.attn_impl`` (``"pallas"``: the
 flash-attention kernel).  The loss is the JAX package's chunked
-cross-entropy over the tied head.  The whole-prompt ``prefill`` of the
-JAX package feeds only the blocking ``prefill_chunk=0`` admission
-baseline and comes with a later slice.
+cross-entropy over the tied head.  The serve steps' whole-prompt
+``prefill`` runs the same forward, collecting each layer's k and v into
+its decode cache, and feeds the blocking ``prefill_chunk=0`` admission
+and the wave baseline.
 """
 from __future__ import annotations
 
@@ -283,20 +285,31 @@ def _run_units(lay: UnitLayout, params, caches, x, step):
 
 
 class ServeFns(NamedTuple):
-    """The two serve steps of the continuous-batching engine."""
+    """The serve steps of the engine (see :func:`make_serve_fns`)."""
 
+    prefill: Any
     decode: Any
     prefill_chunk: Any
 
 
-def make_serve_fns(cfg: ModelConfig) -> ServeFns:
-    """Returns ``ServeFns(decode, prefill_chunk)``.
+def make_serve_fns(cfg: ModelConfig,
+                   cache_dtype: torch.dtype = torch.bfloat16) -> ServeFns:
+    """Returns ``ServeFns(prefill, decode, prefill_chunk)``.
 
+    prefill(params, batch, max_len) -> (logits (B, V) at the last
+        position, caches)
     decode(params, caches, tokens (B, 1), cur_len) -> logits (B, V)
     prefill_chunk(params, caches, tokens (B, T), offset, last_idx)
         -> logits (B, V) at ``last_idx``
 
-    Both update ``caches`` in place.  ``cur_len`` is an int (every row
+    ``prefill`` runs the whole prompt ``batch["tokens"]`` (B, S) at
+    positions 0..S-1 through the full-sequence forward with the attention
+    impl of ``blocks.attn_impl`` (``"pallas"``: the flash-attention
+    kernel), and builds (B, max_len) caches of ``cache_dtype`` (codes and
+    scales with ``cfg.kv_quant``) from each layer's k and v.  Logits are
+    computed at the last position only.
+    ``decode`` and ``prefill_chunk`` update ``caches`` in place.
+    ``cur_len`` is an int (every row
     at one position) or a (B,) int tensor of per-slot positions: each
     row's new KV lands at its own slot through the ``cache_update``
     kernel, and decode attention reads each row's valid prefix only.
@@ -307,7 +320,27 @@ def make_serve_fns(cfg: ModelConfig) -> ServeFns:
     ``last_idx`` marks the chunk's last real token; the positions past
     it are right-padding whose outputs are discarded.
     """
-    run_units = functools.partial(_run_units, unit_layout(cfg))
+    lay = unit_layout(cfg)
+    run_units = functools.partial(_run_units, lay)
+
+    def prefill(params, batch, max_len: int):
+        x = _input_embed(cfg, params, batch)
+        pos = _positions(cfg, batch)
+        tables = layers.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        per_unit = []
+        for u in range(lay.n_units):
+            up = unit_slice(params["units"], u)
+            uc = {}
+            for r in range(lay.unit_len):
+                x, _, kv = blocks.block_forward(cfg, up[f"r{r}"], x, pos, r,
+                                                collect_kv=True,
+                                                rope_tables=tables)
+                uc[f"r{r}"] = blocks.prefill_block_cache(
+                    cfg, r, kv, max_len, dtype=cache_dtype)
+            per_unit.append(uc)
+        x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
+        logits = layers.logits_from_hidden(cfg, params["embed"], x)
+        return logits[:, 0], {"units": _stack(per_unit)}
 
     def decode_step(params, caches, tokens: torch.Tensor,
                     cur_len: Union[int, torch.Tensor]) -> torch.Tensor:
@@ -344,7 +377,7 @@ def make_serve_fns(cfg: ModelConfig) -> ServeFns:
         x_last = x[:, int(last_idx):int(last_idx) + 1]
         return layers.logits_from_hidden(cfg, params["embed"], x_last)[:, 0]
 
-    return ServeFns(decode_step, prefill_chunk)
+    return ServeFns(prefill, decode_step, prefill_chunk)
 
 
 # -- serve: paged caches -------------------------------------------------------------

@@ -1,8 +1,12 @@
-"""Continuous-batching serve engine with chunked prefill.
+"""Continuous-batching serve engine with chunked prefill, and its
+baselines.
 
-The PyTorch counterpart of the JAX package's ``serve/engine.py`` in its
-main mode: ``mode="continuous"``, ``kv_layout="contiguous"``, chunked
-admission, greedy decoding.
+The PyTorch counterpart of the JAX package's ``serve/engine.py``: its
+main mode, ``mode="continuous"`` with chunked admission, and the
+baselines that mode is measured against: blocking bucketed admission
+(``prefill_chunk=0``), synchronized waves (``mode="wave"``), sampled
+decoding (``greedy=False``) and the dense decode attention
+(``decode_attn_impl="dense"``).
 
 Every batch slot carries its own position counter; one decode step
 advances all live slots at their own offsets (per-row KV scatter through
@@ -46,9 +50,23 @@ cache leaf becomes low-bit codes plus one float32 absmax scale per
 (position, kv head), decode writes go through the quantizing scatters
 and the attention kernels dequantize inside.
 
+``prefill_chunk=0`` admits a request by one blocking whole-prompt
+prefill (``make_serve_fns``' ``prefill``) at its power-of-two bucket
+(``prompt_bucket``), the prompt left-padded with token 0, which stays
+in context at positions 0..bucket-plen-1 as in the JAX engine; the row
+goes live at position ``bucket``.  ``mode="wave"`` serves batch-sized
+waves: one prefill of the wave at its longest prompt's bucket, then
+every row decodes the wave's most steps at one shared position (rows
+past their own count, and unused rows, decode garbage).
+
+``greedy=False`` samples every first token and decode token from
+``softmax(logits / temperature)`` through one ``torch.Generator`` on the
+engine's device, seeded with ``seed``: the Gumbel-max draw, on the
+device, so a decode burst still syncs once.  JAX's PRNG streams cannot
+be matched, so a seed gives its own stream, repeatable run to run.
+
 Still to come, each with its slice (see ROADMAP.md), and refused here:
-sampling (``greedy=False``), the blocking ``prefill_chunk=0`` baseline,
-``mode="wave"``, preemption and swap, and the power governor.
+preemption and swap, and the power governor.
 """
 from __future__ import annotations
 
@@ -82,19 +100,30 @@ def stall_p95(events) -> float:
     return float(xs[min(len(xs) - 1, int(round(0.95 * (len(xs) - 1))))])
 
 
+def prompt_bucket(plen: int, min_bucket: int = 8) -> int:
+    """A prompt length padded to its power-of-two bucket, at least
+    ``min_bucket`` (itself a power of two): the blocking and wave
+    prefills' shapes, at most log2(max_len) of them."""
+    if plen < 1:
+        raise ValueError("empty prompt")
+    if min_bucket < 1 or (min_bucket & (min_bucket - 1)):
+        raise ValueError(
+            f"min_bucket must be a power of two >= 1, got {min_bucket}")
+    b = min_bucket
+    while b < plen:
+        b <<= 1
+    return b
+
+
 def resolve_prefill_chunk(cfg: ModelConfig,
                           prefill_chunk: Optional[int]) -> int:
     """Engine arg beats the ``PMT_PREFILL_CHUNK`` env var beats
-    ``cfg.prefill_chunk``."""
+    ``cfg.prefill_chunk``; 0 is blocking whole-prompt admission."""
     if prefill_chunk is None:
         env = os.environ.get("PMT_PREFILL_CHUNK")
         prefill_chunk = int(env) if env else cfg.prefill_chunk
     if prefill_chunk < 0:
         raise ValueError(f"prefill_chunk must be >= 0, got {prefill_chunk}")
-    if prefill_chunk == 0:
-        raise NotImplementedError(
-            "prefill_chunk=0 (blocking bucketed admission) comes with the "
-            "whole-prompt prefill slice")
     return prefill_chunk
 
 
@@ -118,13 +147,14 @@ class Request:
 
 @dataclasses.dataclass
 class _Prefill:
-    """An admission mid-chunked-prefill: its slot is reserved and its
-    batch-1 cache row is being built chunk by chunk."""
+    """An admission mid-prefill: its slot is reserved and its batch-1
+    cache row is being built, chunk by chunk (blocking admission: in one
+    whole-prompt prefill, with no ``caches`` or ``toks`` kept here)."""
 
     req: Request
     slot: int
     caches: Any                     # batch-1 cache tree under construction
-    toks: np.ndarray                # (1, padded) right-padded prompt
+    toks: Optional[np.ndarray]      # (1, padded) right-padded prompt
     plen: int
     offset: int = 0
 
@@ -269,7 +299,7 @@ class _Slots:
         eng.live_slots = len(self.live()) + sum(self.reserved)
         eng.pending_prefill_chunks = sum(
             math.ceil(max(0, st.plen - st.offset) / chunk)
-            for st in self.prefills)
+            for st in self.prefills) if chunk else 0
 
     def decode(self, live: List[int], step) -> None:
         """Advance the live rows by a burst of decode steps on the device
@@ -290,12 +320,12 @@ class _Slots:
             # a deadline'd request must pass the sweep between bursts:
             # bound the device-side run.
             steps = min(steps, 8)
-        dev = self.eng.device
-        tok_dev = torch.as_tensor(self.tokens, device=dev)
-        pos_dev = torch.as_tensor(self.pos, device=dev)
+        eng = self.eng
+        tok_dev = torch.as_tensor(self.tokens, device=eng.device)
+        pos_dev = torch.as_tensor(self.pos, device=eng.device)
         outs = []
         for _ in range(steps):
-            tok_dev = step(tok_dev, pos_dev).argmax(dim=-1, keepdim=True)
+            tok_dev = eng._pick(step(tok_dev, pos_dev))[:, None]
             outs.append(tok_dev)
             pos_dev = pos_dev + 1
         gen = torch.cat(outs, dim=1).cpu().numpy()
@@ -329,19 +359,28 @@ class _Slots:
 
 
 class ServeEngine:
-    """Continuous-batching decode over fixed slots with chunked prefill.
+    """Continuous-batching decode over fixed slots with chunked prefill,
+    and its baselines.
 
     Args:
       cfg, params: model config and parameter tree (``init_params`` or
         ``bridge.params_from_numpy``); weight matrices are cast once to
         ``cfg.dtype`` and moved to the engine's device.
       batch_size: number of decode slots.
-      max_len: KV-cache capacity per slot.  A request needs
+      max_len: KV-cache capacity per slot.  A chunked request needs
         ``ceil(plen / chunk) * chunk <= max_len`` and
-        ``plen + max_new_tokens <= max_len + 1``.
+        ``plen + max_new_tokens <= max_len + 1``; a blocking or wave one
+        ``prompt_bucket(plen) + max_new_tokens <= max_len + 1``.
       monitor / session: per-request and aggregate energy accounting, as
         in the JAX engine (monitor wins when both are given).
-      prefill_chunk: chunk size; None resolves ``PMT_PREFILL_CHUNK`` then
+      mode: "continuous" (slot refill) or "wave" (batch-sized waves, one
+        ``serve/wave<N>`` region each counting the wave's
+        ``sum(max_new_tokens)``; no per-request spans or deadlines).
+      decode_attn_impl: None keeps ``cfg.decode_attn_impl``; "auto" or
+        "flash" is the flash-decode kernel, "dense" the masked attend
+        over the whole cache (contiguous layout; paged decode is flash).
+      prefill_chunk: chunk size, or 0 for blocking whole-prompt
+        admission; None resolves ``PMT_PREFILL_CHUNK`` then
         ``cfg.prefill_chunk``.
       cache_dtype: KV storage dtype: torch.bfloat16 or torch.float32, or
         its name, or a quantized-KV mode, "int8" or "fp8_e4m3", which
@@ -359,36 +398,47 @@ class ServeEngine:
         admissions wait for pages.
       prefix_cache: keep retired requests' full pages in a radix tree
         for copy-free prefix reuse (paged layout).
-      mode, governor, preempt, swap_store, greedy: accepted at their
-        defaults only; other values belong to later slices and raise.
+      greedy, temperature, seed: decoding policy.  ``greedy=False``
+        samples every token (the first of each prefill too) at
+        ``temperature`` from one ``torch.Generator`` seeded with ``seed``,
+        kept across ``generate()`` calls.
+      governor, preempt, swap_store: accepted at their defaults only;
+        other values belong to later slices and raise.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
                  max_len: int, monitor=None, session=None,
                  mode: str = "continuous",
+                 decode_attn_impl: Optional[str] = None,
                  prefill_chunk: Optional[int] = None,
                  governor=None, kv_layout: str = "contiguous",
                  kv_page_size: Optional[int] = None,
                  kv_pool_pages: Optional[int] = None,
                  prefix_cache: bool = True,
                  preempt: bool = False, swap_store=None,
-                 greedy: bool = True,
+                 greedy: bool = True, temperature: float = 1.0,
+                 seed: int = 0,
                  cache_dtype: Union[str, torch.dtype] = torch.bfloat16,
                  device=None):
+        if mode not in ("continuous", "wave"):
+            raise ValueError(f"unknown serve mode {mode!r}")
         if kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if decode_attn_impl is not None:
+            cfg = dataclasses.replace(cfg, decode_attn_impl=decode_attn_impl)
+        if not greedy and temperature <= 0.0:
+            raise ValueError("sampling needs temperature > 0")
+        chunk = resolve_prefill_chunk(cfg, prefill_chunk)
         if kv_layout == "paged":
             if mode != "continuous":
                 raise ValueError("paged KV requires continuous mode")
-            if prefill_chunk == 0:
+            if not chunk:
                 raise ValueError("paged KV requires chunked prefill "
                                  "(prefill_chunk > 0)")
         later = {
-            "mode='wave'": mode != "continuous",
             "governor": governor is not None,
             "preempt": bool(preempt),
             "swap_store": swap_store is not None,
-            "sampling (greedy=False)": not greedy,
         }
         for what, hit in later.items():
             if hit:
@@ -412,16 +462,22 @@ class ServeEngine:
         self.max_len = max_len
         self.monitor = monitor
         self.session = session
-        self.mode = "continuous"
+        self.mode = mode
         self.kv_layout = kv_layout
         self.cache_dtype = cache_dtype
-        self.prefill_chunk = resolve_prefill_chunk(cfg, prefill_chunk)
-        if self.prefill_chunk > max_len:
+        self.prefill_chunk = chunk
+        if chunk > max_len:
             if prefill_chunk is not None:
-                raise ValueError(f"prefill_chunk {self.prefill_chunk} "
-                                 f"exceeds max_len {max_len}")
+                raise ValueError(f"prefill_chunk {chunk} exceeds max_len "
+                                 f"{max_len}")
             self.prefill_chunk = max_len
-        self._fns = model_mod.make_serve_fns(cfg)
+        self.greedy = greedy
+        self.temperature = temperature
+        self._gen: Optional[torch.Generator] = None
+        if not greedy:
+            self._gen = torch.Generator(device=self.device)
+            self._gen.manual_seed(seed)
+        self._fns = model_mod.make_serve_fns(cfg, cache_dtype=cache_dtype)
         # Scheduler gauges — plain attribute reads, safe from any thread.
         self.live_slots = 0             # decoding + mid-prefill slots
         self.queue_depth = 0            # admitted-nothing-yet backlog
@@ -485,7 +541,9 @@ class ServeEngine:
             return self.monitor.measure_step(agg_id, tokens=tokens,
                                              blocking=False)
         if self.session is not None:
-            return self.session.region(f"serve/batch{agg_id}", tokens=tokens)
+            label = "wave" if self.mode == "wave" else "batch"
+            return self.session.region(f"serve/{label}{agg_id}",
+                                       tokens=tokens)
         return contextlib.nullcontext()
 
     def _request_ctx(self, rid: int, tokens: int,
@@ -501,25 +559,44 @@ class ServeEngine:
     # -- public API ----------------------------------------------------------
     def generate(self, requests: List[Request]) -> List[Request]:
         """Serve ``requests``; returns them in input order, ``out`` filled."""
-        chunk = self.prefill_chunk
+        chunk = self.prefill_chunk if self.mode == "continuous" else 0
         for r in requests:
             if r.max_new_tokens < 1:
                 raise ValueError("max_new_tokens must be >= 1")
-            if r.deadline_s is not None and r.deadline_s <= 0:
-                raise ValueError(f"deadline_s must be > 0, got {r.deadline_s}")
+            if r.deadline_s is not None:
+                if r.deadline_s <= 0:
+                    raise ValueError(
+                        f"deadline_s must be > 0, got {r.deadline_s}")
+                if self.mode == "wave":
+                    raise ValueError(
+                        "deadline_s requires continuous mode (waves have "
+                        "no per-request retirement point)")
             if r.finish_reason is not None:
                 r.id = None             # a completed request: serve afresh
                 r.out = []
             r.finish_reason = None
             plen = len(r.prompt)
-            padded = math.ceil(plen / chunk) * chunk
-            if padded > self.max_len \
-                    or plen + r.max_new_tokens > self.max_len + 1:
-                raise ValueError(
-                    f"request needs {max(padded, plen + r.max_new_tokens - 1)} "
-                    f"cache slots (chunk-padded prompt / prompt + "
-                    f"max_new_tokens) but max_len is {self.max_len}")
+            if chunk:
+                padded = math.ceil(plen / chunk) * chunk
+                if padded > self.max_len \
+                        or plen + r.max_new_tokens > self.max_len + 1:
+                    raise ValueError(
+                        f"request needs "
+                        f"{max(padded, plen + r.max_new_tokens - 1)} cache "
+                        f"slots (chunk-padded prompt / prompt + "
+                        f"max_new_tokens) but max_len is {self.max_len}")
+            else:
+                need = prompt_bucket(plen) + r.max_new_tokens
+                if need > self.max_len + 1:
+                    raise ValueError(
+                        f"request needs {need} cache slots (bucketed prompt "
+                        f"+ max_new_tokens) but max_len is {self.max_len}")
         self.stall_events = []
+        if self.mode == "wave":
+            done: List[Request] = []
+            for i in range(0, len(requests), self.batch):
+                done.extend(self._run_wave(requests[i:i + self.batch]))
+            return done
         if self.kv_layout == "paged":
             return self._run_paged(requests)
         return self._run_continuous(requests)
@@ -628,6 +705,34 @@ class ServeEngine:
     def _count_nonfinite(self, logits: torch.Tensor) -> None:
         self._nonfinite += (~torch.isfinite(logits).all(dim=-1)).sum()
 
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        """(B,) next tokens from (B, V) logits, on their device: the
+        argmax, or with sampling the Gumbel-max draw from
+        ``softmax(logits / temperature)`` (what ``jax.random.categorical``
+        computes), its uniforms from the engine's generator."""
+        if self.greedy:
+            return logits.argmax(dim=-1)
+        u = torch.rand(logits.shape, generator=self._gen,
+                       device=logits.device)
+        gumbel = -torch.log(-torch.log(
+            u.clamp_(min=torch.finfo(torch.float32).tiny)))
+        return (logits.float() / self.temperature + gumbel).argmax(dim=-1)
+
+    def _prefill_request(self, r: Request):
+        """Blocking whole-prompt prefill at the prompt's bucket (the
+        ``prefill_chunk=0`` baseline), the prompt left-padded with token 0.
+        Returns (first generated token, batch-1 cache row, next position
+        == the bucket).  Reading the token fences the prefill."""
+        plen = len(r.prompt)
+        bucket = prompt_bucket(plen)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, bucket - plen:] = r.prompt          # left-pad
+        logits, row = self._fns.prefill(
+            self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
+            self.max_len)
+        self._count_nonfinite(logits)
+        return int(self._pick(logits)[0]), row, bucket
+
     def _start_chunked_prefill(self, r: Request, j: int) -> _Prefill:
         plen = len(r.prompt)
         chunk = self.prefill_chunk
@@ -656,7 +761,7 @@ class ServeEngine:
         final = st.offset >= st.toks.shape[1]
         if final:
             self._count_nonfinite(logits)
-        tok = int(logits.argmax(dim=-1)[0])         # fence the chunk
+        tok = int(self._pick(logits)[0])            # fence the chunk
         if decode_live:
             self.stall_events.append(time.perf_counter() - t0)
         return tok if final else None
@@ -692,13 +797,32 @@ class ServeEngine:
             self._count_nonfinite(logits)
             return logits
 
+        def insert(j: int, row) -> None:
+            for live_leaf, leaf in zip(cache_leaves, tree_leaves(row)):
+                live_leaf[:, j].copy_(leaf[:, 0])
+
         def iterate():
-            # slot-granular admission: every free slot enters the chunk
-            # queue now instead of waiting for the batch to drain.
+            # slot-granular admission: every free slot refills now
+            # (blocking) or enters the chunk queue (chunked) instead of
+            # waiting for the batch to drain.
             for j in range(b):
-                if slots.waiting and slots.free(j):
+                if not (slots.waiting and slots.free(j)):
+                    continue
+                if self.prefill_chunk:
                     st = self._start_chunked_prefill(slots.waiting[0], j)
                     slots.admit(j, st, st.plen)
+                    continue
+                # blocking bucketed baseline: the whole prompt now
+                r = slots.waiting[0]
+                st = _Prefill(req=r, slot=j, caches=None, toks=None,
+                              plen=len(r.prompt))
+                slots.admit(j, st, st.plen)
+                t0 = time.perf_counter()
+                first, row, bucket = self._prefill_request(r)
+                if slots.live():
+                    self.stall_events.append(time.perf_counter() - t0)
+                insert(j, row)
+                slots.go_live(st, first, bucket)
             slots.update_gauges()
             # one prefill chunk per decode step; with no live decode rows
             # the chunk queue drains back to back.
@@ -706,9 +830,7 @@ class ServeEngine:
                 st = slots.prefills[0]
                 first = self._step_chunked_prefill(st, bool(slots.live()))
                 if first is not None:
-                    for live_leaf, row in zip(cache_leaves,
-                                              tree_leaves(st.caches)):
-                        live_leaf[:, st.slot].copy_(row[:, 0])
+                    insert(st.slot, st.caches)
                     slots.go_live(st, first, st.plen)
                 slots.update_gauges()
             live = slots.live()
@@ -790,7 +912,7 @@ class ServeEngine:
                 if st.offset + chunk >= st.plen]
         if done:
             self._count_nonfinite(logits[torch.as_tensor(done, device=dev)])
-        tok = logits.argmax(dim=-1).cpu().numpy()           # fence
+        tok = self._pick(logits).cpu().numpy()              # fence
         if decode_live:
             self.stall_events.append(time.perf_counter() - t0)
         for st in list(slots.prefills):
@@ -879,3 +1001,52 @@ class ServeEngine:
             slots.decode(live, step)
 
         return self._serve(requests, slots, iterate)
+
+    # -- synchronized waves (baseline) ----------------------------------------
+    def _run_wave(self, wave: List[Request]) -> List[Request]:
+        """One wave: a (B, bucket) prefill of the wave's prompts, each
+        left-padded to the longest one's bucket (unused rows all pad),
+        then the wave's most decode steps for every row at one shared
+        position; each request keeps its first ``max_new_tokens``."""
+        b = self.batch
+        plen = prompt_bucket(max(len(r.prompt) for r in wave))
+        toks = np.zeros((b, plen), np.int64)
+        for j, r in enumerate(wave):
+            toks[j, plen - len(r.prompt):] = r.prompt   # left-pad
+        steps = max(r.max_new_tokens for r in wave)
+        # rows share the wave's bucket and its most steps, so a long
+        # neighbour can push a short request past max_len although each
+        # request passed its own check
+        if plen + steps > self.max_len + 1:
+            raise ValueError(
+                f"wave needs {plen + steps} cache slots (shared prompt "
+                f"bucket {plen} + {steps} decode steps) but max_len is "
+                f"{self.max_len}; shrink the wave or use continuous mode")
+        # J/token divides by the tokens actually generated: padded rows
+        # and rows past their count decode but emit nothing
+        gen_tokens = sum(r.max_new_tokens for r in wave)
+        wave_id = self._batch_count
+        self._batch_count += 1
+        with self._measure_ctx(wave_id, tokens=gen_tokens):
+            logits, caches = self._fns.prefill(
+                self.params,
+                {"tokens": torch.as_tensor(toks, device=self.device)},
+                self.max_len)
+            self._count_nonfinite(logits)
+            nxt = self._pick(logits)[:, None]
+            outs = [nxt]
+            # the shared position as a (B,) tensor kept on the device: no
+            # host copy a step
+            cur = torch.full((b,), plen, dtype=torch.int32,
+                             device=self.device)
+            for _ in range(steps - 1):
+                logits = self._fns.decode(self.params, caches, nxt, cur)
+                self._count_nonfinite(logits)
+                nxt = self._pick(logits)[:, None]
+                outs.append(nxt)
+                cur = cur + 1
+            gen = torch.cat(outs, dim=1).cpu().numpy()
+        for j, r in enumerate(wave):
+            r.out = gen[j, :r.max_new_tokens].tolist()
+            r.finish_reason = "length"
+        return wave

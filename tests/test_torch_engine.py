@@ -214,9 +214,13 @@ def test_request_validation_and_later_slices_raise(setup):
         eng.generate(mk([([1] * 60, 10)]))
     with pytest.raises(ValueError, match="max_new_tokens"):
         eng.generate(mk([([1], 0)]))
-    for kw in (dict(mode="wave"),
-               dict(governor=object()), dict(preempt=True),
-               dict(greedy=False), dict(prefill_chunk=0)):
+    # the baselines serve: waves, sampling, blocking admission
+    for kw in (dict(mode="wave"), dict(greedy=False, temperature=1.5),
+               dict(prefill_chunk=0)):
+        done = port_engine(setup, 1, **kw).generate(mk([([1, 2], 3)]))
+        assert [len(r.out) for r in done] == [3]
+    for kw in (dict(governor=object()), dict(preempt=True),
+               dict(swap_store=object())):
         with pytest.raises(NotImplementedError):
             port_engine(setup, 1, **kw)
     with pytest.raises(ValueError, match="int4"):
