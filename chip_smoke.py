@@ -60,6 +60,17 @@ Phases, in order; any failure exits nonzero:
      scales against their plain versions with the same tolerances and
      cases as above; each timed with its byte bound at code width (the
      decode kernel's also in a CUDA graph).
+     3v. MLA's aliased latent cache (the ``v_width`` branch, rows 2v,
+     3v, 7v, 8v): each attention kernel over one kv head whose rows are
+     the keys and, their first hdv lanes, the values, over bf16, int8 and
+     fp8_e4m3, at deepseek-v3's widths (G 128, hdq 576, hdv 512: decode
+     B8 C1024, the chunk B1 T32 over a 512 prefix, their paged twins on a
+     513 x 16 x 576 pool; ``csrc/latent_attention.cu``) and odd ones (G 3
+     and 4 at hdq 24 / hdv 16 and 72 / 64, fp32 on the CUDA-core
+     kernels), within TOL; a decode row with lens -1 exactly 0; each main
+     case timed beside its byte and operation bounds and, contiguous
+     bf16, SDPA over the expanded and sliced tensors; rows 1, 4, 5, 6 at
+     F 576 through the one-leaf ops, bit for bit.
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
@@ -84,6 +95,10 @@ Phases, in order; any failure exits nonzero:
      every code agrees, else QUANT_CARD_TOL; codes at most one step
      apart, greedy tokens equal), and the drift gate of
      tests/test_quant_serve.py on the card.
+     4m. reduced deepseek-v3 (``moe=None, mtp=False``), fp32: the
+     engine's greedy tokens on the card equal the CPU's, contiguous
+     chunked, paged (page 16), blocking and int8; the v_width rows
+     launched.
      4w. the serve baselines, reduced fp32: blocking admission (fp32 and
      int8 caches), waves and the dense decode give the card's greedy
      tokens equal to the CPU's; the int8 blocking run's quantizing
@@ -111,17 +126,27 @@ Phases, in order; any failure exits nonzero:
      that add up, the pages held after a run equal to the prefix tree's,
      prefix hits in both runs and priced saved prefill joules in the
      warm one; then a short run under the profiler.
-     5c. phase 5's 16 requests once per quantized cache mode and layout
+     5c. phase 5's 16 requests, through ``PHASE_5C_LAYERS`` (10) of the
+     model's 30 layers, once per quantized cache mode and layout
      (int8, fp8_e4m3; contiguous, paged at page 16 with the default
      512-page pool), each with phase 5's checks, plus: only that
      layout's three quantized kernels launched (the bf16 ones and the
      other layout's stayed at 0), the layout's quantizing scatter
      launched once a layer per decode step and per prefill chunk (k and
      v in one launch), ``stats()["kv_cache"]`` names the mode, and bytes
-     per token under 0.6x phase 5's bf16 figure; prints how many
-     requests generate the bf16 run's tokens (not gated); the int8
+     per token under 0.6x phase 5's bf16 figure at that depth; the int8
      contiguous trace's busy time, launches, launches a prefill chunk and
      a decode step beside phase 5's bf16 ones.
+     5m. phase 5's 16 requests through deepseek-v3's three dense MLA
+     layers at full width (random bf16 weights from seed 0, 8 slots,
+     max_len 1024, chunk 32) under ``Session(["cpuutil", "nvml"])``:
+     contiguous and paged (page 16; served again warm, which must map
+     prompt pages from the radix tree) over bf16, paged and contiguous
+     over int8; phase 5's checks per run, each run's v_width rows and
+     one-leaf scatter launched 3 times (once a layer) a decode step, a
+     chunk or both, every other counter 0; the first decode step's logits
+     through the kernel against the dense attend (MLA_LOGIT_TOL); one
+     decode step's device time.
      5w. the serve baselines at full width: phase 5's 16 requests through
      smollm-135m (bf16 weights, attn_impl "pallas", 8 slots, max_len
      2048) under ``Session(["cpuutil", "nvml"])``, with blocking
@@ -159,7 +184,8 @@ Phases, in order; any failure exits nonzero:
      grew, that every busy row's card watts exceed SLEEP's, and that each
      row's session joules are within 10% of an independent
      ``EnergyMeter`` reading of the same window.
-  7. print the ``{"kernels": [...]}`` line (15 kernels; the attention
+  7. print the ``{"kernels": [...]}`` line (19 rows: the 15 kernels and
+     rows 2v, 3v, 7v, 8v with their launches in phase 5m; the attention
      kernels with their quantized launches and times beside, the
      quantizing scatters with fp8_e4m3's times beside int8's, the four
      scatters' times a pair call's; row 9 with its launches on phase 5w's
@@ -239,6 +265,20 @@ KERNEL_INFO = {
     "flash_attention": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:95"),
+    # the v_width branch (MLA's aliased latent cache): bf16 q on the
+    # tensor-core latent kernel, fp32 q on the CUDA-core kernels above
+    "decode_attention v": (
+        "src/repro_torch/kernels/csrc/latent_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:272"),
+    "decode_attention_paged v": (
+        "src/repro_torch/kernels/csrc/latent_attention.cu",
+        "src/repro/kernels/decode_attention/decode_attention.py:187"),
+    "prefill_attention v": (
+        "src/repro_torch/kernels/csrc/latent_attention.cu",
+        "src/repro/kernels/prefill_attention/prefill_attention.py:323"),
+    "prefill_attention_paged v": (
+        "src/repro_torch/kernels/csrc/latent_attention.cu",
+        "src/repro/kernels/prefill_attention/prefill_attention.py:231"),
 }
 # Launch counters: kernel name -> attribute of its wrapper module.  The
 # attention kernels count their launches over quantized caches apart,
@@ -252,7 +292,15 @@ COUNTER = {"gridder": "gridder_launches", "degridder": "degridder_launches",
            "decode_attention quant": "quant_launches",
            "prefill_attention quant": "quant_launches",
            "decode_attention_paged quant": "quant_paged_launches",
-           "prefill_attention_paged quant": "quant_paged_launches"}
+           "prefill_attention_paged quant": "quant_paged_launches",
+           "decode_attention v": "v_launches",
+           "prefill_attention v": "v_launches",
+           "decode_attention_paged v": "v_paged_launches",
+           "prefill_attention_paged v": "v_paged_launches",
+           "decode_attention v quant": "v_quant_launches",
+           "prefill_attention v quant": "v_quant_launches",
+           "decode_attention_paged v quant": "v_quant_paged_launches",
+           "prefill_attention_paged v quant": "v_quant_paged_launches"}
 # Quantized KV-cache modes; the drift gate of tests/test_quant_serve.py:
 # max |logit - fp32 cache's logit| under this share of max(max |logit|, 1).
 MODES = ("int8", "fp8_e4m3")
@@ -1452,6 +1500,231 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
                     "PyTorch call reads a paged cache)")
                 results = dict(tm, max_abs_err=err)
     return results
+
+
+# -- phase 3v: MLA's aliased latent cache ---------------------------------------
+# The v_width branch of rows 2, 3, 7 and 8 (rows 2v, 3v, 7v, 8v).
+# deepseek-v3's latent cache at full width is one kv head whose 576-wide
+# rows are the keys and, their first 512 lanes, the values, shared by 128
+# query heads.  bf16 q takes csrc/latent_attention.cu (tensor cores), fp32
+# q the CUDA-core kernels with v's row width passed apart.  The main cases
+# are the slice's: decode B8 over C1024, the chunk B1 T32 over a
+# 512-position prefix of C1024, and their paged twins on a 513 x 16 x 576
+# pool; the odd ones G 3 and 4 at hdq 24 / hdv 16 and hdq 72 / hdv 64.
+LATENT = dict(g=128, hd=576, hdv=512)
+LATENT_CASES = {
+    "decode": dict(b=8, c=1024, pos=[0, 1, 511, 1023, 37, 300, 700, 1000]),
+    "prefill": dict(b=1, t=32, c=1024, pos=[512]),
+    "decode_paged": dict(p=513, ps=16, b=8, nb=64,
+                         pos=[0, 1, 15, 16, 511, 1023, 700, 1000]),
+    "prefill_paged": dict(p=513, ps=16, b=8, t=32, nb=64,
+                          pos=[0, 1, 15, 16, 17, 512, 992, 300]),
+}
+LATENT_ODD_CASES = {
+    "decode": dict(b=3, c=100, pos=[0, 57, 99]),
+    "prefill": dict(b=2, t=9, c=100, pos=[50, 100]),
+    "decode_paged": dict(p=40, ps=16, b=3, nb=6, pos=[0, 17, 95]),
+    "prefill_paged": dict(p=40, ps=16, b=3, t=9, nb=6, pos=[0, 16, 80]),
+}
+LATENT_ODD = ((3, 24, 16), (4, 72, 64))          # (G, hdq, hdv)
+# the rows' names in the kernels line, by call
+LATENT_ROWS = {"decode": "decode_attention v",
+               "prefill": "prefill_attention v",
+               "decode_paged": "decode_attention_paged v",
+               "prefill_paged": "prefill_attention_paged v"}
+
+
+def _latent_inputs(dev, dt, kind: str, cs: dict, g: int, hd: int):
+    """q, the chunk's keys (None at decode), the cache or pool (one kv
+    head), the page table (None unpaged) and the positions of a case."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=dev).to(dt)
+    b = cs["b"]
+    decode = kind.startswith("decode")
+    q = mk(b, 1, g, hd) if decode else mk(b, 1, cs["t"], g, hd)
+    kx = None if decode else mk(b, cs["t"], 1, hd)
+    if kind.endswith("paged"):
+        cache = mk(cs["p"], cs["ps"], 1, hd)
+        table = _page_table(dev, b, cs["nb"], cs["p"], 22)
+    else:
+        cache, table = mk(b, cs["c"], 1, hd), None
+    pos = torch.tensor(cs["pos"], dtype=torch.int32, device=dev)
+    return q, kx, cache, table, pos
+
+
+def _latent_args(kind, q, kx, cache, table, pos) -> tuple:
+    """The positional arguments of ``kind``'s kernel wrapper and plain
+    version, the cache passed as k and v."""
+    return {"decode": (q, cache, cache, pos),
+            "decode_paged": (q, cache, cache, table, pos),
+            "prefill": (q, kx, kx, cache, cache, pos),
+            "prefill_paged": (q, kx, kx, cache, cache, table, pos)}[kind]
+
+
+def _latent_work(kind, cs, g, hd, hdv, el, mode) -> tuple:
+    """(bytes, operations) of a case: each attendable latent row (and its
+    scale) read once, q and the chunk's keys read and the output written
+    once; 2 (hd + hdv) operations a query head and key."""
+    decode = kind.startswith("decode")
+    c = cs["nb"] * cs["ps"] if "nb" in cs else cs["c"]
+    t = 1 if decode else cs["t"]
+    rows = [min(n, c - 1) + 1 if decode else min(n, c) for n in cs["pos"]]
+    pairs = sum(t * r + (0 if decode else t * (t + 1) // 2) for r in rows)
+    nbytes = sum(rows) * (hd * el + (4 if mode else 0)) \
+        + cs["b"] * t * g * 2 * (hd + hdv) + 4 * cs["b"] \
+        + (0 if decode else cs["b"] * t * hd * 2)
+    if "nb" in cs:
+        nbytes += 4 * sum(-(-r // cs["ps"]) for r in rows)
+    return nbytes, pairs * g * 2 * (hd + hdv)
+
+
+def check_latent(fns: dict, dev) -> dict:
+    """Rows 2v, 3v, 7v and 8v, each over bf16, int8 and fp8_e4m3 caches,
+    against their plain versions on the same inputs (tolerance TOL of q's
+    dtype).  ``fns[kind]`` = (kernel wrapper, plain version).  At decode a
+    row with no attendable key (lens -1) gives exactly 0.  Each main case
+    is timed beside its bounds (bytes and operations) and, over a bf16
+    contiguous cache, SDPA over the expanded and sliced tensors.  Returns
+    {row name: {mode or "bf16": timings}}."""
+    results = {}
+    for kind, (kernel, ref) in fns.items():
+        row = LATENT_ROWS[kind]
+        results[row] = {}
+        for mode in (None,) + MODES:
+            shapes = [(LATENT_CASES[kind], (LATENT["g"], LATENT["hd"],
+                                             LATENT["hdv"]),
+                       (torch.bfloat16,))]
+            shapes += [(LATENT_ODD_CASES[kind], odd,
+                        (torch.float32, torch.bfloat16))
+                       for odd in LATENT_ODD]
+            for cs, (g, hd, hdv), dts in shapes:
+                for dt in dts:
+                    q, kx, cache, table, pos = _latent_inputs(dev, dt, kind,
+                                                              cs, g, hd)
+                    kw = dict(scale=1.0 / math.sqrt(192), v_width=hdv)
+                    if mode:
+                        (cache, kw["k_scale"]), = quantized(mode, cache)
+                    args = _latent_args(kind, q, kx, cache, table, pos)
+                    got = kernel(*args, **kw)
+                    want = ref(*args, **kw)
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    label = (f"  {row} {mode or ''} G{g} hd{hd}/{hdv} "
+                             f"{str(dt)[6:]}")
+                    zero = 0.0
+                    if kind.startswith("decode"):
+                        dead = _latent_args(kind, q, kx, cache, table,
+                                            torch.full_like(pos, -1))
+                        out = kernel(*dead, **kw)
+                        torch.cuda.synchronize()
+                        zero = float(out.float().abs().max())
+                    log(f"{label}: max |err| {err:.3g} (tol {TOL[dt]:.3g})"
+                        + (f"; lens -1 (no attendable key): max |out| "
+                           f"{zero} (must be 0)"
+                           if kind.startswith("decode") else ""))
+                    if not err <= TOL[dt] or zero != 0.0:
+                        raise AssertionError(f"{row} disagrees with its "
+                                             f"plain version")
+                    if g != LATENT["g"]:
+                        continue
+                    nbytes, flops = _latent_work(
+                        kind, cs, g, hd, hdv, cache.element_size(), mode)
+                    call = lambda: kernel(*args, **kw)
+                    sdpa = None
+                    if not mode and kind == "decode":
+                        sdpa = decode_sdpa(q, cache, cache[..., :hdv], pos,
+                                           kw["scale"])
+                    elif not mode and kind == "prefill":
+                        sdpa = prefill_sdpa(q, kx, kx[..., :hdv], cache,
+                                            cache[..., :hdv], cs["pos"][0],
+                                            kw["scale"])
+                    tm = {"ms": time_ms(call),
+                          "plain_ms": time_ms(lambda: ref(*args, **kw),
+                                              iters=3),
+                          "library_ms": None if sdpa is None
+                          else library_time(sdpa), "max_abs_err": err,
+                          "bound_bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                          "bound_ops_ms": flops / PEAK_FLOPS[dt] * 1e3}
+                    tm["bound_ms"], tm["bound_by"] = bound(nbytes, flops, dt)
+                    tm.update(device_times(call, sdpa, tm["library_ms"]))
+                    log(f"{label}: {tm['ms']:.5f} ms a call by events, "
+                        f"{tm_graph(tm, 'SDPA')} in a CUDA graph; plain "
+                        f"{tm['plain_ms']:.4f} ms; bound "
+                        f"{tm['bound_ms']:.5f} ms ({tm['bound_by']}; bytes "
+                        f"{tm['bound_bytes_ms']:.5f}, operations "
+                        f"{tm['bound_ops_ms']:.5f})")
+                    results[row][mode or "bf16"] = tm
+    return results
+
+
+def check_latent_scatters(cu_ops, cu_ref, quant, dev) -> None:
+    """Rows 1, 4, 5 and 6 on MLA's one leaf, 576 wide, through the
+    one-leaf ops, bit for bit against their plain versions: the copying
+    scatters in bf16 and fp32 (a decode step's rows; the paged one also a
+    32-row chunk with masked rows), the quantizing ones in int8 and
+    fp8_e4m3 (T 1 and 32, contiguous and paged; codes and scales).  The
+    paged ones compare outside the scratch page 0."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    mk = lambda *sh: torch.randn(sh, generator=gen, device=dev)
+    b, c, f, p, ps, nb = 8, 1024, 576, 513, 16, 64
+    slots = torch.tensor([0, 5, 1023, 1024, 7, 1, 300, 2], dtype=torch.int32,
+                         device=dev)
+    table = _page_table(dev, b, nb, p, 24)
+    # every row's T <= 32 positions inside its table: no two rows of a
+    # batch row clamp onto one slot (whose last write would be the order
+    # of the kernel's blocks)
+    starts = torch.tensor([0, 3, 17, 992, 8, 9, 40, 1], dtype=torch.int32,
+                          device=dev)
+    checks = []
+    for dt in (torch.bfloat16, torch.float32):
+        cache, pool = mk(b, c, f).to(dt), mk(p, ps, f).to(dt)
+        new = mk(b, 1, f).to(dt)
+        checks.append((f"cache_update F576 {str(dt)[6:]}",
+                       cu_ops.cache_update(cache.clone(), new, slots),
+                       cu_ref.cache_update_ref(cache.clone(), new, slots)))
+        for t in (1, 32):
+            rows = mk(b, t, f).to(dt)
+            valids = torch.tensor([t, t - 1, 0, t, 1, t, t, t],
+                                  dtype=torch.int32, device=dev)
+            checks.append((f"paged_cache_update F576 T{t} {str(dt)[6:]}",
+                           cu_ops.paged_cache_update(pool.clone(), rows,
+                                                     table, starts,
+                                                     valids)[1:],
+                           cu_ref.paged_cache_update_ref(
+                               pool.clone(), rows, table, starts,
+                               valids)[1:]))
+    for mode in MODES:
+        codes, scales = quant.quantize(mk(b, c, f), mode)
+        pcodes, pscales = quant.quantize(mk(p, ps, f), mode)
+        for t in (1, 32):
+            rows = mk(b, t, f).to(torch.bfloat16)
+            got = cu_ops.quant_cache_update(codes.clone(), scales.clone(),
+                                            rows, slots, mode)
+            want = cu_ref.quant_cache_update_ref(codes.clone(),
+                                                 scales.clone(), rows,
+                                                 slots, mode)
+            checks += [(f"quant_cache_update F576 T{t} {mode} codes",
+                        u8(got[0]), u8(want[0])),
+                       (f"quant_cache_update F576 T{t} {mode} scales",
+                        got[1], want[1])]
+            valids = torch.tensor([t, t - 1, 0, t, 1, t, t, t],
+                                  dtype=torch.int32, device=dev)
+            got = cu_ops.quant_paged_cache_update(
+                pcodes.clone(), pscales.clone(), rows, table, starts, valids,
+                mode)
+            want = cu_ref.quant_paged_cache_update_ref(
+                pcodes.clone(), pscales.clone(), rows, table, starts, valids,
+                mode)
+            checks += [(f"quant_paged_cache_update F576 T{t} {mode} codes",
+                        u8(got[0][1:]), u8(want[0][1:])),
+                       (f"quant_paged_cache_update F576 T{t} {mode} scales",
+                        got[1][1:], want[1][1:])]
+    torch.cuda.synchronize()
+    bad = [name for name, a, w in checks if not torch.equal(a, w)]
+    log(f"  the one-leaf scatters at MLA's F 576: {len(checks) - len(bad)} "
+        f"of {len(checks)} bit for bit")
+    if bad:
+        raise AssertionError(f"scatters at F 576 differ: {bad}")
 
 
 # -- phase 3b: the Fig. 2 kernels against their plain versions ----------------
@@ -2714,11 +2987,17 @@ def check_once_a_layer(cfg, counts, steps, scatter, label,
                              f"layer a step")
 
 
+# Phase 5c's depth: 10 of smollm-135m's 30 layers (its widths whole), so
+# that its four serve runs, host-bound, take a third of their time.
+PHASE_5C_LAYERS = 10
+
+
 def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     others, nvml, pmt, serve_launch, prompts, bf16_tokens,
                     bf16_bytes, bf16_trace):
-    """Phase 5c: phase 5's 16 requests through full-width smollm-135m
-    once per quantized cache mode and layout (contiguous; paged, page 16,
+    """Phase 5c: phase 5's 16 requests through smollm-135m at full width
+    and PHASE_5C_LAYERS of its layers once per quantized cache mode and
+    layout (contiguous; paged, page 16,
     the default pool of 512 usable pages), each on its own engine, all
     through one PMT session (cpuutil + nvml).  ``kernels[layout]`` are
     the three quantized kernels that layout must launch; every counter
@@ -2726,12 +3005,16 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
     ones) must stay 0.  The layout's quantizing scatter must launch once a
     layer per decode step and per prefill chunk (k and v in one launch;
     contiguous chunks included).  Checks the mode in ``stats()``, the
-    footprint under 0.6x phase 5's bf16 bytes per token, and everything
+    footprint under 0.6x phase 5's bf16 bytes per token (scaled to this
+    depth), and everything
     ``served_run`` checks; traces the int8 engines as phases 5 and 5b
     trace theirs, the contiguous one beside phase 5's ``bf16_trace``
     (busy ms, launches issued, launches a chunk).  Returns each kernel's
     launches summed over both modes."""
-    cfg = configs.get_config("smollm-135m")
+    cfg = configs.get_config("smollm-135m", num_layers=PHASE_5C_LAYERS)
+    # phase 5's bf16 bytes a token, at this depth
+    bf16_bytes *= cfg.num_layers / configs.get_config(
+        "smollm-135m").num_layers
     params = model_mod.init_params(cfg, seed=0, device="cuda")
     session = pmt.Session(["cpuutil", "nvml"])
     energy = session.add_exporter(pmt.MemoryExporter())
@@ -2776,10 +3059,8 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     else "quant_cache_update"
                 check_once_a_layer(cfg, counts, steps, scatter,
                                    f"{mode} {layout}", chunks=True)
-                agree = sum(a == b for a, b in zip(out, bf16_tokens))
                 log(f"  {mode} {layout}: the bf16 kernels and the other "
-                    f"layout's stayed at 0; {agree} of {len(out)} requests "
-                    f"generate phase 5's bf16 tokens (not gated)")
+                    f"layout's stayed at 0")
                 for name, n in counts.items():
                     totals[name] = totals.get(name, 0) + n
                 if mode == "int8":
@@ -2789,7 +3070,8 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
                     traced = trace_serve(eng, cfg, Request, rng)
                     if layout == "contiguous" and None not in traced \
                             and None not in bf16_trace:
-                        log("  int8 contiguous against phase 5's bf16: busy "
+                        log(f"  int8 contiguous ({cfg.num_layers} layers) "
+                            "against phase 5's bf16 (30): busy "
                             f"{traced[0]:.1f} ms against {bf16_trace[0]:.1f}"
                             f", {traced[1]} kernel launches issued against "
                             f"{bf16_trace[1]}, {traced[2]} a prefill chunk "
@@ -2800,6 +3082,188 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
         reader.close()
     session.close()
     return totals
+
+
+# -- phase 4m: MLA's small reference -----------------------------------------------
+
+def check_small_mla(configs, model_mod, ServeEngine, Request, v_kernels):
+    """Reduced deepseek-v3 (``moe=None, mtp=False``: three dense MLA
+    layers), fp32: the engine's greedy tokens on the card (the CUDA-core
+    kernels with v's row width, fp32 q) equal the CPU's, contiguous
+    chunked, paged (page 16), blocking and int8; the v_width rows must
+    have launched on the card."""
+    cfg = dataclasses.replace(
+        configs.get_config("deepseek-v3-671b", reduced=True), moe=None,
+        mtp=False, dtype="float32")
+    params = model_mod.init_params(cfg, seed=0, device="cpu")
+    mix = [([1, 2, 3], 8), ([4, 5], 3), ([6], 1),
+           ([7, 8, 9, 10, 11, 12, 13, 14, 15], 5), ([2], 12)]
+    runs = {"chunked": dict(cache_dtype=torch.float32),
+            "paged": dict(cache_dtype=torch.float32, kv_layout="paged",
+                          kv_page_size=16),
+            "blocking": dict(cache_dtype=torch.float32, prefill_chunk=0),
+            "int8": dict(cache_dtype="int8")}
+    zero_counts(v_kernels)
+    for name, kw in runs.items():
+        kw = dict(dict(prefill_chunk=4), **kw)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                              device=dev, **kw)
+            out[dev] = [r.out for r in eng.generate(
+                [Request(prompt=p, max_new_tokens=n) for p, n in mix])]
+        log(f"  reduced deepseek-v3 fp32 {name}: greedy tokens on the card "
+            f"equal to the CPU's: {out['cuda'] == out['cpu']}")
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"MLA {name}: card tokens {out['cuda']} "
+                                 f"against the CPU's {out['cpu']}")
+    counts = read_counts(v_kernels)
+    log(f"  the v_width rows' launches in these runs: {counts}")
+    if not all(counts.values()):
+        raise AssertionError(f"a v_width row did not launch: {counts}")
+
+
+# -- phase 5m: MLA serving at full width -----------------------------------------
+# deepseek-v3-671b's first three layers, which the published model keeps
+# dense (ff 18432), at every published width: d_model 7168, 128 heads,
+# q_lora 1536, kv_lora 512, rope 64 (a 576-wide latent cache row).
+MLA_SERVE = dict(num_layers=3, moe=None, mtp=False)
+# The first decode step's logits through the kernel against the dense
+# attend, both bf16: the dense attend rounds p to bf16 before p @ v where
+# the kernel keeps p_hi + p_lo, ~2^-8 relative on each layer's attention
+# output; three layers carry it into the logits.  Gate as phase 5w's:
+# 2^-5 of the larger of max |logit| and 1.
+MLA_LOGIT_TOL = 2.0 ** -5
+
+
+def serve_mla(configs, model_mod, ServeEngine, Request, runs_kernels,
+              all_kernels, nvml, pmt, serve_launch, prompts) -> tuple:
+    """Phase 5's 16 requests (64-700 prompt tokens, 64 new tokens each)
+    through deepseek-v3's three dense MLA layers at full width (random
+    weights from seed 0, bf16), 8 slots, max_len 1024, chunk 32, through
+    one PMT session (cpuutil + nvml): contiguous over a bf16 cache, paged
+    (page 16) over bf16, cold then warm (the warm run must map prompt
+    pages from the radix tree), paged over int8, contiguous over int8.  ``runs_kernels[run]`` are the kernels a run must launch,
+    each 3 times a decode step, a prefill chunk or both (once a layer):
+    the v_width attention rows and the run's one-leaf scatter (a bf16
+    contiguous chunk's write is a slice copy); every other counter in
+    ``all_kernels`` stays 0.  Then the first decode step's logits, flash
+    against dense (MLA_LOGIT_TOL), and one decode step's device time.
+    Returns each run's launch counts and figures."""
+    t_phase = time.perf_counter()
+    from repro_torch.tree import tree_leaves
+    cfg = configs.get_config("deepseek-v3-671b", **MLA_SERVE)
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    n = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {cfg.num_layers} layers, {n / 1e9:.3f} B parameters")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    reader = nvml.NvmlReader(0)
+    rng = np.random.default_rng(3)
+    runs = {"contiguous bf16": dict(cache_dtype=torch.bfloat16),
+            "paged bf16": dict(cache_dtype=torch.bfloat16,
+                               kv_layout="paged", kv_page_size=16),
+            "paged int8": dict(cache_dtype="int8", kv_layout="paged",
+                               kv_page_size=16),
+            "contiguous int8": dict(cache_dtype="int8")}
+    launches, figures = {}, {}
+    try:
+        for label, kw in runs.items():
+            eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
+                              prefill_chunk=32, session=session, **kw)
+            eng.generate([Request(prompt=rng.integers(
+                0, cfg.vocab_size, 40).tolist(), max_new_tokens=4)
+                for _ in range(2)])
+            torch.cuda.synchronize()
+            kernels = runs_kernels[label]
+            others = {k: m for k, m in all_kernels.items()
+                      if k not in kernels}
+            zero_counts(others)
+            steps = count_steps(eng)
+            counts, _, fig = served_run(
+                eng, Request, prompts, kernels, nvml.EnergyMeter(reader),
+                label, session, energy, serve_launch)
+            stray = {k: c for k, c in read_counts(others).items() if c}
+            if stray:
+                raise AssertionError(f"{label} launched other kernels: "
+                                     f"{stray}")
+            per = {"decode": steps["decode"], "chunk": steps["chunk"],
+                   "both": steps["decode"] + steps["chunk"]}
+            for name, c in counts.items():
+                when = "chunk" if name.startswith("prefill") else \
+                    "decode" if name.startswith("decode") or (
+                        name == "cache_update") else "both"
+                want = cfg.num_layers * per[when]
+                log(f"  {label}: {name} launched {c} times, {want} = "
+                    f"{cfg.num_layers} a {when} ({steps['decode']} decode "
+                    f"steps, {steps['chunk']} chunks)")
+                if c != want:
+                    raise AssertionError(f"{label}: {name} launched {c} "
+                                         f"times, not once a layer a step")
+            if label == "paged bf16":
+                # warm: the same prompts again map their full pages from
+                # the radix tree
+                hits = eng.stats()["kv_cache"]["prefix_hit_tokens"]
+                _, out, figures["paged bf16 warm"] = served_run(
+                    eng, Request, prompts, kernels, nvml.EnergyMeter(reader),
+                    f"{label} warm", session, energy, serve_launch)
+                reused = eng.stats()["kv_cache"]["prefix_hit_tokens"] - hits
+                log(f"  {label} warm: {reused} prompt tokens reused from the "
+                    f"radix tree (must be > 0)")
+                if reused <= 0:
+                    raise AssertionError("the warm paged run reused no "
+                                         "prefix page")
+            launches[label], figures[label] = counts, fig
+            del eng
+        gate = mla_first_step(cfg, model_mod, params)
+    finally:
+        reader.close()
+        session.close()
+    figures["first_step"] = gate
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 5m took {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
+def mla_first_step(cfg, model_mod, params) -> dict:
+    """The first decode step after random 256-token prompts (8 rows, their
+    chunks of 32 through row 2v): the logits through the kernel (row 3v)
+    against the dense attend from the same cache (MLA_LOGIT_TOL), and
+    each step's device time by the profiler."""
+    sp = model_mod.serving_params(cfg, params, "cuda")
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (8, 256)), device="cuda")
+    fns = {impl: model_mod.make_serve_fns(dataclasses.replace(
+        cfg, decode_attn_impl=impl)) for impl in ("flash", "dense")}
+    caches = model_mod.init_caches(cfg, 8, 1024, torch.bfloat16, "cuda")
+    for o in range(0, 256, 32):
+        fns["flash"].prefill_chunk(sp, caches, toks[:, o:o + 32], o, 31)
+    tok1 = toks[:, -1:]
+    cur = torch.full((8,), 256, dtype=torch.int32, device="cuda")
+    out = {}
+    for impl, f in fns.items():
+        c = {"units": {k: {n: t.clone() for n, t in v.items()}
+                       for k, v in caches["units"].items()}}
+        out[impl] = f.decode(sp, c, tok1, cur).float()
+        step = lambda: f.decode(sp, c, tok1, cur)
+        out[f"{impl}_device_ms"] = step_device_ms(step)
+        out[f"{impl}_ms"] = time_ms(step, iters=10)
+    top = max(float(out["dense"].abs().max()), 1.0)
+    err = max_err(out["flash"], out["dense"])
+    same = bool((out["flash"].argmax(-1) == out["dense"].argmax(-1)).all())
+    log(f"  first decode step (8 rows at 256): logits through the kernel "
+        f"against the dense attend: max |err| {err:.4g} (gate "
+        f"{MLA_LOGIT_TOL * top:.4g}: 2^-5 of max(max |logit|, 1) = "
+        f"{top:.4g}); argmax equal {same}")
+    log(f"  one decode step: flash {out['flash_device_ms']:.4f} ms of device "
+        f"time ({out['flash_ms']:.4f} ms by events, host in the loop), dense "
+        f"{out['dense_device_ms']:.4f} ms ({out['dense_ms']:.4f})")
+    if not err <= MLA_LOGIT_TOL * top:
+        raise AssertionError("MLA's flash decode logits disagree with the "
+                             "dense attend's")
+    return {"max_abs_err": err, "gate": MLA_LOGIT_TOL * top,
+            "argmax_equal": same,
+            **{k: v for k, v in out.items() if k.endswith("ms")}}
 
 
 # -- phase 5w: the serve baselines at full width ----------------------------------
@@ -3538,6 +4002,7 @@ def main() -> int:
     from repro_torch.core.backends import nvml
     from repro_torch.kernels import build, quant
     from repro_torch.kernels.cache_update import kernel as cu_kernel
+    from repro_torch.kernels.cache_update import ops as cu_ops
     from repro_torch.kernels.cache_update import ref as cu_ref
     from repro_torch.kernels.decode_attention import kernel as da_kernel
     from repro_torch.kernels.decode_attention import ref as da_ref
@@ -3624,6 +4089,20 @@ def main() -> int:
                 f"{t['plain_ms']:.4f} ms, library none, bound "
                 f"{t['bound_ms']:.6f} ms ({t['bound_by']})")
 
+    log(f"[3v] MLA's aliased latent cache: rows 2v, 3v, 7v, 8v (v_width) "
+        f"over bf16, int8 and fp8_e4m3 caches, and the one-leaf scatters "
+        f"at F 576 {elapsed()}")
+    latent_timings = check_latent({
+        "decode": (da_kernel.decode_attention_cuda,
+                   da_ref.decode_attention_ref),
+        "prefill": (pa_kernel.prefill_attention_cuda,
+                    pa_ref.prefill_attention_ref),
+        "decode_paged": (da_kernel.decode_attention_paged_cuda,
+                         da_ref.decode_attention_paged_ref),
+        "prefill_paged": (pa_kernel.prefill_attention_paged_cuda,
+                          pa_ref.prefill_attention_paged_ref)}, dev)
+    check_latent_scatters(cu_ops, cu_ref, quant, dev)
+
     log(f"[3b] Fig. 2 kernels against their plain versions {elapsed()}")
     timings.update({
         "fma32": check_fma32(fma_kernel, fma_ref, dev),
@@ -3655,6 +4134,14 @@ def main() -> int:
         f"{elapsed()}")
     check_small_reference(configs, model_mod, ServeEngine, Request)
     check_small_quantized(configs, model_mod, ServeEngine, Request)
+    log(f"[4m] small reference, MLA: reduced deepseek-v3 (moe None, mtp "
+        f"off) fp32, card vs CPU {elapsed()}")
+    check_small_mla(configs, model_mod, ServeEngine, Request, {
+        "decode_attention v": da_kernel, "prefill_attention v": pa_kernel,
+        "decode_attention_paged v": da_kernel,
+        "prefill_attention_paged v": pa_kernel,
+        "decode_attention v quant": da_kernel,
+        "prefill_attention v quant": pa_kernel})
     log(f"[4w] small reference, the serve baselines: blocking, waves, "
         f"dense decode, sampling {elapsed()}")
     check_small_baselines(configs, model_mod, ServeEngine, Request,
@@ -3678,10 +4165,10 @@ def main() -> int:
                                 paged_kernels, nvml, pmt, serve_launch,
                                 kernels))
 
-    log(f"[5c] serve full-width smollm-135m with quantized KV caches: "
-        f"phase 5's 16 requests, int8 and fp8_e4m3, contiguous and paged "
-        f"(page 16), 8 slots, max_len 1024, chunk 32, bf16 weights "
-        f"{elapsed()}")
+    log(f"[5c] serve smollm-135m at full width, {PHASE_5C_LAYERS} of its "
+        f"layers, with quantized KV caches: phase 5's 16 requests, int8 and "
+        f"fp8_e4m3, contiguous and paged (page 16), 8 slots, max_len 1024, "
+        f"chunk 32, bf16 weights {elapsed()}")
     quant_kernels = {
         "contiguous": {"quant_cache_update": cu_kernel,
                        "prefill_attention quant": pa_kernel,
@@ -3697,6 +4184,29 @@ def main() -> int:
         configs, model_mod, ServeEngine, Request, quant_kernels, others,
         nvml, pmt, serve_launch, prompts, bf16_tokens, bf16_bytes,
         bf16_trace)
+
+    log(f"[5m] serve deepseek-v3's three dense MLA layers at full width: "
+        f"phase 5's 16 requests, 8 slots, max_len 1024, chunk 32, bf16 "
+        f"weights; contiguous and paged (page 16) over bf16, paged and "
+        f"contiguous over int8 {elapsed()}")
+    mla_runs = {
+        "contiguous bf16": {"decode_attention v": da_kernel,
+                            "prefill_attention v": pa_kernel,
+                            "cache_update": cu_kernel},
+        "paged bf16": {"decode_attention_paged v": da_kernel,
+                       "prefill_attention_paged v": pa_kernel,
+                       "paged_cache_update": cu_kernel},
+        "paged int8": {"decode_attention_paged v quant": da_kernel,
+                       "prefill_attention_paged v quant": pa_kernel,
+                       "quant_paged_cache_update": cu_kernel},
+        "contiguous int8": {"decode_attention v quant": da_kernel,
+                            "prefill_attention v quant": pa_kernel,
+                            "quant_cache_update": cu_kernel}}
+    mla_all = dict(all_kernels, **{k: m for run in mla_runs.values()
+                                   for k, m in run.items()})
+    mla_launches, mla_figures = serve_mla(
+        configs, model_mod, ServeEngine, Request, mla_runs, mla_all, nvml,
+        pmt, serve_launch, prompts)
 
     log(f"[5w] serve full-width smollm-135m's baselines: phase 5's 16 "
         f"requests, blocking (prefill_chunk 0) then waves of 8 over a bf16 "
@@ -3791,8 +4301,34 @@ def main() -> int:
                                 if k in quant_timings[name][m]}
                             for m in MODES}
         rows.append(row)
+    # the one-leaf scatters' launches on phase 5m's MLA runs
+    for row in rows:
+        run = {"cache_update": "contiguous bf16",
+               "paged_cache_update": "paged bf16",
+               "quant_cache_update": "contiguous int8",
+               "quant_paged_cache_update": "paged int8"}.get(row["name"])
+        if run:
+            row["mla_launches"] = mla_launches[run][row["name"]]
+    # rows 2v, 3v, 7v, 8v: launches on phase 5m's bf16 runs (quant_launches:
+    # its int8 runs), times at the slice's shapes, bf16 with int8's and
+    # fp8_e4m3's beside
+    extra = ("graph_ms", "library_graph_ms", "bound_bytes_ms",
+             "bound_ops_ms")
+    for name, by_mode in latent_timings.items():
+        source, replaces = KERNEL_INFO[name]
+        layout = "paged" if "paged" in name else "contiguous"
+        bf = by_mode["bf16"]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": mla_launches[f"{layout} bf16"][name],
+            **{k: bf[k] for k in keys + extra if k in bf},
+            "quant_launches": mla_launches[f"{layout} int8"][f"{name} quant"],
+            "quant": {m: {k: by_mode[m][k] for k in keys + extra
+                          if k in by_mode[m]} for m in MODES}})
     log(f"[7] results {elapsed()}")
-    log(json.dumps({"serve_baselines": baselines, "chunked": chunked}))
+    log(json.dumps({"serve_baselines": baselines, "chunked": chunked,
+                    "mla": mla_figures}))
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Time design variants of the DEGRIDDER, JACOBI2D, tensor-core
-chunked-prefill and KV-scatter kernels on one card.
+chunked-prefill, latent-attention and KV-scatter kernels on one card.
 
     python3 kernel_variants.py [NAME_PREFIX ...]
 
 Each variant is a shipped source of ``src/repro_torch/kernels/csrc``
 (``gridder.cu``, ``jacobi2d.cu``, ``prefill_attention.cu``,
-``cache_update.cu``) with some of
+``cache_update.cu``, ``latent_attention.cu``) with some of
 its ``constexpr int`` constants set to other values, or with a passage
 replaced by another design of the same function, so the sources carry no
 knobs.  Every variant is built alone (``build.NVCC_FLAGS``, one ``nvcc``
@@ -28,7 +28,12 @@ loop) of one call writing a layer's bf16 k and v (3 kv heads of 64,
 checked bit for bit) at decode (8 rows into 1024 slots), the paged
 decode (every row valid: ``valids`` None) and the paged chunk (B 8, T
 32, masked rows), beside an empty kernel (``csrc/empty.cu``) on one
-block of 32 threads and on the pair's grids.  ROUNDS
+block of 32 threads and on the pair's grids; the latent-attention
+kernel (rows 2v, 3v, 8v; ``LATENT_FULL_SCORE``, key tiles of 16, one
+row tile a block; its ring of three tiles is the loop's, which loads
+tile i + 2 while it computes tile i)
+by ``graph_ms`` at ``chip_smoke.LATENT_CASES``' decode, chunk and paged
+chunk in bf16, checked within ``chip_smoke.TOL[bf16]``.  ROUNDS
 rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
 whose names start with one of them.  Prints the card's name and power
@@ -205,6 +210,123 @@ PDL = (
 COPY_ENTRIES = ("pmt_cache_update", "pmt_paged_cache_update")
 # name -> (source, entry point(s), {constant: value}[, ((old, new), ...)]);
 # {} and no passages is the shipped design
+# The latent-attention kernel with every warp of a row tile forming the
+# whole score (q fragments read from shared memory a step at a time) in
+# place of a quarter of its depth and the partials' meeting in shared
+# memory: four times the score's products, one barrier a tile fewer.
+LATENT_FULL_SCORE = (
+    ("""#pragma unroll
+      for (int j = 0; j < NKQ; ++j) {
+        const int kk = sl * NKQ + j;
+        if (kk >= KSTEPS || kk * 16 >= hd) break;
+#pragma unroll
+        for (int np = 0; np < kKT / 16; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(sc[2 * np], qf[j], kb[0], kb[1]);
+          mma_bf16_16816(sc[2 * np + 1], qf[j], kb[2], kb[3]);
+        }
+      }""", """#pragma unroll 4
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        if (kk * 16 >= hd) break;
+        uint32_t qa[4];
+        ldmatrix_x4(qa, qs + (rt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + kk * 16 +
+                            (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < kKT / 16; ++np) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16_16816(sc[2 * np], qa, kb[0], kb[1]);
+          mma_bf16_16816(sc[2 * np + 1], qa, kb[2], kb[3]);
+        }
+      }"""),
+    ("""#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xmine[(j * 4 + e) * 32 + lane] = sc[j][e];
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float s = 0.f;
+#pragma unroll
+          for (int w = 0; w < kSlices; ++w) s += xtile[w * kXch + (j * 4 + e) * 32 + lane];
+          sc[j][e] = s;
+        }""", ""),
+)
+# The latent-attention kernel with each bf16 key tile moved by one bulk
+# copy (cp.async.bulk, the TMA's 1-D form) a row, completing on an
+# mbarrier a ring slot, in place of hd / 8 16-byte cp.async a row: 32
+# copies a tile where there were 2304 at hd 576.  A tile's rows past its
+# keys keep a finite earlier row (the ring is zeroed once), which its
+# masks weigh 0.
+LATENT_BULK = (
+    ("""// Shared memory of a block: q (16 x row tiles rows) | the key ring""",
+     """__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared memory of a block: q (16 x row tiles rows) | the key ring"""),
+    ("""  __shared__ int is_last;
+  const int tid = threadIdx.x, nthreads = blockDim.x;""",
+     """  __shared__ int is_last;
+  __shared__ __align__(8) uint64_t full[kStages];
+  const int tid = threadIdx.x, nthreads = blockDim.x;"""),
+    ("""    // zero padding: columns [hd, DK) of the q and key rows (and code rows)
+    for (int r = tid; r < RB + kStages * kKT; r += nthreads)
+      for (int d = hd; d < DK; ++d) qs[(size_t)r * P + d] = zero;""",
+     """    for (int r = tid; r < RB + kStages * kKT; r += nthreads)
+      for (int d = r < RB ? hd : 0; d < DK; ++d) qs[(size_t)r * P + d] = zero;
+    if (tid == 0) {
+      for (int st = 0; st < kStages; ++st) mbar_init(smem_u32(&full[st]), 1);
+      mbar_init_fence();
+    }
+    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+    __syncthreads();"""),
+    ("""      const bf16* kt = (cache ? reinterpret_cast<const bf16*>(kc) : kx) + (size_t)h * hd;
+      bf16* kd = ks + buf * kKT * P;
+      if (vec) copy_rows(kd, kt, P, hd / 8);
+      else copy_elems(kd, kt, P, zero);
+      cp_async_commit();
+    };""",
+     """      const bf16* kt = (cache ? reinterpret_cast<const bf16*>(kc) : kx) + (size_t)h * hd;
+      bf16* kd = ks + buf * kKT * P;
+      const uint32_t bar = smem_u32(&full[buf]);
+      if (vec) {
+        if (tid < 32) {
+          if (tid == 0) mbar_arrive_expect_tx(bar, n * hd * 2);
+          __syncwarp();
+          if (tid < n) bulk_copy(kd + tid * P, kt + row_of(tid) * kstride, hd * 2, bar);
+        }
+      } else {
+        copy_elems(kd, kt, P, zero);
+        if (tid == 0) mbar_arrive(bar);
+      }
+      cp_async_commit();
+    };"""),
+    ("""            cp_async4(sd + r, r < n ? ksc + row_of(r) * KVH + h : ksc, r < n ? 4 : 0);
+          cp_async_commit();
+          return;""",
+     """            cp_async4(sd + r, r < n ? ksc + row_of(r) * KVH + h : ksc, r < n ? 4 : 0);
+          cp_async_commit();
+          if (tid == 0) mbar_arrive(smem_u32(&full[buf]));
+          return;"""),
+    ("""      // tile i is in for every thread; every warp is done with tile i - 1
+      // (its slot, which tile i + 2 takes, and the partial scores)
+      __syncthreads();""",
+     """      mbar_wait(smem_u32(&full[i % kStages]), (i / kStages) & 1);
+      asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+      __syncthreads();"""),
+)
+LATENT_ENTRY = "pmt_latent_attention"
+
 VARIANTS = {
     "degridder": ("gridder.cu", "pmt_degridder", {}),
     "degridder 64 threads": ("gridder.cu", "pmt_degridder",
@@ -260,6 +382,18 @@ VARIANTS = {
     "scatter rows of units": ("cache_update.cu", COPY_ENTRIES, {},
                               ROWS_OF_UNITS),
     "scatter PDL": ("cache_update.cu", COPY_ENTRIES, {}, PDL),
+    "latent": ("latent_attention.cu", LATENT_ENTRY, {}),
+    "latent kKT 16": ("latent_attention.cu", LATENT_ENTRY, {"kKT": 16}),
+    "latent one row tile": ("latent_attention.cu", LATENT_ENTRY,
+                            {"kMaxRowTiles": 1}),
+    "latent one row tile kKT 16": ("latent_attention.cu", LATENT_ENTRY,
+                                   {"kMaxRowTiles": 1, "kKT": 16}),
+    "latent full score": ("latent_attention.cu", LATENT_ENTRY, {},
+                          LATENT_FULL_SCORE),
+    "latent bulk copies": ("latent_attention.cu", LATENT_ENTRY, {},
+                           LATENT_BULK),
+    "latent bulk copies kKT 16": ("latent_attention.cu", LATENT_ENTRY,
+                                  {"kKT": 16}, LATENT_BULK),
 }
 
 
@@ -354,6 +488,58 @@ def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
                 kw.update(k_scale=ks, v_scale=vs)
             checks[f"{name}, {cache}"] = (out, pa_ref.prefill_attention_ref(
                 q, kx, vx, k, v, offs, **kw))
+    return calls, checks
+
+
+# Rows 3v, 2v and 8v's cases (chip_smoke.LATENT_CASES) in bf16.
+LATENT_TIMED = ("decode", "prefill", "prefill_paged")
+
+
+def latent_calls(smoke, la, refs, dev, stream, libs) -> tuple:
+    """{call name: call} of each latent-attention variant at rows 3v, 2v
+    and 8v's cases (bf16 q over a bf16 cache; the variants with one row
+    tile launch with one), and {call name: (got, want)} to check once
+    after a first call."""
+    import torch
+    calls, checks = {}, {}
+    g, hd, hdv = (smoke.LATENT[k] for k in ("g", "hd", "hdv"))
+    for kind in LATENT_TIMED:
+        cs = smoke.LATENT_CASES[kind]
+        q, kx, cache, table, pos = smoke._latent_inputs(
+            dev, torch.bfloat16, kind, cs, g, hd)
+        decode = kind.startswith("decode")
+        t = 1 if decode else cs["t"]
+        b = cs["b"]
+        c = cs["nb"] * cs["ps"] if table is not None else cs["c"]
+        want = refs[kind](*smoke._latent_args(kind, q, kx, cache, table, pos),
+                          scale=1.0 / math.sqrt(192), v_width=hdv)
+        for name, lib in libs.items():
+            if not name.startswith("latent"):
+                continue
+            tiles = 1 if "one row tile" in name else la.row_tiles(t * g)
+            groups = b * math.ceil(t * g / (16 * tiles))
+            nsplit = la.split_count(groups, c, 132)
+            tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+            ws = torch.empty(max(groups * nsplit * 16 * tiles * (hdv + 2), 1),
+                             device=dev)
+            out = torch.empty((b, 1, t, g, hdv), dtype=torch.bfloat16,
+                              device=dev)
+            qq = q.view(b, 1, t, g, hd)
+            key = f"{name}, {kind}"
+            calls[key] = (
+                lambda lib=lib, out=out, ws=ws, tickets=tickets, qq=qq,
+                kx=kx, cache=cache, table=table, pos=pos, tiles=tiles,
+                nsplit=nsplit, decode=decode, t=t, b=b, c=c:
+                lib.pmt_latent_attention(
+                    qq.data_ptr(), None if kx is None else kx.data_ptr(),
+                    cache.data_ptr(), None, pos.data_ptr(),
+                    None if table is None else table.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, t,
+                    c, 1 if table is None else table.shape[1],
+                    c if table is None else cache.shape[1], 1, g, hd, hdv,
+                    1.0 / math.sqrt(192), int(decode), int(table is not None),
+                    1, nsplit, tiles, stream()))
+            checks[key] = (out, want.view(b, 1, t, g, hdv))
     return calls, checks
 
 
@@ -572,6 +758,23 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with the plain version")
     calls.update(pcalls)
     timers.update({name: smoke.graph_ms for name in pcalls})
+    from repro_torch.kernels import latent_attention
+    from repro_torch.kernels.decode_attention import ref as da_ref
+    lcalls, checks = latent_calls(smoke, latent_attention, {
+        "decode": da_ref.decode_attention_ref,
+        "prefill": pa_ref.prefill_attention_ref,
+        "prefill_paged": pa_ref.prefill_attention_paged_ref}, dev, stream,
+        libs)
+    for name, (got, want) in checks.items():
+        if lcalls[name]():
+            raise RuntimeError(f"{name}: the launch failed")
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        print(f"{name}: max |err| {err:.3g}", flush=True)
+        if not err <= smoke.TOL[torch.bfloat16]:
+            raise AssertionError(f"{name} disagrees with the plain version")
+    calls.update(lcalls)
+    timers.update({name: smoke.graph_ms for name in lcalls})
     qcalls, checks = quant_calls(smoke, cu_ref, quant, dev, stream, libs)
     for name, (got, want) in checks.items():
         if qcalls[name]():

@@ -7,7 +7,8 @@ returns the port's tree of tensors: the same names, the same values.
 The JAX package stacks its units on a leading layer axis only when
 there is more than one; the port always stacks, so a single unit gains
 the axis here.  Tied embeddings need nothing: both trees keep the one
-``embed/embedding`` matrix.  This module imports no JAX: the caller
+``embed/embedding`` matrix; MLA's weights and deepseek-v3's ``mtp``
+subtree (an unstacked block) carry over leaf for leaf.  This module imports no JAX: the caller
 hands it numpy arrays.
 
 ``train_state_from_numpy`` does the same for a JAX ``TrainState``

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the full published config and
 ``get_config(name, reduced=True)`` the reduced test variant.  The port
-serves smollm-135m so far; every other arch of the JAX package is named
-here with the slice of the port that brings it (see ROADMAP.md), and
-asking for one raises.
+serves smollm-135m and deepseek-v3-671b's MLA layers (its MoE layers
+raise when a model is built, see ``models.blocks.check_supported``);
+every other arch of the JAX package is named here with the slice of the
+port that brings it (see ROADMAP.md), and asking for one raises.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "smollm-135m": "smollm_135m",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 
 # Arch -> the later slice of the port that brings it.
@@ -22,7 +24,6 @@ _LATER = {
     "gemma2-27b": "the other-archs slice (ring windows, softcap, post norms)",
     "qwen3-0.6b": "the other-archs slice (qk_norm)",
     "olmo-1b": "the other-archs slice (non-parametric layernorm)",
-    "deepseek-v3-671b": "the other-archs slice (MLA with v_width, MoE)",
     "kimi-k2-1t-a32b": "the other-archs slice (MLA, MoE)",
     "qwen2-vl-72b": "the other-archs slice (M-RoPE, patch embeds)",
     "jamba-v0.1-52b": "the other-archs slice (mamba, MoE)",

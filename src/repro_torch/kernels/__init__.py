@@ -24,13 +24,6 @@ def on_card(*tensors: torch.Tensor) -> bool:
                      f"CPU, got {sorted(kinds)}")
 
 
-def refuse_later_slices(v_width) -> None:
-    """Raise for the attention option of a later slice of the port:
-    ``v_width`` (MLA's aliased latent cache)."""
-    if v_width is not None:
-        raise NotImplementedError("v_width comes with the MLA slice")
-
-
 def scale_tensors(k_scale, v_scale) -> list:
     """The row-scale tensors of a quantized cache that were given (for
     ``on_card``); ``v_scale`` alone, without ``k_scale``, raises."""

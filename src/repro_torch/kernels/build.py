@@ -44,23 +44,28 @@ SIGNATURES = {
                                      _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _P],
     "pmt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P],
+                             _I, _I, _I, _I, _I, _F, _I, _F, _I, _I, _I,
+                             _P],
     "pmt_decode_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _F,
-                                   _I, _I, _I, _P],
+                                   _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                                   _F, _I, _I, _I, _P],
     "pmt_decode_smem_bytes": [_I, _I],
     "pmt_prefill_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _I, _I, _F, _I, _I,
-                              _P],
+                              _I, _I, _I, _I, _I, _I, _F, _I, _I, _F, _I,
+                              _I, _P],
     "pmt_prefill_attention_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                                    _F, _I, _I, _P],
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                    _I, _F, _I, _I, _P],
     "pmt_prefill_attention_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
                                  _F, _I, _I, _I, _P],
     "pmt_prefill_attention_paged_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _F, _I, _F, _I, _I, _I, _P],
+    "pmt_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+                             _I, _I, _P],
+    "pmt_latent_smem_bytes": [_I, _I, _I, _I],
     "pmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                             _F, _I, _P],
     "pmt_flash_smem_bytes": [_I],

@@ -8,10 +8,12 @@ for (P, page_size, *rest) page pools addressed through a page table.
 ``quant_cache_update`` and ``quant_paged_cache_update`` are their
 quantizing twins for int8 / fp8_e4m3 caches: each (row, head) vector is
 quantized to codes plus one float32 scale, both scattered in place; the
-contiguous one also takes a prefill chunk's T rows.  The ``_pair``
-versions of all four write a layer's k and v leaves in one kernel
-launch, which is what the serve path calls; the paged ones take
-``valids=None`` for every row valid (a decode step's write).
+contiguous one also takes a prefill chunk's T rows.  The one-leaf ops
+write MLA's one ``[latent | rope]`` leaf a layer (``models/mla.py``:
+(B, C, 576) rows at deepseek-v3's full width, codes with (B, C) scales
+quantized); the ``_pair`` versions of all four write a GQA layer's k and
+v leaves in one kernel launch (``models/attention.py``); the paged pairs
+take ``valids=None`` for every row valid (a decode step's write).
 The JAX package returned a new buffer (the Pallas call aliased its
 input); here the caller's cache itself is updated, and also returned.
 """
@@ -57,7 +59,8 @@ def _flat(cache: torch.Tensor) -> torch.Tensor:
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
                  slots: torch.Tensor) -> torch.Tensor:
-    """Write ``new[b, 0]`` at ``cache[b, slots[b]]`` for every batch row.
+    """Write ``new[b, 0]`` at ``cache[b, slots[b]]`` for every batch row
+    (row 1; MLA's decode step writes its latent leaf with it).
 
     cache: (B, C, *rest)   new: (B, 1, *rest)   slots: (B,) int.
     """
@@ -87,7 +90,8 @@ def paged_cache_update(pool: torch.Tensor, new: torch.Tensor,
     pool: (P, page_size, *rest) physical pages shared by all rows.
     new: (B, T, *rest)   page_table: (B, NB) int   starts/valids: (B,).
     One call covers both paged write paths: decode (T == 1) and chunked
-    prefill (T == chunk).  Masked rows never touch a real page: the
+    prefill (T == chunk); MLA's paged layers write their latent pool
+    with it (row 4).  Masked rows never touch a real page: the
     plain version routes them to the scratch page 0, the kernel skips
     them (page 0's content is undefined by contract).
     """
@@ -138,6 +142,8 @@ def quant_cache_update(cache: torch.Tensor, scales: torch.Tensor,
     cache: (B, C, *rest) codes of ``mode``   scales: (B, C, *rest[:-1])
     float32   new: (B, T, *rest) full precision, T <= C (1 at decode)
     slots: (B,) int.  Returns ``(cache, scales)``, updated in place.
+    MLA's quantized latent leaf takes it (row 5) at every decode step, at
+    a contiguous chunk and for a whole prompt at offset 0.
     """
     if not on_card(cache, scales, new, slots):
         return quant_cache_update_ref(cache, scales, new, slots, mode)
@@ -173,7 +179,8 @@ def quant_paged_cache_update(pool: torch.Tensor, scales: torch.Tensor,
     pool: (P, page_size, *rest) codes   scales: (P, page_size, *rest[:-1])
     float32, paged like ``pool``   new: (B, T, *rest)   page_table:
     (B, NB) int   starts/valids: (B,).  Masked rows never touch a real
-    page (as ``paged_cache_update``).  Returns ``(pool, scales)``.
+    page (as ``paged_cache_update``); MLA's quantized paged layers write
+    their latent pool with it (row 6).  Returns ``(pool, scales)``.
     """
     if not on_card(pool, scales, new, page_table, starts, valids):
         return quant_paged_cache_update_ref(pool, scales, new, page_table,

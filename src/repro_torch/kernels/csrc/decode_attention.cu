@@ -78,7 +78,11 @@
 //    the same registers.
 //
 // Head widths: D = 64, 128, 256 or 512 (the smallest that holds hd and
-// hdv; lanes past a row's width hold zeros).  A block takes 4 query heads
+// hdv; lanes past a row's width hold zeros).  v's rows may be wider than
+// hdv (vld elements, the values their first hdv): MLA's aliased latent
+// cache passes k as v, vld = hd; such inputs with bf16 q take the
+// tensor-core latent_attention.cu instead, this kernel the others (fp32
+// q, a window, a ring, a softcap) up to width 512.  A block takes 4 query heads
 // (2 at D 512, where a lane holds two chunks of a row); G is split over
 // blocks of that many, so G does not enter the shared memory or the
 // registers.
@@ -259,8 +263,8 @@ decode_attention_kernel(const void* __restrict__ q, const TKV* __restrict__ k,
                         const float* __restrict__ vsc, const int* __restrict__ lens,
                         const int* __restrict__ page_table, void* __restrict__ out,
                         float* __restrict__ ws, int* __restrict__ tickets, int C, int NB, int ps,
-                        int KVH, int G, int hd, int hdv, float scale, int ring, int window,
-                        float softcap, int q_bf16, int nsplit) {
+                        int KVH, int G, int hd, int hdv, int vld, float scale, int ring,
+                        int window, float softcap, int q_bf16, int nsplit) {
   using S = Shape<D>;
   constexpr int H = S::kHeads, L = S::kLanes, CH = S::kChunks;
   constexpr int NG = kWarps * S::kGroups;  // key groups a block
@@ -311,9 +315,9 @@ decode_attention_kernel(const void* __restrict__ q, const TKV* __restrict__ k,
       for (int e = 0; e < kEl; ++e) acc[g][c][e] = 0.f;
   }
 
-  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * hdv;
+  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * vld;
   const TKV* kh = k + (size_t)h * hd;
-  const TKV* vh = v + (size_t)h * hdv;
+  const TKV* vh = v + (size_t)h * vld;
   const int* pt = kPaged ? page_table + (size_t)b * NB : nullptr;
   const bool kvec = chunks_ok(kh, hd, kstride), vvec = chunks_ok(vh, hdv, vstride);
   const float inv_cap = softcap > 0.f ? 1.f / softcap : 0.f;
@@ -601,7 +605,7 @@ decode_attention_kernel(const void* __restrict__ q, const TKV* __restrict__ k,
 struct Args {
   const void *q, *k, *v, *ksc, *vsc, *lens, *page_table;
   void *out, *ws, *tickets;
-  int B, C, NB, ps, KVH, G, hd, hdv;
+  int B, C, NB, ps, KVH, G, hd, hdv, vld;
   float scale;
   int ring, window;
   float softcap;
@@ -618,7 +622,7 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const float*>(a.ksc), static_cast<const float*>(a.vsc),
       static_cast<const int*>(a.lens), static_cast<const int*>(a.page_table), a.out,
       static_cast<float*>(a.ws), static_cast<int*>(a.tickets), a.C, a.NB, a.ps, a.KVH, a.G,
-      a.hd, a.hdv, a.scale, a.ring, a.window, a.softcap, a.q_bf16, a.nsplit);
+      a.hd, a.hdv, a.vld, a.scale, a.ring, a.window, a.softcap, a.q_bf16, a.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -637,6 +641,7 @@ template <bool kPaged>
 int dispatch(Args a, int q_dtype, int kv_dtype, void* stream) {
   if (a.B == 0 || a.KVH == 0 || a.G == 0) return 0;
   if (q_dtype != 0 && q_dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.vld < a.hdv) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype >= 2 && (a.ksc == nullptr || a.vsc == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);  // codes need their scales
   if (a.nsplit < 1 || a.nsplit > kMaxSplits || a.tickets == nullptr ||
@@ -655,8 +660,8 @@ int dispatch(Args a, int q_dtype, int kv_dtype, void* stream) {
 
 }  // namespace
 
-// q, out: (B, KVH, G, hd/hdv) of q_dtype; k, v: (B, C, KVH, hd/hdv) of
-// kv_dtype; k_scale, v_scale: (B, C, KVH) float32 for the code types,
+// q, out: (B, KVH, G, hd/hdv) of q_dtype; k, v: (B, C, KVH, hd/vld) of
+// kv_dtype (the values the first hdv <= vld lanes of v's rows); k_scale, v_scale: (B, C, KVH) float32 for the code types,
 // else ignored (may be null); lens: (B,) int32.  dtype codes: 0 =
 // float32, 1 = bfloat16, 2 = int8, 3 = fp8_e4m3 (q: 0 or 1).  softcap
 // <= 0 means no softcap.  ws: the splits' partials, B * KVH *
@@ -668,16 +673,16 @@ int dispatch(Args a, int q_dtype, int kv_dtype, void* stream) {
 extern "C" int pmt_decode_attention(const void* q, const void* k, const void* v,
                                     const void* k_scale, const void* v_scale,
                                     const void* lens, void* out, void* ws, void* tickets,
-                                    int B, int C, int KVH, int G, int hd, int hdv, float scale,
-                                    int ring, float softcap, int q_dtype, int kv_dtype,
-                                    int nsplit, void* stream) {
-  const Args a{q,  k,   v,  k_scale, v_scale, lens,  nullptr, out,     ws, tickets, B,
-               C,  1,   C,  KVH,     G,       hd,    hdv,     scale,   ring, 0,     softcap,
-               0,  nsplit};
+                                    int B, int C, int KVH, int G, int hd, int hdv, int vld,
+                                    float scale, int ring, float softcap, int q_dtype,
+                                    int kv_dtype, int nsplit, void* stream) {
+  const Args a{q,  k,   v,  k_scale, v_scale, lens,  nullptr, out,   ws,   tickets, B,
+               C,  1,   C,  KVH,     G,       hd,    hdv,     vld,   scale, ring,   0,
+               softcap, 0, nsplit};
   return dispatch<false>(a, q_dtype, kv_dtype, stream);
 }
 
-// q, out as above; k_pool, v_pool: (P, ps, KVH, hd/hdv) of kv_dtype;
+// q, out as above; k_pool, v_pool: (P, ps, KVH, hd/vld) of kv_dtype;
 // k_scale, v_scale: (P, ps, KVH) float32 pools for the code types;
 // page_table: (B, NB) int32, every entry a page of the pools; lens: (B,)
 // int32.  window <= 0 and softcap <= 0 mean none.  ws, tickets and
@@ -687,11 +692,11 @@ extern "C" int pmt_decode_attention_paged(const void* q, const void* k_pool,
                                           const void* v_scale, const void* page_table,
                                           const void* lens, void* out, void* ws, void* tickets,
                                           int B, int NB, int ps, int KVH, int G, int hd, int hdv,
-                                          float scale, int window, float softcap, int q_dtype,
-                                          int kv_dtype, int nsplit, void* stream) {
+                                          int vld, float scale, int window, float softcap,
+                                          int q_dtype, int kv_dtype, int nsplit, void* stream) {
   const Args a{q,  k_pool, v_pool, k_scale, v_scale, lens,   page_table, out,   ws,
                tickets, B,  NB * ps, NB,   ps,      KVH,    G,          hd,    hdv,
-               scale,   0,  window,  softcap, 0,    nsplit};
+               vld,     scale, 0,   window, softcap, 0,     nsplit};
   return dispatch<true>(a, q_dtype, kv_dtype, stream);
 }
 

@@ -126,8 +126,15 @@
 // The fp32 q instantiations keep the CUDA-core loop: their fp32 values
 // would be rounded by a bf16 operand.  So do bf16 heads wider than 128,
 // whose fragments would not fit the registers.
+//
+// The CUDA-core loop also takes v rows wider than hdv (vld elements, the
+// values their first hdv): MLA's aliased latent cache passes k as v
+// (vld = hd).  Such inputs with bf16 q take the tensor-core
+// latent_attention.cu instead; this loop the others (fp32 q, a window,
+// a ring, a softcap) where they fit its shared memory.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -154,7 +161,7 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
                          const TC* __restrict__ vc, const float* __restrict__ ksc,
                          const float* __restrict__ vsc, const int* __restrict__ offs,
                          const int* __restrict__ page_table, TQ* __restrict__ out, int T,
-                         int C, int NB, int ps, int KVH, int G, int hd, int hdv,
+                         int C, int NB, int ps, int KVH, int G, int hd, int hdv, int vld,
                          float scale, int ring, int window, float softcap) {
   extern __shared__ float smem[];
   __shared__ int rows_[kTile];  // physical rows of a paged tile's keys
@@ -230,9 +237,9 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
   // for every query of the chunk (queries sit at off + t, t >= 0).
   const int limit = min(off, C);
   const int start = (!ring && window > 0) ? max(off - (window - 1), 0) : 0;
-  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * hdv;
+  const size_t kstride = (size_t)KVH * hd, vstride = (size_t)KVH * vld;
   const TC* kch = kc + (size_t)h * hd;
-  const TC* vch = vc + (size_t)h * hdv;
+  const TC* vch = vc + (size_t)h * vld;
   const int* pt = kPaged ? page_table + (size_t)b * NB : nullptr;
   const bool kvec = pmt::rows_vec_ok(kch, hd, kstride);
   const bool vvec = pmt::rows_vec_ok(vch, hdv, vstride);
@@ -268,12 +275,12 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
   // past it are masked for every row of the block).
   const int t_max = (row0 + rows - 1) / G;
   const TQ* kxb = kx + (size_t)b * T * KVH * hd + (size_t)h * hd;
-  const TQ* vxb = vx + (size_t)b * T * KVH * hdv + (size_t)h * hdv;
+  const TQ* vxb = vx + (size_t)b * T * KVH * vld + (size_t)h * vld;
   for (int lo = 0; lo <= t_max; lo += kTile) {
     const int n = min(kTile, T - lo);
     __syncthreads();
     pmt::load_tile(ks, kxb + (size_t)lo * KVH * hd, n, hd, (size_t)KVH * hd, hd + 1);
-    pmt::load_tile(vs, vxb + (size_t)lo * KVH * hdv, n, hdv, (size_t)KVH * hdv, hdv);
+    pmt::load_tile(vs, vxb + (size_t)lo * KVH * vld, n, hdv, (size_t)KVH * vld, hdv);
     __syncthreads();
     scores(lo, n, false);
     fold(n);
@@ -288,7 +295,7 @@ prefill_attention_kernel(const TQ* __restrict__ q, const TQ* __restrict__ kx,
 struct Args {
   const void *q, *kx, *vx, *kc, *vc, *ksc, *vsc, *offs, *page_table;
   void* out;
-  int B, T, C, NB, ps, KVH, G, hd, hdv;
+  int B, T, C, NB, ps, KVH, G, hd, hdv, vld;
   float scale;
   int ring, window;
   float softcap;
@@ -309,8 +316,8 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<const TC*>(a.kc), static_cast<const TC*>(a.vc),
       static_cast<const float*>(a.ksc), static_cast<const float*>(a.vsc),
       static_cast<const int*>(a.offs), static_cast<const int*>(a.page_table),
-      static_cast<TQ*>(a.out), a.T, a.C, a.NB, a.ps, a.KVH, a.G, a.hd, a.hdv, a.scale,
-      a.ring, a.window, a.softcap);
+      static_cast<TQ*>(a.out), a.T, a.C, a.NB, a.ps, a.KVH, a.G, a.hd, a.hdv, a.vld,
+      a.scale, a.ring, a.window, a.softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -330,6 +337,7 @@ int by_cache_type(const Args& a, int cache_dtype, cudaStream_t s) {
 template <bool kPaged>
 int dispatch(const Args& a, int q_dtype, int cache_dtype, void* stream) {
   if (a.B == 0 || a.T == 0 || a.KVH == 0) return 0;
+  if (a.vld < a.hdv) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0) return by_cache_type<float, kPaged>(a, cache_dtype, s);
   if (q_dtype == 1) return by_cache_type<__nv_bfloat16, kPaged>(a, cache_dtype, s);
@@ -343,18 +351,13 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 using namespace pmt::sm90;
+using namespace pmt::tile;
 
 constexpr int kKT = 32;        // keys per tile
 constexpr int kStages = 3;     // tiles of k and v in the ring
 constexpr int kMaxWarps = 8;   // 16 packed query rows each
 constexpr int kMaxSplits = 8;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; 0 for -inf
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Shared memory: q (16 x warps rows) | k ring (kStages x kKT rows) | v
 // ring (kStages x kKT rows), bf16 rows of D + 8 (16 bytes of padding put
@@ -367,60 +370,6 @@ __host__ __device__ inline size_t smem_bytes(int D, int nwarps) {
   if (pmt::is_code<TC>::value)
     bytes += (size_t)kStages * kKT * (2 * (size_t)(D + 16) + 2 * sizeof(float));
   return bytes;
-}
-
-// Split s's keys [lo, hi) of the cache range [start, limit): shares of
-// ceil(n / nsplit) rounded up to 16 keys, so the last splits may be empty.
-// (kernels/split_kv.py split_range is the same function.)
-__device__ __forceinline__ void split_range(int start, int limit, int nsplit, int s, int& lo,
-                                            int& hi) {
-  const int n = limit - start;
-  if (n <= 0) {
-    lo = hi = 0;
-    return;
-  }
-  const int per = ((n + nsplit - 1) / nsplit + 15) / 16 * 16;
-  lo = min(start + s * per, limit);
-  hi = min(lo + per, limit);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(a, b);  // a in the low half
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-// hi = bf16(a, b); lo = bf16 of what hi leaves over.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
-}
-
-// Two codes (bytes 0 and 1 of x) as a bf16 pair, byte 0 in the low half.
-// Exact: every int8 code and every finite e4m3 value is a bf16 (8 and 4
-// significant bits).  An int8 code is biased into the low mantissa byte
-// of 2^23 by one byte permute and the bias subtracted in fp32 (as in
-// decode_attention.cu); e4m3 codes convert two at a time to half, which
-// holds them too.
-template <typename TC>
-__device__ __forceinline__ uint32_t widen2(uint32_t x) {
-  float2 f;
-  if constexpr (std::is_same<TC, int8_t>::value) {
-    // bytes (b ^ 0x80, 0, 0, 0x4b): 2^23 + b + 128
-    f.x = __uint_as_float(__byte_perm(x ^ 0x80808080u, 0x4b000000u, 0x7650u)) - 8388736.f;
-    f.y = __uint_as_float(__byte_perm(x ^ 0x80808080u, 0x4b000000u, 0x7651u)) - 8388736.f;
-  } else {
-    f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(x & 0xffffu), __NV_E4M3)));
-  }
-  return pack_bf16(f.x, f.y);
-}
-
-// Eight codes (code j in byte j % 4 of word j / 4) as four bf16 pairs.
-template <typename TC>
-__device__ __forceinline__ uint4 widen8(uint2 w) {
-  return make_uint4(widen2<TC>(w.x), widen2<TC>(w.x >> 16), widen2<TC>(w.y),
-                    widen2<TC>(w.y >> 16));
 }
 
 // kPaged: kc, vc are pools (P, ps, KVH, hd) read through page_table
@@ -992,8 +941,10 @@ int dispatch_tc(const TcArgs& a, int cache_dtype, void* stream) {
 
 }  // namespace
 
-// q, out: (B, KVH, T, G, hd/hdv) and chunk kx, vx: (B, T, KVH, hd/hdv)
-// of q_dtype; cache kc, vc: (B, C, KVH, hd/hdv) of cache_dtype; k_scale,
+// q, out: (B, KVH, T, G, hd/hdv) and chunk kx, vx: (B, T, KVH, hd/vld)
+// of q_dtype; cache kc, vc: (B, C, KVH, hd/vld) of cache_dtype (the
+// values the first hdv <= vld lanes of v's rows: vld = hd where v is k,
+// MLA's aliased latent cache); k_scale,
 // v_scale: (B, C, KVH) float32 for the code types, else ignored (may be
 // null); offs: (B,) int32.  dtype codes: 0 = float32, 1 = bfloat16, 2 =
 // int8, 3 = fp8_e4m3 (q: 0 or 1).  window <= 0 and softcap <= 0 mean
@@ -1002,15 +953,15 @@ extern "C" int pmt_prefill_attention(const void* q, const void* kx, const void* 
                                      const void* kc, const void* vc, const void* k_scale,
                                      const void* v_scale, const void* offs,
                                      void* out, int B, int T, int C, int KVH, int G, int hd,
-                                     int hdv, float scale, int ring, int window,
+                                     int hdv, int vld, float scale, int ring, int window,
                                      float softcap, int q_dtype, int cache_dtype,
                                      void* stream) {
-  const Args a{q,   kx,  vx, kc,  vc, k_scale, v_scale, offs, nullptr, out, B,      T,
-               C,   1,   C,  KVH, G,  hd,      hdv,     scale, ring,  window, softcap};
+  const Args a{q, kx, vx,  kc, vc, k_scale, v_scale, offs,  nullptr, out,    B,      T,
+               C, 1,  C,   KVH, G, hd,      hdv,     vld,   scale,   ring,   window, softcap};
   return dispatch<false>(a, q_dtype, cache_dtype, stream);
 }
 
-// q, out, kx, vx, offs as above; k_pool, v_pool: (P, ps, KVH, hd/hdv) of
+// q, out, kx, vx, offs as above; k_pool, v_pool: (P, ps, KVH, hd/vld) of
 // cache_dtype; k_scale, v_scale: (P, ps, KVH) float32 pools for the code
 // types; page_table: (B, NB) int32, every entry a page of the pools.
 // window <= 0 and softcap <= 0 mean none.  Returns cudaGetLastError().
@@ -1019,12 +970,12 @@ extern "C" int pmt_prefill_attention_paged(const void* q, const void* kx, const 
                                            const void* k_scale, const void* v_scale,
                                            const void* page_table, const void* offs,
                                            void* out, int B, int T, int NB, int ps, int KVH,
-                                           int G, int hd, int hdv, float scale, int window,
-                                           float softcap, int q_dtype, int cache_dtype,
-                                           void* stream) {
-  const Args a{q,  kx,  vx,     k_pool, v_pool, k_scale, v_scale, offs,   page_table,
-               out, B,   T,      NB * ps, NB,    ps,      KVH,     G,      hd,
-               hdv, scale, 0,    window,  softcap};
+                                           int G, int hd, int hdv, int vld, float scale,
+                                           int window, float softcap, int q_dtype,
+                                           int cache_dtype, void* stream) {
+  const Args a{q,   kx,    vx, k_pool,  v_pool, k_scale, v_scale, offs, page_table,
+               out, B,     T,  NB * ps, NB,     ps,      KVH,     G,    hd,
+               hdv, vld,   scale, 0,    window, softcap};
   return dispatch<true>(a, q_dtype, cache_dtype, stream);
 }
 

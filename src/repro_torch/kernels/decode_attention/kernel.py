@@ -3,7 +3,10 @@ over a contiguous cache and over page pools, each also over quantized
 caches: int8 / fp8_e4m3 codes with float32 row scales, dequantized in
 the kernel.  The kernel splits each row's keys over blocks (split-KV);
 the wrappers pick the split count and hand it a workspace and the
-tickets of ``split_kv``."""
+tickets of ``split_kv``.  With ``v_width`` (MLA's aliased latent cache:
+the values are the first lanes of v, which may be k) a bf16 q over an
+aliased cache launches the tensor-core ``latent_attention`` kernel, the
+other inputs this kernel with v's row width passed apart."""
 from __future__ import annotations
 
 import math
@@ -11,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, split_kv
+from repro_torch.kernels import build, latent_attention, split_kv
 
 # Launches of each kernel since its count was last set to 0.
 # The quantized launches (``k_scale`` given) count apart from the others.
@@ -19,6 +22,11 @@ launches = 0                # decode_attention_cuda
 paged_launches = 0          # decode_attention_paged_cuda
 quant_launches = 0          # decode_attention_cuda over codes
 quant_paged_launches = 0    # decode_attention_paged_cuda over codes
+# The v_width launches (rows 3v, 7v and their quantized branches).
+v_launches = 0
+v_paged_launches = 0
+v_quant_launches = 0
+v_quant_paged_launches = 0
 
 # Shared-memory budget of one block on the H100 (227 KB usable); the
 # prefill wrappers check theirs against it.
@@ -67,6 +75,33 @@ def _check_heads(hd: int, hdv: int) -> None:
                          f"to {WIDTHS[-1]} wide")
 
 
+def _value_width(v: torch.Tensor, v_width) -> int:
+    """hdv: ``v_width``, which must lie in (0, v's width], or v's width."""
+    if v_width is None:
+        return v.shape[-1]
+    if not 0 < v_width <= v.shape[-1]:
+        raise ValueError(f"v_width={v_width} outside (0, {v.shape[-1]}]")
+    return int(v_width)
+
+
+def _count(v_width, k_scale, paged: bool) -> None:
+    """One launch on the counter of its row: ``[v_][quant_][paged_]
+    launches``."""
+    name = ("v_" if v_width is not None else "") \
+        + ("quant_" if k_scale is not None else "") \
+        + ("paged_" if paged else "") + "launches"
+    globals()[name] += 1
+
+
+def _latent(q, kc, k_scale, lens, page_table, hdv, scale):
+    """The latent-attention kernel over a decode step (T = 1)."""
+    b, kvh, g, hd = q.shape
+    out = latent_attention.launch(q.view(b, kvh, 1, g, hd), None, kc,
+                                  k_scale, lens, page_table, hdv=hdv,
+                                  scale=scale, decode=True)
+    return out.view(b, kvh, g, hdv)
+
+
 def _launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
             c: int, hdv: int) -> torch.Tensor:
     """Launch ``entry`` with its input pointers ``ptrs``, then out, the
@@ -113,14 +148,14 @@ def cache_codes(kv: torch.Tensor, k_scale, v_scale, rows: tuple):
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lens: torch.Tensor, *, ring: bool = False,
                           softcap: Optional[float] = None,
-                          scale: float = 1.0, k_scale=None,
+                          scale: float = 1.0, v_width=None, k_scale=None,
                           v_scale=None) -> torch.Tensor:
     """q: (B, KVH, G, hdq), k: (B, C, KVH, hdq), v: (B, C, KVH, hdv),
     lens: (B,) int32, all on the card and contiguous.  With ``k_scale``
     (and ``v_scale``, default ``k_scale``): k, v hold int8 or
-    float8_e4m3fn codes with (B, C, KVH) float32 row scales.  Returns
-    (B, KVH, G, hdv) in q.dtype."""
-    global launches, quant_launches
+    float8_e4m3fn codes with (B, C, KVH) float32 row scales.  With
+    ``v_width`` the values are v's first ``v_width`` lanes (v may be k).
+    Returns (B, KVH, G, hdv) in q.dtype."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda and lens.is_cuda):
         raise ValueError("decode_attention_cuda takes tensors on the card")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -142,18 +177,20 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("empty cache")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    _check_heads(hd, hdv)
-    qd = build.dtype_code(q.dtype)
+    vld, hdv = hdv, _value_width(v, v_width)
     kd, ksp, vsp = cache_codes(k, k_scale, v_scale, (b, c, kvh))
-    out = _launch("pmt_decode_attention", q,
-                  (q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
-                   lens.data_ptr()),
-                  (b, c, kvh, g, hd, hdv, float(scale), int(ring),
-                   float(softcap or 0.0), qd, kd), c, hdv)
-    if k_scale is None:
-        launches += 1
+    if latent_attention.takes(q, k, v, v_width, k_scale, v_scale, ring=ring,
+                              softcap=softcap):
+        out = _latent(q, k, k_scale, lens, None, hdv, scale)
     else:
-        quant_launches += 1
+        _check_heads(hd, hdv)
+        out = _launch("pmt_decode_attention", q,
+                      (q.data_ptr(), k.data_ptr(), v.data_ptr(), ksp, vsp,
+                       lens.data_ptr()),
+                      (b, c, kvh, g, hd, hdv, vld, float(scale), int(ring),
+                       float(softcap or 0.0), build.dtype_code(q.dtype), kd),
+                      c, hdv)
+    _count(v_width, k_scale, paged=False)
     return out
 
 
@@ -162,16 +199,15 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                                 page_table: torch.Tensor, lens: torch.Tensor,
                                 *, window: Optional[int] = None,
                                 softcap: Optional[float] = None,
-                                scale: float = 1.0, k_scale=None,
-                                v_scale=None) -> torch.Tensor:
+                                scale: float = 1.0, v_width=None,
+                                k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, KVH, G, hdq), k_pool: (P, page_size, KVH, hdq), v_pool:
     (P, page_size, KVH, hdv), page_table: (B, NB) int32 with every entry
     a page of the pools, lens: (B,) int32, all on the card and
     contiguous.  With ``k_scale`` (and ``v_scale``, default ``k_scale``):
     the pools hold int8 or float8_e4m3fn codes with (P, page_size, KVH)
-    float32 scale pools paged like them.  Returns (B, KVH, G, hdv) in
-    q.dtype."""
-    global paged_launches, quant_paged_launches
+    float32 scale pools paged like them.  ``v_width`` as in
+    :func:`decode_attention_cuda`.  Returns (B, KVH, G, hdv) in q.dtype."""
     ts = (q, k_pool, v_pool, page_table, lens)
     if not all(t.is_cuda for t in ts):
         raise ValueError("decode_attention_paged_cuda takes tensors on the "
@@ -198,18 +234,19 @@ def decode_attention_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("window must be > 0")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    _check_heads(hd, hdv)
-    qd = build.dtype_code(q.dtype)
+    vld, hdv = hdv, _value_width(v_pool, v_width)
     kd, ksp, vsp = cache_codes(k_pool, k_scale, v_scale, (p, ps, kvh))
     nb = page_table.shape[1]
-    out = _launch("pmt_decode_attention_paged", q,
-                  (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ksp,
-                   vsp, page_table.data_ptr(), lens.data_ptr()),
-                  (b, nb, ps, kvh, g, hd, hdv, float(scale),
-                   int(window or 0), float(softcap or 0.0), qd, kd),
-                  nb * ps, hdv)
-    if k_scale is None:
-        paged_launches += 1
+    if latent_attention.takes(q, k_pool, v_pool, v_width, k_scale, v_scale,
+                              window=window, softcap=softcap):
+        out = _latent(q, k_pool, k_scale, lens, page_table, hdv, scale)
     else:
-        quant_paged_launches += 1
+        _check_heads(hd, hdv)
+        out = _launch("pmt_decode_attention_paged", q,
+                      (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                       ksp, vsp, page_table.data_ptr(), lens.data_ptr()),
+                      (b, nb, ps, kvh, g, hd, hdv, vld, float(scale),
+                       int(window or 0), float(softcap or 0.0),
+                       build.dtype_code(q.dtype), kd), nb * ps, hdv)
+    _count(v_width, k_scale, paged=True)
     return out

@@ -6,7 +6,9 @@ head together, and runs the CUDA kernel for tensors on the card or the
 plain version for tensors on the CPU.  ``decode_attention_paged`` does
 the same over (P, page_size, KVH, hd) page pools and a page table.
 Both take quantized caches too: int8 / fp8_e4m3 codes with float32 row
-scales (``k_scale``/``v_scale``), dequantized inside the kernel.
+scales (``k_scale``/``v_scale``), dequantized inside the kernel, and
+MLA's aliased latent cache (``v_width``: the values are the first lanes
+of v, which may be k itself).
 """
 from __future__ import annotations
 
@@ -14,8 +16,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card, refuse_later_slices, \
-    scale_tensors
+from repro_torch.kernels import on_card, scale_tensors
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_cuda, decode_attention_paged_cuda)
@@ -51,16 +52,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for sliding-window ring caches.  ``block_k`` is the blocking of the
     plain version.  ``k_scale``/``v_scale``: (B, C, KVH) float32 row
     scales when k/v hold int8 or float8_e4m3fn codes (``v_scale``
-    defaults to ``k_scale``).  Returns (B, 1, H, hdv) in q.dtype.
-
-    ``v_width`` (MLA's aliased latent cache) comes with a later slice of
-    the port and raises.
+    defaults to ``k_scale``).  ``v_width``: the values are the first
+    ``v_width`` lanes of v, which may be k itself (MLA's latent cache,
+    one kv head read once as key and value; a quantized alias passes its
+    one scale tensor as ``k_scale``).  Returns (B, 1, H, hdv) in q.dtype.
     """
-    refuse_later_slices(v_width)
     qg, lens = _pack(q, k.shape[2], cur_len, "decode_attention")
     b, _, h, _ = q.shape
-    kw = dict(ring=ring, softcap=softcap, scale=scale, k_scale=k_scale,
-              v_scale=v_scale)
+    kw = dict(ring=ring, softcap=softcap, scale=scale, v_width=v_width,
+              k_scale=k_scale, v_scale=v_scale)
     if on_card(q, k, v, lens, *scale_tensors(k_scale, v_scale)):
         out = decode_attention_cuda(qg.contiguous(), k, v, lens, **kw)
     else:
@@ -85,15 +85,13 @@ def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     unwrapped, so ``window`` is an explicit mask here (no ``ring``).
     ``k_scale``/``v_scale``: (P, page_size, KVH) float32 scale pools
     when the pools hold int8 or float8_e4m3fn codes, paged like them.
-    Returns (B, 1, H, hdv) in q.dtype.
-
-    ``v_width`` (MLA) comes with a later slice of the port and raises.
+    ``v_width`` as in :func:`decode_attention`.  Returns (B, 1, H, hdv)
+    in q.dtype.
     """
-    refuse_later_slices(v_width)
     qg, lens = _pack(q, k_pool.shape[2], cur_len, "decode_attention_paged")
     b, _, h, _ = q.shape
-    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
-              v_scale=v_scale)
+    kw = dict(window=window, softcap=softcap, scale=scale, v_width=v_width,
+              k_scale=k_scale, v_scale=v_scale)
     if on_card(q, k_pool, v_pool, page_table, lens,
                *scale_tensors(k_scale, v_scale)):
         out = decode_attention_paged_cuda(

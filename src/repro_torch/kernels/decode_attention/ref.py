@@ -13,6 +13,11 @@ with float32 row scales) are dequantized block by block with
 order of the JAX package's blockwise twins and of the kernels' tile
 loads.  ``v_scale`` defaults to ``k_scale``, as in the JAX package.
 
+``v_width`` (MLA's aliased latent cache): the values are the first
+``v_width`` lanes of v, which may be k itself; a quantized alias has one
+(B, C, 1) scale tensor that serves as ``k_scale`` and ``v_scale`` alike
+(per-row scaling commutes with the lane slice).
+
 Semantics (matching ``models.attention.decode_self_attention``):
 
   * ``lens[b]`` is the position of row ``b``'s new token; the cache has
@@ -75,13 +80,16 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lens: torch.Tensor, *, ring: bool = False,
                          softcap: Optional[float] = None,
                          scale: float = 1.0,
-                         block_k: int = DEFAULT_BLOCK_K, k_scale=None,
-                         v_scale=None) -> torch.Tensor:
-    """q: (B, KVH, G, hdq), k: (B, C, KVH, hdq), v: (B, C, KVH, hdv),
-    lens: (B,) int; k_scale/v_scale: (B, C, KVH) float32 row scales of
-    code caches.  Returns (B, KVH, G, hdv) in q.dtype."""
+                         block_k: int = DEFAULT_BLOCK_K, v_width=None,
+                         k_scale=None, v_scale=None) -> torch.Tensor:
+    """q: (B, KVH, G, hdq), k: (B, C, KVH, hdq), v: (B, C, KVH, hdv)
+    (or wider, with ``v_width``), lens: (B,) int; k_scale/v_scale:
+    (B, C, KVH) float32 row scales of code caches.  Returns
+    (B, KVH, G, hdv) in q.dtype."""
     if k_scale is not None and v_scale is None:
         v_scale = k_scale
+    if v_width is not None:
+        v = v[..., :v_width]
     b, kvh, g, _ = q.shape
     c = k.shape[1]
     hdv = v.shape[-1]
@@ -109,8 +117,8 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                                lens: torch.Tensor, *,
                                window: Optional[int] = None,
                                softcap: Optional[float] = None,
-                               scale: float = 1.0, k_scale=None,
-                               v_scale=None) -> torch.Tensor:
+                               scale: float = 1.0, v_width=None,
+                               k_scale=None, v_scale=None) -> torch.Tensor:
     """Blockwise twin of the paged flash-decode, as the JAX package's
     ``decode_attention_paged_ref``.
 
@@ -121,7 +129,8 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
     slot == position, and a sliding window is the explicit mask
     ``lens[b] - col < window``.  k_scale/v_scale: (P, page_size, KVH)
     float32 scale pools of code pools, gathered through the same table.
-    Returns (B, KVH, G, hdv) in q.dtype.
+    ``v_width``: the values are the first lanes of v_pool (which may be
+    k_pool).  Returns (B, KVH, G, hdv) in q.dtype.
     """
     b, kvh, g, _ = q.shape
     ps = k_pool.shape[1]
@@ -133,6 +142,8 @@ def decode_attention_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
     if k_scale is not None:
         ks = gather_pages(k_scale, pt, b, c)
         vs = ks if v_scale is None else gather_pages(v_scale, pt, b, c)
+    if v_width is not None:
+        v = v[..., :v_width]
     hdv = v.shape[-1]
     qs = q.float() * scale
     cur = lens.to(device=q.device, dtype=torch.int64).view(b, 1, 1, 1)

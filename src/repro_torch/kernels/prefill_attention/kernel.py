@@ -6,7 +6,10 @@ with float32 row scales, read as codes by the kernel.
 When q and the chunk are bf16, the cache bf16 or codes, and the heads at
 most 128 wide, the wrappers launch the tensor-core kernel, split over
 blocks along the cache (split-KV); the other inputs (fp32 q, wider
-heads) take the CUDA-core kernel.
+heads) take the CUDA-core kernel.  With ``v_width`` (MLA's aliased
+latent cache: the values are the first lanes of v, which may be k) bf16
+inputs over an aliased cache launch the tensor-core ``latent_attention``
+kernel, the others the CUDA-core kernel with v's row width passed apart.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, split_kv
+from repro_torch.kernels import build, latent_attention, split_kv
 from repro_torch.kernels.decode_attention.kernel import SMEM_LIMIT, \
     cache_codes
 
@@ -25,6 +28,11 @@ launches = 0                # prefill_attention_cuda
 paged_launches = 0          # prefill_attention_paged_cuda
 quant_launches = 0          # prefill_attention_cuda over codes
 quant_paged_launches = 0    # prefill_attention_paged_cuda over codes
+# The v_width launches (rows 2v, 8v and their quantized branches).
+v_launches = 0
+v_paged_launches = 0
+v_quant_launches = 0
+v_quant_paged_launches = 0
 
 _ROWS, _TILE = 16, 64     # packed query rows per block, keys per tile
 
@@ -81,6 +89,28 @@ def _tc_launch(entry: str, q: torch.Tensor, ptrs: tuple, scalars: tuple,
     return out
 
 
+def _count(v_width, k_scale, paged: bool) -> None:
+    """One launch on the counter of its row: ``[v_][quant_][paged_]
+    launches``."""
+    name = ("v_" if v_width is not None else "") \
+        + ("quant_" if k_scale is not None else "") \
+        + ("paged_" if paged else "") + "launches"
+    globals()[name] += 1
+
+
+def _widths(v_chunk, v_cache, v_width) -> tuple:
+    """(vld, hdv): v's row width, shared by the chunk and the cache, and
+    the values' width, ``v_width`` in (0, vld] or vld."""
+    vld = v_cache.shape[-1]
+    if v_chunk.shape[-1] != vld:
+        raise ValueError("chunk and cache v rows differ in width")
+    if v_width is None:
+        return vld, vld
+    if not 0 < v_width <= vld:
+        raise ValueError(f"v_width={v_width} outside (0, {vld}]")
+    return vld, int(v_width)
+
+
 def smem_bytes(hd: int, hdv: int) -> int:
     """Dynamic shared memory of one block, plus its static row table and
     the two row-scale arrays of a quantized tile."""
@@ -93,15 +123,15 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                            v_cache: torch.Tensor, offs: torch.Tensor, *,
                            ring: bool = False, window: Optional[int] = None,
                            softcap: Optional[float] = None,
-                           scale: float = 1.0, k_scale=None,
+                           scale: float = 1.0, v_width=None, k_scale=None,
                            v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv) of
     q's dtype; k_cache/v_cache: (B, C, KVH, hdq/hdv); offs: (B,) int32;
     all on the card and contiguous.  With ``k_scale`` (and ``v_scale``,
     default ``k_scale``): the cache holds int8 or float8_e4m3fn codes
-    with (B, C, KVH) float32 row scales.  Returns (B, KVH, T, G, hdv) in
-    q.dtype."""
-    global launches, quant_launches
+    with (B, C, KVH) float32 row scales.  With ``v_width`` the values are
+    the first ``v_width`` lanes of v_chunk and v_cache (which may be
+    k_chunk and k_cache).  Returns (B, KVH, T, G, hdv) in q.dtype."""
     ts = (q, k_chunk, v_chunk, k_cache, v_cache, offs)
     if not all(t.is_cuda for t in ts):
         raise ValueError("prefill_attention_cuda takes tensors on the card")
@@ -132,13 +162,21 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         raise ValueError("ring caches need a window")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    if smem_bytes(hd, hdv) > SMEM_LIMIT:
-        raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
-                         f"a block has")
+    vld, hdv = _widths(v_chunk, v_cache, v_width)
     qd = build.dtype_code(q.dtype)
     cd, ksp, vsp = cache_codes(k_cache, k_scale, v_scale, (b, c, kvh))
     opts = (float(scale), int(ring), int(window or 0), float(softcap or 0.0))
-    if uses_tensor_cores(q.dtype, k_cache.dtype, hd, hdv):
+    if latent_attention.takes(q, k_cache, v_cache, v_width, k_scale, v_scale,
+                              ring=ring, window=window, softcap=softcap) \
+            and latent_attention.aliased(k_chunk, v_chunk):
+        out = latent_attention.launch(q, k_chunk, k_cache, k_scale, offs,
+                                      None, hdv=hdv, scale=scale,
+                                      decode=False)
+    elif smem_bytes(hd, hdv) > SMEM_LIMIT:
+        raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
+                         f"a block has")
+    elif v_width is None and uses_tensor_cores(q.dtype, k_cache.dtype, hd,
+                                               hdv):
         out = _tc_launch(
             "pmt_prefill_attention_tc", q,
             (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
@@ -151,13 +189,10 @@ def prefill_attention_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         err = build.library().pmt_prefill_attention(
             q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), ksp, vsp,
-            offs.data_ptr(), out.data_ptr(), b, t, c, kvh, g, hd, hdv,
+            offs.data_ptr(), out.data_ptr(), b, t, c, kvh, g, hd, hdv, vld,
             *opts, qd, cd, torch.cuda.current_stream().cuda_stream)
         build.check(err, "prefill_attention")
-    if k_scale is None:
-        launches += 1
-    else:
-        quant_launches += 1
+    _count(v_width, k_scale, paged=False)
     return out
 
 
@@ -167,16 +202,16 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
                                  page_table: torch.Tensor, offs: torch.Tensor,
                                  *, window: Optional[int] = None,
                                  softcap: Optional[float] = None,
-                                 scale: float = 1.0, k_scale=None,
-                                 v_scale=None) -> torch.Tensor:
+                                 scale: float = 1.0, v_width=None,
+                                 k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv) of
     q's dtype; k_pool/v_pool: (P, page_size, KVH, hdq/hdv); page_table:
     (B, NB) int32 with every entry a page of the pools; offs: (B,) int32;
     all on the card and contiguous.  With ``k_scale`` (and ``v_scale``,
     default ``k_scale``): the pools hold int8 or float8_e4m3fn codes with
-    (P, page_size, KVH) float32 scale pools paged like them.  Returns
+    (P, page_size, KVH) float32 scale pools paged like them.
+    ``v_width`` as in :func:`prefill_attention_cuda`.  Returns
     (B, KVH, T, G, hdv) in q.dtype."""
-    global paged_launches, quant_paged_launches
     ts = (q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs)
     if not all(t.is_cuda for t in ts):
         raise ValueError("prefill_attention_paged_cuda takes tensors on the "
@@ -210,14 +245,22 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
         raise ValueError("window must be > 0")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be > 0")
-    if smem_bytes(hd, hdv) > SMEM_LIMIT:
-        raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
-                         f"a block has")
+    vld, hdv = _widths(v_chunk, v_pool, v_width)
     qd = build.dtype_code(q.dtype)
     cd, ksp, vsp = cache_codes(k_pool, k_scale, v_scale, (p, ps, kvh))
     nb = page_table.shape[1]
     opts = (float(scale), int(window or 0), float(softcap or 0.0))
-    if uses_tensor_cores(q.dtype, k_pool.dtype, hd, hdv):
+    if latent_attention.takes(q, k_pool, v_pool, v_width, k_scale, v_scale,
+                              window=window, softcap=softcap) \
+            and latent_attention.aliased(k_chunk, v_chunk):
+        out = latent_attention.launch(q, k_chunk, k_pool, k_scale, offs,
+                                      page_table, hdv=hdv, scale=scale,
+                                      decode=False)
+    elif smem_bytes(hd, hdv) > SMEM_LIMIT:
+        raise ValueError(f"hd={hd}, hdv={hdv} need more shared memory than "
+                         f"a block has")
+    elif v_width is None and uses_tensor_cores(q.dtype, k_pool.dtype, hd,
+                                               hdv):
         out = _tc_launch(
             "pmt_prefill_attention_paged_tc", q,
             (q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
@@ -231,11 +274,8 @@ def prefill_attention_paged_cuda(q: torch.Tensor, k_chunk: torch.Tensor,
             q.data_ptr(), k_chunk.data_ptr(), v_chunk.data_ptr(),
             k_pool.data_ptr(), v_pool.data_ptr(), ksp, vsp,
             page_table.data_ptr(), offs.data_ptr(), out.data_ptr(), b, t,
-            nb, ps, kvh, g, hd, hdv, *opts, qd, cd,
+            nb, ps, kvh, g, hd, hdv, vld, *opts, qd, cd,
             torch.cuda.current_stream().cuda_stream)
         build.check(err, "prefill_attention_paged")
-    if k_scale is None:
-        paged_launches += 1
-    else:
-        quant_paged_launches += 1
+    _count(v_width, k_scale, paged=True)
     return out

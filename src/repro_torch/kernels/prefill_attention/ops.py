@@ -7,7 +7,9 @@ and runs the CUDA kernel for tensors on the card or the plain version
 for tensors on the CPU.  ``prefill_attention_paged`` does the same over
 (P, page_size, KVH, hd) page pools and a page table.  Both take a
 quantized cache prefix too: int8 / fp8_e4m3 codes with float32 row
-scales (``k_scale``/``v_scale``), dequantized inside the kernel.
+scales (``k_scale``/``v_scale``), dequantized inside the kernel, and
+MLA's aliased latent cache (``v_width``: the values are the first lanes
+of v, which may be k itself).
 """
 from __future__ import annotations
 
@@ -15,8 +17,7 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.kernels import on_card, refuse_later_slices, \
-    scale_tensors
+from repro_torch.kernels import on_card, scale_tensors
 from repro_torch.kernels.constants import DEFAULT_BLOCK_K
 from repro_torch.kernels.prefill_attention.kernel import (
     prefill_attention_cuda, prefill_attention_paged_cuda)
@@ -55,11 +56,10 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
     is the blocking of the plain version.  ``k_scale``/``v_scale``:
     (B, C, KVH) float32 row scales when the cache holds int8 or
     float8_e4m3fn codes (the chunk's own k/v stay full precision).
-    Returns (B, T, H, hdv) in q.dtype.
-
-    ``v_width`` (MLA) comes with a later slice of the port and raises.
+    ``v_width``: the values are the first ``v_width`` lanes of v_chunk
+    and v_cache, which may be k_chunk and k_cache themselves (MLA's
+    latent cache).  Returns (B, T, H, hdv) in q.dtype.
     """
-    refuse_later_slices(v_width)
     if ring and window is None:
         raise ValueError("ring caches need an explicit window")
     if window is not None and not ring:
@@ -68,7 +68,7 @@ def prefill_attention(q, k_chunk, v_chunk, k_cache, v_cache,
     qg, offs = _pack(q, k_chunk, k_cache.shape[2], offset)
     b, t, h, _ = q.shape
     kw = dict(ring=ring, window=window, softcap=softcap, scale=scale,
-              k_scale=k_scale, v_scale=v_scale)
+              v_width=v_width, k_scale=k_scale, v_scale=v_scale)
     if on_card(q, k_chunk, v_chunk, k_cache, v_cache, offs,
                *scale_tensors(k_scale, v_scale)):
         out = prefill_attention_cuda(qg.contiguous(), k_chunk.contiguous(),
@@ -97,15 +97,13 @@ def prefill_attention_paged(q, k_chunk, v_chunk, k_pool, v_pool,
     sliding-window layers unwrapped, so ``window`` is an explicit mask
     (no ``ring``).  ``k_scale``/``v_scale``: (P, page_size, KVH) float32
     scale pools when the pools hold int8 or float8_e4m3fn codes.  Returns
-    (B, T, H, hdv) in q.dtype.
-
-    ``v_width`` (MLA) comes with a later slice of the port and raises.
+    (B, T, H, hdv) in q.dtype.  ``v_width`` as in
+    :func:`prefill_attention`.
     """
-    refuse_later_slices(v_width)
     qg, offs = _pack(q, k_chunk, k_pool.shape[2], offset)
     b, t, h, _ = q.shape
-    kw = dict(window=window, softcap=softcap, scale=scale, k_scale=k_scale,
-              v_scale=v_scale)
+    kw = dict(window=window, softcap=softcap, scale=scale, v_width=v_width,
+              k_scale=k_scale, v_scale=v_scale)
     if on_card(q, k_chunk, v_chunk, k_pool, v_pool, page_table, offs,
                *scale_tensors(k_scale, v_scale)):
         out = prefill_attention_paged_cuda(

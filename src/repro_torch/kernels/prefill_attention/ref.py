@@ -25,6 +25,11 @@ A quantized cache (``k_scale``/``v_scale``: float32 row scales of int8 /
 fp8_e4m3 codes) is dequantized per cache block, as in the JAX package's
 twin; only the prefix holds codes, the chunk's own k/v are full
 precision.  ``v_scale`` defaults to ``k_scale``.
+
+``v_width`` (MLA's aliased latent cache): the values are the first
+``v_width`` lanes of v_chunk and v_cache, which may be k_chunk and
+k_cache themselves; a quantized alias's one scale tensor serves as
+``k_scale`` and ``v_scale`` alike.
 """
 from __future__ import annotations
 
@@ -45,14 +50,16 @@ def prefill_attention_ref(q, k_chunk, v_chunk, k_cache, v_cache,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
                           scale: float = 1.0,
-                          block_k: int = DEFAULT_BLOCK_K, k_scale=None,
-                          v_scale=None) -> torch.Tensor:
+                          block_k: int = DEFAULT_BLOCK_K, v_width=None,
+                          k_scale=None, v_scale=None) -> torch.Tensor:
     """q: (B, KVH, T, G, hdq); k_chunk/v_chunk: (B, T, KVH, hdq/hdv);
-    k_cache/v_cache: (B, C, KVH, hdq/hdv); offs: (B,) int; k_scale/
-    v_scale: (B, C, KVH) float32 row scales of a code cache.
-    Returns (B, KVH, T, G, hdv) in q.dtype."""
+    k_cache/v_cache: (B, C, KVH, hdq/hdv) (v wider with ``v_width``);
+    offs: (B,) int; k_scale/v_scale: (B, C, KVH) float32 row scales of a
+    code cache.  Returns (B, KVH, T, G, hdv) in q.dtype."""
     if k_scale is not None and v_scale is None:
         v_scale = k_scale
+    if v_width is not None:
+        v_chunk, v_cache = v_chunk[..., :v_width], v_cache[..., :v_width]
     b, kvh, t, g, _ = q.shape
     c = k_cache.shape[1]
     hdv = v_cache.shape[-1]
@@ -97,8 +104,8 @@ def prefill_attention_paged_ref(q, k_chunk, v_chunk, k_pool, v_pool,
                                 offs: torch.Tensor, *,
                                 window: Optional[int] = None,
                                 softcap: Optional[float] = None,
-                                scale: float = 1.0, k_scale=None,
-                                v_scale=None) -> torch.Tensor:
+                                scale: float = 1.0, v_width=None,
+                                k_scale=None, v_scale=None) -> torch.Tensor:
     """Blockwise twin of the paged chunked-prefill, as the JAX package's
     ``prefill_attention_paged_ref``.
 
@@ -108,8 +115,8 @@ def prefill_attention_paged_ref(q, k_chunk, v_chunk, k_pool, v_pool,
     Gathers the logical cache (and, for code pools, the k_scale/v_scale
     pools (P, page_size, KVH)) through the page table and runs
     ``prefill_attention_ref`` on it unwrapped (``ring=False``, the window
-    an explicit mask) with blocks of one page.  Returns
-    (B, KVH, T, G, hdv) in q.dtype.
+    an explicit mask) with blocks of one page.  ``v_width`` as there.
+    Returns (B, KVH, T, G, hdv) in q.dtype.
     """
     b = q.shape[0]
     ps = k_pool.shape[1]
@@ -122,4 +129,5 @@ def prefill_attention_paged_ref(q, k_chunk, v_chunk, k_pool, v_pool,
     return prefill_attention_ref(
         q, k_chunk, v_chunk, gather_pages(k_pool, pt, b, c),
         gather_pages(v_pool, pt, b, c), offs, ring=False, window=window,
-        softcap=softcap, scale=scale, block_k=ps, k_scale=ks, v_scale=vs)
+        softcap=softcap, scale=scale, block_k=ps, v_width=v_width,
+        k_scale=ks, v_scale=vs)

@@ -9,7 +9,7 @@ Usage:
       [--temperature 0] [--request-deadline-s S] \
       [--cache-dtype {bfloat16,float32,int8,fp8_e4m3}] \
       [--kv-layout paged [--kv-page-size 16] [--kv-pool-blocks N] \
-       [--no-prefix-cache]]
+       [--no-prefix-cache]] [--num-layers N] [--no-moe]
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are random
 token ids with lengths spread over [1, max_len / 2], made from
@@ -30,6 +30,12 @@ storage and footprint (the ``kv cache: <dtype>, <N> B/token`` line;
 ``--cache-dtype int8`` or ``fp8_e4m3`` stores codes plus float32 row
 scales) and each request's token count.  With ``--kv-layout paged`` it also prints the page pool's
 use and the prefix cache's hits (the ``kv pool:`` line).
+
+``--num-layers`` and ``--no-moe`` override the config: ``--arch
+deepseek-v3-671b --num-layers 3 --no-moe`` is the published model's
+three leading dense MLA layers at full width (its MoE layers come with a
+later slice: with them the launcher raises before any weights are
+built; its MTP head's weights are built and not read).
 """
 from __future__ import annotations
 
@@ -161,13 +167,23 @@ def main(argv=None):
                          "layout; default on)")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="override the config's layer count")
+    ap.add_argument("--no-moe", action="store_true",
+                    help="drop the config's MoE (every layer dense)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = configs.get_config(args.arch, reduced=args.reduced)
+    overrides = {}
+    if args.num_layers is not None:
+        overrides["num_layers"] = args.num_layers
+    if args.no_moe:
+        overrides["moe"] = None
+    cfg = configs.get_config(args.arch, reduced=args.reduced, **overrides)
+    model_mod.unit_layout(cfg)  # what the port does not serve raises here
     params = model_mod.init_params(cfg, seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)
     max_prompt = max(1, min(args.max_len // 2,

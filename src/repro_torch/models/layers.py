@@ -71,11 +71,13 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 # -- MLP -----------------------------------------------------------------------
 
-def init_mlp(gen: torch.Generator, cfg: ModelConfig):
+def init_mlp(gen: torch.Generator, cfg: ModelConfig,
+             ff: Optional[int] = None):
+    """SwiGLU weights of width ``ff`` (default ``cfg.d_ff``)."""
     if cfg.act != "silu":
         raise NotImplementedError(f"act {cfg.act!r} comes with the "
                                   "other-archs slice")
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, ff or cfg.d_ff
     return {"w_up": dense_init(gen, (d, ff)),
             "w_down": dense_init(gen, (ff, d)),
             "w_gate": dense_init(gen, (d, ff))}
@@ -121,6 +123,13 @@ def default_positions(batch: int, seq: int, offset=0,
     """(B, S) int32 positions ``offset + arange(S)`` for every row."""
     pos = torch.arange(seq, dtype=torch.int32, device=device) + offset
     return pos[None].expand(batch, seq)
+
+
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: ``head_dim``, or MLA's decoupled rope key
+    ``qk_rope_head_dim``."""
+    return cfg.mla.qk_rope_head_dim if cfg.attention == "mla" \
+        else cfg.head_dim
 
 
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:

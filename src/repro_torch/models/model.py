@@ -99,18 +99,26 @@ def port_layout(cfg: ModelConfig, tree):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random fp32 parameters from ``torch.Generator(seed)``, on the card
-    unless ``device="cpu"``.  The numbers differ from the JAX package's
-    for the same seed (different generators); ``repro_torch.bridge``
-    carries a JAX tree over where equal weights are needed."""
+    unless ``device="cpu"``; with ``cfg.mtp`` also the JAX package's
+    ``mtp`` subtree (read by its loss alone).  The numbers differ from
+    the JAX package's for the same seed (different generators);
+    ``repro_torch.bridge`` carries a JAX tree over where equal weights
+    are needed."""
     dev = resolve_device(device)
     lay = unit_layout(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     units = [{f"r{r}": blocks.init_block(gen, cfg)
               for r in range(lay.unit_len)} for _ in range(lay.n_units)]
-    return {"embed": layers.init_embedding(gen, cfg),
-            "final_norm": layers.init_norm(cfg, dev),
-            "units": _stack(units)}
+    params = {"embed": layers.init_embedding(gen, cfg),
+              "final_norm": layers.init_norm(cfg, dev),
+              "units": _stack(units)}
+    if cfg.mtp:     # DeepSeek's multi-token prediction head (the loss's)
+        params["mtp"] = {
+            "proj": layers.dense_init(gen, (2 * cfg.d_model, cfg.d_model)),
+            "block": blocks.init_block(gen, cfg),
+            "norm": layers.init_norm(cfg, dev)}
+    return params
 
 
 def serving_params(cfg: ModelConfig, params, device=None):
@@ -195,7 +203,8 @@ def build_forward(cfg: ModelConfig):
     def forward(params, batch):
         x = _input_embed(cfg, params, batch)
         pos = _positions(cfg, batch)
-        tables = layers.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        tables = layers.rope_tables(pos, layers.rope_dim(cfg),
+                                    cfg.rope_theta)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def unit(xx, up):
@@ -243,7 +252,12 @@ def _chunked_xent(cfg: ModelConfig, embed_params, hidden, targets):
 
 def loss_fn(cfg: ModelConfig):
     """Returns loss(params, batch) -> (scalar, metrics dict) with metrics
-    ``nll``, ``aux_loss`` and ``loss`` (0-dim tensors)."""
+    ``nll``, ``aux_loss`` and ``loss`` (0-dim tensors).  DeepSeek's
+    multi-token-prediction loss (``cfg.mtp``) comes with a later slice
+    and raises."""
+    if cfg.mtp:
+        raise NotImplementedError(f"{cfg.name}: the MTP loss is not ported "
+                                  "yet; it comes with the MoE slice")
     forward = build_forward(cfg)
 
     def loss(params, batch):
@@ -262,7 +276,9 @@ def init_caches(cfg: ModelConfig, batch_size: int, max_len: int,
     (n_units, B, C, KVH, hd), zero-filled, on the card unless
     ``device="cpu"``.  With ``cfg.kv_quant`` k and v hold codes and each
     block also carries (n_units, B, C, KVH) float32 "k_scale" and
-    "v_scale" leaves."""
+    "v_scale" leaves.  An MLA block's cache is one "kv" latent leaf
+    (n_units, B, C, r + rope), with ``cfg.kv_quant`` codes plus an
+    (n_units, B, C) "kv_scale"."""
     dev = resolve_device(device)
     lay = unit_layout(cfg)
     per_unit = [{f"r{r}": blocks.init_block_cache(
@@ -326,7 +342,8 @@ def make_serve_fns(cfg: ModelConfig,
     def prefill(params, batch, max_len: int):
         x = _input_embed(cfg, params, batch)
         pos = _positions(cfg, batch)
-        tables = layers.rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+        tables = layers.rope_tables(pos, layers.rope_dim(cfg),
+                                    cfg.rope_theta)
         per_unit = []
         for u in range(lay.n_units):
             up = unit_slice(params["units"], u)
@@ -350,7 +367,7 @@ def make_serve_fns(cfg: ModelConfig,
         if cur.dim() == 0:
             cur = cur.expand(b)
         cur = cur.contiguous()
-        tables = layers.rope_tables(cur[:, None], cfg.head_dim,
+        tables = layers.rope_tables(cur[:, None], layers.rope_dim(cfg),
                                     cfg.rope_theta)
         x = layers.embed_tokens(cfg, params["embed"], tokens)
         x = run_units(params, caches, x, lambda p, xx, c, idx:
@@ -367,7 +384,8 @@ def make_serve_fns(cfg: ModelConfig,
         offs = (offs.expand(b) if offs.dim() == 0 else offs).contiguous()
         positions = offs[:, None] + torch.arange(t, device=dev,
                                                  dtype=torch.int32)
-        tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        tables = layers.rope_tables(positions, layers.rope_dim(cfg),
+                                    cfg.rope_theta)
         valid_len = int(last_idx) + 1
         x = layers.embed_tokens(cfg, params["embed"], tokens)
         x = run_units(params, caches, x, lambda p, xx, c, idx:
@@ -451,7 +469,7 @@ def make_paged_serve_fns(cfg: ModelConfig) -> PagedServeFns:
         b, dev = tokens.shape[0], tokens.device
         cur = vector(cur_len, b, dev)
         pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
-        tables = layers.rope_tables(cur[:, None], cfg.head_dim,
+        tables = layers.rope_tables(cur[:, None], layers.rope_dim(cfg),
                                     cfg.rope_theta)
         x = layers.embed_tokens(cfg, params["embed"], tokens)
         x = run_units(params, caches, x, lambda p, xx, c, idx:
@@ -470,7 +488,8 @@ def make_paged_serve_fns(cfg: ModelConfig) -> PagedServeFns:
         pt = page_table.to(device=dev, dtype=torch.int32).contiguous()
         positions = offs[:, None] + torch.arange(t, device=dev,
                                                  dtype=torch.int32)
-        tables = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        tables = layers.rope_tables(positions, layers.rope_dim(cfg),
+                                    cfg.rope_theta)
         x = layers.embed_tokens(cfg, params["embed"], tokens)
         x = run_units(params, caches, x, lambda p, xx, c, idx:
                       blocks.block_paged_prefill_chunk(cfg, p, xx, c, offs,

@@ -85,8 +85,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quant import QUANT_MODES
 from repro_torch.models import model as model_mod
-from repro_torch.models.attention import kv_leaf_specs
-from repro_torch.models.blocks import layer_window
+from repro_torch.models.blocks import cache_leaf_specs, layer_window
 from repro_torch.serve.paging import PagePool, RadixPrefixCache
 from repro_torch.tree import tree_leaves
 
@@ -672,7 +671,8 @@ class ServeEngine:
         for idx in range(cfg.num_layers):
             window = layer_window(cfg, idx)
             size = min(self.max_len, window) if window else self.max_len
-            specs = kv_leaf_specs(cfg, (self.batch, size), self.cache_dtype)
+            specs = cache_leaf_specs(cfg, idx, (self.batch, size),
+                                     self.cache_dtype)
             total += sum(math.prod(shape) * dt.itemsize
                          for shape, dt in specs.values())
         return total / max(1, self.batch * self.max_len)

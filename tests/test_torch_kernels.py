@@ -193,18 +193,19 @@ def test_mixed_devices_raise():
 
 
 def test_later_slice_options_raise():
-    """Only MLA's ``v_width`` still raises; a quantized cache's scales
-    (``k_scale``, ``v_scale`` defaulting to it) give a result."""
+    """No attention option raises any more: MLA's ``v_width`` gives the
+    values' width, and a quantized cache's scales (``k_scale``,
+    ``v_scale`` defaulting to it) give a result."""
     q, k = torch.zeros(1, 1, 2, 4), torch.zeros(1, 4, 1, 4)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        da_ops.decode_attention(q, k, k, 0, v_width=2)
+    out = da_ops.decode_attention(q, k, k, 0, v_width=2)
+    assert out.shape == (1, 1, 2, 2) and torch.isfinite(out).all()
     codes = torch.ones(1, 4, 1, 4, dtype=torch.int8)
     out = da_ops.decode_attention(q, codes, codes, 0,
                                   k_scale=torch.ones(1, 4, 1))
     assert out.shape == (1, 1, 2, 4) and torch.isfinite(out).all()
     qc, kx = torch.zeros(1, 2, 2, 4), torch.zeros(1, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        pa_ops.prefill_attention(qc, kx, kx, k, k, 0, v_width=2)
+    out = pa_ops.prefill_attention(qc, kx, kx, k, k, 0, v_width=2)
+    assert out.shape == (1, 2, 2, 2) and torch.isfinite(out).all()
     out = pa_ops.prefill_attention(qc, kx, kx, codes, codes, 0,
                                    k_scale=torch.ones(1, 4, 1),
                                    v_scale=torch.ones(1, 4, 1))

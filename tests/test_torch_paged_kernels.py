@@ -291,21 +291,21 @@ def test_paged_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_paged_later_slice_options_raise():
-    """Only MLA's ``v_width`` still raises; quantized pools with their
-    scale pools give a result."""
+    """No option raises any more: MLA's ``v_width`` gives the values'
+    width, and quantized pools with their scale pools give a result."""
     q, pool, table = torch.zeros(1, 1, 2, 4), torch.zeros(3, 4, 1, 4), \
         torch.ones(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        da_ops.decode_attention_paged(q, pool, pool, table, 0, v_width=2)
+    out = da_ops.decode_attention_paged(q, pool, pool, table, 0, v_width=2)
+    assert out.shape == (1, 1, 2, 2) and torch.isfinite(out).all()
     codes, scales = torch.ones(3, 4, 1, 4, dtype=torch.int8), \
         torch.ones(3, 4, 1)
     out = da_ops.decode_attention_paged(q, codes, codes, table, 0,
                                         k_scale=scales)
     assert out.shape == (1, 1, 2, 4) and torch.isfinite(out).all()
     qc, kx = torch.zeros(1, 2, 2, 4), torch.zeros(1, 2, 1, 4)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        pa_ops.prefill_attention_paged(qc, kx, kx, pool, pool, table, 0,
-                                       v_width=2)
+    out = pa_ops.prefill_attention_paged(qc, kx, kx, pool, pool, table, 0,
+                                         v_width=2)
+    assert out.shape == (1, 2, 2, 2) and torch.isfinite(out).all()
     out = pa_ops.prefill_attention_paged(qc, kx, kx, codes, codes, table, 0,
                                          k_scale=scales, v_scale=scales)
     assert out.shape == (1, 2, 2, 4) and torch.isfinite(out).all()
