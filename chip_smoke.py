@@ -35,8 +35,9 @@ Phases, in order; any failure exits nonzero:
      (bf16 prefill on ``mma.sync``, the f32 GEMM and flash-decode on the
      CUDA cores, the STREAM triad, the gridder's and the degridder's
      phasor on the SFU, JACOBI2D's and the copying scatters' 16-byte
-     loads and stores, the quantizing scatters' lane groups) gated on
-     their SASS and on 0 bytes of ptxas spill.
+     loads and stores, the quantizing scatters' lane groups, MLA's
+     prefill chunk on wgmma fed by TMA) gated on their SASS and on 0
+     bytes of ptxas spill.
      The three paged kernels (paged cache_update, decode and prefill
      attention) the same way, at the paged serve path's shapes and at
      odd ones (page sizes 8 and 24, shuffled pages, a window, softcap,
@@ -70,7 +71,10 @@ Phases, in order; any failure exits nonzero:
      kernels), within TOL; a decode row with lens -1 exactly 0; each main
      case timed beside its byte and operation bounds and, contiguous
      bf16, SDPA over the expanded and sliced tensors; rows 1, 4, 5, 6 at
-     F 576 through the one-leaf ops, bit for bit.
+     F 576 through the one-leaf ops, bit for bit; the prefill launcher's
+     shared memory and TMA rule against the library's (the chunks, 2v
+     and 8v, run ``latent_prefill_kernel``: wgmma fed by TMA, its SASS
+     gated in phase 3b).
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
@@ -1657,6 +1661,35 @@ def check_latent(fns: dict, dev) -> dict:
     return results
 
 
+def check_latent_plan(lib, la) -> None:
+    """The latent prefill launcher's plan against the library's: each
+    width tier's and cache dtype's shared memory, and the rule that picks
+    TMA or the producer's element copies (16-byte-aligned bases, rows of
+    whole 16-byte units, page boxes of 8 rows or more)."""
+    for hd, hdv in ((24, 16), (36, 32), (72, 64), (576, 512)):
+        for code in (1, 2, 3):
+            got = lib.pmt_latent_prefill_smem_bytes(hd, hdv, code)
+            if got != la.prefill_smem_bytes(hd, code >= 2):
+                raise AssertionError(f"prefill smem at hd {hd} differs: {got}")
+    dev = torch.device("cuda")
+    for hd in (36, 72, 576):
+        for dt in (torch.bfloat16, torch.int8):
+            for shift in (0, 1):
+                flat = torch.empty(64 * hd + 1, dtype=torch.bfloat16,
+                                   device=dev)
+                q = flat[shift:shift + 64 * hd].view(1, 1, 1, 64, hd)
+                kc = torch.empty(1, 16, 1, hd, dtype=dt, device=dev)
+                for ps in (None, 4, 16):
+                    got = lib.pmt_latent_prefill_tma(
+                        q.data_ptr(), kc.data_ptr(), kc.data_ptr(), hd,
+                        ps or 16, int(ps is not None),
+                        1 if dt == torch.bfloat16 else 2)
+                    if bool(got) != la.loads_by_tma(q, kc, kc, ps):
+                        raise AssertionError(f"the TMA rule differs at hd "
+                                             f"{hd} {dt} +{shift} ps {ps}")
+    log("  latent prefill plan (shared memory, TMA rule) = the library's")
+
+
 def check_latent_scatters(cu_ops, cu_ref, quant, dev) -> None:
     """Rows 1, 4, 5 and 6 on MLA's one leaf, 576 wide, through the
     one-leaf ops, bit for bit against their plain versions: the copying
@@ -2264,19 +2297,40 @@ REDESIGNS = (
     # the copying scatters, contiguous and paged x the 16-byte path and
     # the element path, flat packed
     ("copy_scatter_kernel", "cache_update.cu", 4, {"LDG", "STG"}, set()),
+    # MLA's prefill chunk (rows 2v, 8v): wgmma fed by TMA, no mma.sync;
+    # widths 128, 576 x contiguous, paged x bf16, int8, fp8_e4m3 caches
+    ("latent_prefill_kernel", "latent_attention.cu", 12, {"HGMMA", "UTMALDG"},
+     {"HMMA"}),
 )
+
+
+# Kernels whose spills (a few bytes, ptxas's 168 registers a thread at
+# nine warps) must lie outside the tile loop, the span from the first
+# HGMMA to the last, rather than be none.
+SPILLS_OUTSIDE_LOOP = ("latent_prefill_kernel",)
+
+
+def spills_in_loop(text: str) -> bool:
+    """Whether a function's SASS holds a local load or store (LDL, STL)
+    between its first and last HGMMA."""
+    ops = [op for _, op, _ in _SASS.findall(text)]
+    hgmma = [i for i, op in enumerate(ops) if op.startswith("HGMMA")]
+    return bool(hgmma) and any(op.startswith(("LDL", "STL"))
+                               for op in ops[hgmma[0]:hgmma[-1] + 1])
 
 
 def check_redesigns(build) -> None:
     """The tensor-core prefill kernels (bf16 q over bf16 or codes) run on
-    the tensor cores (their SASS holds HMMA), the GEMM and flash-decode
+    the tensor cores (their SASS holds HMMA), MLA's prefill-chunk kernels
+    on wgmma fed by TMA (HGMMA and UTMALDG, no HMMA), the GEMM and flash-decode
     kernels on the CUDA cores in float32 (FFMA, no HMMA or HGMMA), the
     gridder's and the degridder's phasor on the SFU (MUFU), JACOBI2D's
     16-byte path loads and stores 16 bytes an instruction (LDG and STG
     with a .128 width), the quantizing scatters' lane-group path loads 16
     bytes an instruction (LDG.128), the copying scatters' 16-byte path
     loads and stores 16 bytes an instruction (LDG.128, STG.128), and
-    none of them, nor the STREAM triad, spills a byte (ptxas)."""
+    none of them, nor the STREAM triad, spills a byte (ptxas), but MLA's
+    prefill-chunk kernels, which spill nothing in their tile loops."""
     funcs = sass_functions(build.library_path())
     wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
              if ".128" in op}
@@ -2322,7 +2376,14 @@ def check_redesigns(build) -> None:
                 and all(must <= f and not must_not & f for f in funcs)):
             raise AssertionError(f"{kernel}'s SASS is not what its design "
                                  f"says")
-        if any(stores or loads for _, _, _, stores, loads in usage):
+        if kernel in SPILLS_OUTSIDE_LOOP:
+            loops = [spills_in_loop(text) for name, text in
+                     sass_functions(build.library_path()) if kernel in name]
+            log(f"  {kernel}: {sum(loops)} of {len(loops)} functions with "
+                f"LDL/STL between their first and last HGMMA")
+            if any(loops):
+                raise AssertionError(f"{kernel} spills in its tile loop")
+        elif any(stores or loads for _, _, _, stores, loads in usage):
             raise AssertionError(f"{kernel} spills registers")
 
 
@@ -4000,7 +4061,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.core.backends import nvml
-    from repro_torch.kernels import build, quant
+    from repro_torch.kernels import build, latent_attention, quant
     from repro_torch.kernels.cache_update import kernel as cu_kernel
     from repro_torch.kernels.cache_update import ops as cu_ops
     from repro_torch.kernels.cache_update import ref as cu_ref
@@ -4102,6 +4163,7 @@ def main() -> int:
         "prefill_paged": (pa_kernel.prefill_attention_paged_cuda,
                           pa_ref.prefill_attention_paged_ref)}, dev)
     check_latent_scatters(cu_ops, cu_ref, quant, dev)
+    check_latent_plan(build.library(), latent_attention)
 
     log(f"[3b] Fig. 2 kernels against their plain versions {elapsed()}")
     timings.update({

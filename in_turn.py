@@ -1,6 +1,6 @@
 """Time two checkouts of this repo in turns on one card.
 
-    python3 in_turn.py OTHER_CHECKOUT
+    python3 in_turn.py OTHER_CHECKOUT [--latent-only]
 
 Speeds measured on two machines cannot be compared (cards run under
 other power limits and hosts), so this runs, on one card, OTHER, this
@@ -65,7 +65,14 @@ builds its kernels, then measures with this checkout's
     TRAIN_STEPS measured steps (``measured_steps``: wall clock and the
     card's NVML joules);
   * one more step traced (``trace_train``): device busy time and the
-    flash kernel's share of it.
+    flash kernel's share of it;
+  * phase 3v's main cases (``LATENT_CASES`` at deepseek-v3's widths: G
+    128, hdq 576, hdv 512) through the checkout's wrappers, over a bf16
+    cache and int8 codes, by ``graph_ms``: rows 2v (the chunk, B1 T32
+    over 512), 8v (the paged chunk, B8 T32, prefixes 0-992), 3v and 7v
+    (decode, contiguous and paged).
+
+With ``--latent-only`` a run measures phase 3v's cases alone.
 
 Prints one JSON line per run, then by checkout the median and quartiles
 of each number, and how many pairs this checkout won on each time.  Imports nothing of JAX; needs one card.
@@ -112,7 +119,8 @@ dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 build.library()
-
+"""
+CHILD_BODY = r"""
 a = smoke._randn(dev, 8192, 8192, seed=8)
 b = smoke._randn(dev, 8192, 8192, seed=9)
 gemm_ms = smoke.time_ms(lambda: gemm_kernel.gemm_cuda(a, b), iters=10,
@@ -321,8 +329,8 @@ state, run = smoke.measured_steps(train, pmt, nvml, fa_kernel, step_fn,
 assert all(math.isfinite(x) for x in run["losses"]), run["losses"]
 traced, busy, flash = smoke.trace_train(step_fn, state, batches[-1])
 n, wall = smoke.TRAIN_STEPS, run["wall"]
-print(json.dumps({
-    "checkout": other, "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
+res = {
+    "gemm_ms": gemm_ms, "matmul_ms": matmul_ms,
     "stream_ms": stream_ms, "add_ms": add_ms,
     "stream_over_add": stream_ms / add_ms, "gridder_ms": gridder_ms,
     "degridder_ms": degridder_ms, "jacobi2d_ms": jacobi2d_ms,
@@ -355,8 +363,32 @@ print(json.dumps({
     "j_per_step": run["joules"] / n, "watts": run["joules"] / wall,
     "flash_per_step": run["per_step"][0], "traced_wall_ms": traced,
     "busy_ms": busy, "flash_ms": flash, "flash_share": flash / busy,
-    "last_loss": run["losses"][-1]}))
+    "last_loss": run["losses"][-1]}
 """
+# phase 3v's main cases (deepseek-v3's widths: G 128, hdq 576, hdv 512)
+# over a bf16 cache and int8 codes, through the checkout's wrappers
+CHILD_LATENT = r"""
+for row, kind, fn in (
+        ("2v", "prefill", pa_kernel.prefill_attention_cuda),
+        ("8v", "prefill_paged", pa_kernel.prefill_attention_paged_cuda),
+        ("3v", "decode", da_kernel.decode_attention_cuda),
+        ("7v", "decode_paged", da_kernel.decode_attention_paged_cuda)):
+    q, kx, cache, table, pos = smoke._latent_inputs(
+        dev, torch.bfloat16, kind, smoke.LATENT_CASES[kind],
+        smoke.LATENT["g"], smoke.LATENT["hd"])
+    for mode in ("bf16", "int8"):
+        kw = dict(scale=1.0 / math.sqrt(192), v_width=smoke.LATENT["hdv"])
+        c = cache
+        if mode != "bf16":
+            c, kw["k_scale"] = quant.quantize(cache, mode)
+        args = smoke._latent_args(kind, q, kx, c, table, pos)
+        res[f"latent_{row}_{mode}_graph_ms"] = smoke.graph_ms(
+            lambda: fn(*args, **kw))
+    del q, kx, cache, table, pos, c
+print(json.dumps({"checkout": other, **res}))
+"""
+LATENT_KEYS = tuple(f"latent_{row}_{mode}_graph_ms" for row in
+                    ("2v", "8v", "3v", "7v") for mode in ("bf16", "int8"))
 KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
         "gridder_ms", "degridder_ms", "jacobi2d_ms", "copy_ms",
         "prefill_ms", "prefill_graph_ms", "sdpa_graph_ms",
@@ -371,7 +403,7 @@ KEYS = ("gemm_ms", "matmul_ms", "stream_ms", "add_ms", "stream_over_add",
         "paged_decode_launches", "serve_s", "serve_tokens_per_s",
         "int8_serve_s",
         "int8_serve_tokens_per_s", "kernel_ms", "step_ms", "tokens_per_s",
-        "j_per_step", "watts", "busy_ms", "flash_share")
+        "j_per_step", "watts", "busy_ms", "flash_share") + LATENT_KEYS
 WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
        "prefill_ms", "prefill_graph_ms", "quant_prefill_graph_ms",
        "paged_prefill_graph_ms", "quant_paged_prefill_graph_ms",
@@ -382,13 +414,18 @@ WON = ("gemm_ms", "stream_ms", "gridder_ms", "degridder_ms", "jacobi2d_ms",
        "quant_paged_chunk_write_graph_ms", "bf16_write_graph_ms",
        "bf16_paged_write_graph_ms", "bf16_paged_chunk_write_graph_ms",
        "serve_s", "int8_serve_s",
-       "kernel_ms", "step_ms")
+       "kernel_ms", "step_ms") + LATENT_KEYS
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("other", type=Path, help="the other checkout's root")
-    other = ap.parse_args().other.resolve()
+    ap.add_argument("--latent-only", action="store_true",
+                    help="time phase 3v's main cases alone")
+    args = ap.parse_args()
+    other = args.other.resolve()
+    child = CHILD + ("res = {}\n" if args.latent_only else CHILD_BODY) \
+        + CHILD_LATENT
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -398,7 +435,7 @@ def main() -> int:
     for _ in range(ROUNDS):
         for checkout in order:
             out = subprocess.run(
-                [sys.executable, "-c", CHILD, str(checkout), str(ROOT)],
+                [sys.executable, "-c", child, str(checkout), str(ROOT)],
                 capture_output=True, text=True, timeout=900)
             if out.returncode:
                 print(out.stdout[-4000:] + out.stderr[-4000:],
@@ -406,19 +443,20 @@ def main() -> int:
                 return 1
             runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
             print(json.dumps(runs[-1]), flush=True)
+    keys = [key for key in KEYS if key in runs[0]]
     for checkout in order[:2]:
         mine = [r for r in runs if r["checkout"] == str(checkout)]
         print(json.dumps({"checkout": str(checkout), "runs": len(mine), **{
             key: {"median": statistics.median(r[key] for r in mine),
                   "quartiles": statistics.quantiles(
                       [r[key] for r in mine], n=4)[::2]}
-            for key in KEYS}}), flush=True)
+            for key in keys}}), flush=True)
     # runs 4i, 4i+1 and 4i+2, 4i+3 are the pairs: (other, this), (this, other)
     pairs = [(runs[i], runs[i + 1]) if runs[i]["checkout"] == str(other)
              else (runs[i + 1], runs[i]) for i in range(0, len(runs), 2)]
     print(json.dumps({"pairs": len(pairs), "this_faster": {
         key: sum(mine[key] < theirs[key] for theirs, mine in pairs)
-        for key in WON}}), flush=True)
+        for key in WON if key in runs[0]}}), flush=True)
     return 0
 
 

@@ -29,11 +29,17 @@ checked bit for bit) at decode (8 rows into 1024 slots), the paged
 decode (every row valid: ``valids`` None) and the paged chunk (B 8, T
 32, masked rows), beside an empty kernel (``csrc/empty.cu``) on one
 block of 32 threads and on the pair's grids; the latent-attention
-kernel (rows 2v, 3v, 8v; ``LATENT_FULL_SCORE``, key tiles of 16, one
-row tile a block; its ring of three tiles is the loop's, which loads
-tile i + 2 while it computes tile i)
-by ``graph_ms`` at ``chip_smoke.LATENT_CASES``' decode, chunk and paged
-chunk in bf16, checked within ``chip_smoke.TOL[bf16]``.  ROUNDS
+kernels (rows 3v, 2v, 8v): the shipped source (decode on
+``latent_attention_kernel``, the chunks on ``latent_prefill_kernel``),
+the prefill kernel with ``clock64()`` stamps by stage and the global
+timer at each block's start and end (``LATENT_NEW_STAMPS``), beside the
+chunk's first design on ``mma.sync`` (the decode kernel's prefill
+branch, ``LATENT_MMA_SYNC``), that loop with stamps
+(``LATENT_STAMPS``; both printed as cycles a tile, summed over every
+block of one launch), with key tiles of 16, one row tile a block,
+``LATENT_FULL_SCORE`` and ``LATENT_BULK``, by ``graph_ms`` at
+``chip_smoke.LATENT_CASES``' decode, chunk and paged chunk over a bf16
+cache and int8 codes, checked within ``chip_smoke.TOL[bf16]``.  ROUNDS
 rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
 whose names start with one of them.  Prints the card's name and power
@@ -325,7 +331,213 @@ LATENT_BULK = (
       asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
       __syncthreads();"""),
 )
-LATENT_ENTRY = "pmt_latent_attention"
+# The decode kernel's prefill branch (the chunk's first design, on
+# mma.sync), which the shipped entry point refuses (the chunk has a kernel
+# of its own), launched again through pmt_latent_attention with decode 0.
+LATENT_MMA_SYNC = ((
+    """      tickets == nullptr || (nsplit > 1 && ws == nullptr) || !decode || T != 1 ||
+      (paged && page_table == nullptr) ||""",
+    """      tickets == nullptr || (nsplit > 1 && ws == nullptr) || (decode && T != 1) ||
+      (!decode && kx == nullptr) || (paged && page_table == nullptr) ||"""),)
+# That loop with clock64() stamps on thread 0 of every block (up to
+# STAMP_BLOCKS), summed over its tiles by stage: 0 the wait for the ring
+# (cp.async.wait_group), 1 the block barrier after it, 2 issuing the
+# tile two ahead, 3 widening codes (and its barrier), 4 the score
+# products (ldmatrix and mma.sync issued), 5 the exchange of the
+# partial scores (stores, barrier, sums: it also waits for the products'
+# results), 6 the softmax (with the accumulator's rescale), 7 the PV
+# products; slot 8 the block's tiles.  pmt_latent_stamps copies them out
+# and zeroes them.
+STAMP_BLOCKS, STAMP_SLOTS = 4096, 16
+STAMP_BLK = "blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)"
+STAMPS_COMMON = (
+    ("""template <typename TC>
+__host__ __device__ inline size_t smem_bytes(int DK, int row_tiles) {""",
+     f"""__device__ unsigned long long pmt_stamps[{STAMP_BLOCKS * STAMP_SLOTS}];
+
+template <typename TC>
+__host__ __device__ inline size_t smem_bytes(int DK, int row_tiles) {{"""),
+    ("""extern "C" int pmt_latent_smem_bytes(""",
+     """extern "C" int pmt_latent_stamps(void* dst, int n) {
+  cudaError_t err = cudaMemcpyFromSymbol(dst, pmt_stamps, n * sizeof(unsigned long long));
+  void* dev = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&dev, pmt_stamps);
+  if (err == cudaSuccess) err = cudaMemset(dev, 0, sizeof(pmt_stamps));
+  return static_cast<int>(err);
+}
+
+extern "C" int pmt_latent_smem_bytes("""),
+)
+LATENT_STAMPS = LATENT_MMA_SYNC + STAMPS_COMMON + (
+    ("""    load_tile(0, 0);  // q rides in tile 0's group
+""", """    unsigned long long stamp_acc[8] = {};
+    long long stamp_t = clock64();
+    auto stamp = [&](int k) {
+      const long long now = clock64();
+      stamp_acc[k] += now - stamp_t;
+      stamp_t = now;
+    };
+    load_tile(0, 0);  // q rides in tile 0's group
+"""),
+    ("""        cp_async_wait<0>();
+      // tile i is in for every thread""", """        cp_async_wait<0>();
+      stamp(0);
+      // tile i is in for every thread"""),
+    ("""      __syncthreads();
+      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
+""", """      __syncthreads();
+      stamp(1);
+      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
+      stamp(2);
+"""),
+    ("""          widen_tile(i % kStages);
+          __syncthreads();
+        }
+      }
+""", """          widen_tile(i % kStages);
+          __syncthreads();
+        }
+      }
+      stamp(3);
+"""),
+    ("""      // The row tile's four partials meet""",
+     """      stamp(4);
+      // The row tile's four partials meet"""),
+    ("""      // scale, masks, online softmax (log2 units), on the fragments.  A""",
+     """      stamp(5);
+      // scale, masks, online softmax (log2 units), on the fragments.  A"""),
+    ("""      // O += p . v over this warp's value columns""",
+     """      stamp(6);
+      // O += p . v over this warp's value columns"""),
+    ("""          mma_bf16_16816(o[2 * np + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+""", f"""          mma_bf16_16816(o[2 * np + 1], pl, vb[2], vb[3]);
+        }}
+      }}
+      stamp(7);
+    }}
+    const int blk = {STAMP_BLK};
+    if (tid == 0 && blk < {STAMP_BLOCKS}) {{
+      for (int k = 0; k < 8; ++k) pmt_stamps[blk * {STAMP_SLOTS} + k] = stamp_acc[k];
+      pmt_stamps[blk * {STAMP_SLOTS} + 15] = ntiles;
+    }}
+"""),
+)
+# The prefill kernel with clock64() stamps, consumer thread 0 (warpgroup
+# 0) by stage: 0 the wait for a full tile, 1 widening codes or zeroing
+# rows (and its named barrier), 2 issuing S, 3 issuing the last tile's p
+# . v and waiting for S, 4 the scores' scale, masks and row maxima, 5 the
+# named barrier that shares the maxima, 6 p, its split and its stores, 7
+# the named barrier that shares p, 8 waiting for the last tile's p . v
+# and its release; 12 the wait for q; and producer thread 0: 10 its
+# waits for an empty stage, 11 issuing loads (q's included) and widening
+# codes.
+LATENT_NEW_STAMPS = STAMPS_COMMON + (
+    ("""    if (ntiles > 0) mbar_wait(q_full, 0);
+    for (int t = 0; t < ntiles; ++t) {""", """    unsigned long long stamp_acc[13] = {};
+    long long stamp_t = clock64();
+    auto stamp = [&](int k) {
+      const long long now = clock64();
+      stamp_acc[k] += now - stamp_t;
+      stamp_t = now;
+    };
+    if (ntiles > 0) mbar_wait(q_full, 0);
+    stamp(12);
+    for (int t = 0; t < ntiles; ++t) {"""),
+    ("""  const int split = blockIdx.x, h = blockIdx.z % KVH, b = b_of_z, bh = b * KVH + h;""",
+     f"""  unsigned long long block_t0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(block_t0));
+  const int split = blockIdx.x, h = blockIdx.z % KVH, b = b_of_z, bh = b * KVH + h;"""),
+    ("""  if (nsplit == 1) return;
+
+  // The ticket; the last block of the group folds""", f"""  if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
+    unsigned long long block_t1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(block_t1));
+    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 13] = block_t0;
+    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 14] = block_t1;
+  }}
+  if (nsplit == 1) return;
+
+  // The ticket; the last block of the group folds"""),
+    ("""      mbar_wait(full(t), phase(t));
+      const int base""", """      mbar_wait(full(t), phase(t));
+      stamp(0);
+      const int base"""),
+    ("""        named_sync(1, 128 * kConsumers);
+      }
+""", """        named_sync(1, 128 * kConsumers);
+      }
+      stamp(1);
+"""),
+    ("""      wgmma_commit();
+      if (t > 0) {""", """      wgmma_commit();
+      stamp(2);
+      if (t > 0) {"""),
+    ("""        wgmma_wait<0>();
+      }
+      fence_regs(s);
+""", """        wgmma_wait<0>();
+      }
+      fence_regs(s);
+      stamp(3);
+"""),
+    ("""      named_sync(2, 128 * kConsumers);
+      uint8_t* pb""", """      stamp(4);
+      named_sync(2, 128 * kConsumers);
+      stamp(5);
+      uint8_t* pb"""),
+    ("""      fence_proxy_async();
+      named_sync(3, 128 * kConsumers);
+""", """      fence_proxy_async();
+      stamp(6);
+      named_sync(3, 128 * kConsumers);
+      stamp(7);
+"""),
+    ("""      if (t > 0 && lane == 0) mbar_arrive(empty(t - 1));  // this warp is done with it
+""", """      if (t > 0 && lane == 0) mbar_arrive(empty(t - 1));  // this warp is done with it
+      stamp(8);
+"""),
+    ("""    if (ntiles > 0) {  // the last tile's p . v
+""", f"""    if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
+      const int blk = {STAMP_BLK};
+      for (int k = 0; k < 9; ++k) pmt_stamps[blk * {STAMP_SLOTS} + k] = stamp_acc[k];
+      pmt_stamps[blk * {STAMP_SLOTS} + 12] = stamp_acc[12];
+      pmt_stamps[blk * {STAMP_SLOTS} + 15] = ntiles;
+    }}
+    if (ntiles > 0) {{  // the last tile's p . v
+"""),
+    ("""      for (int t = 0; t < ntiles; ++t) {
+        mbar_wait(empty(t), phase(t) ^ 1);
+""", """      unsigned long long pst[2] = {};
+      long long pt = clock64();
+      auto pstamp = [&](int k) {
+        const long long now = clock64();
+        pst[k] += now - pt;
+        pt = now;
+      };
+      for (int t = 0; t < ntiles; ++t) {
+        pstamp(1);
+        mbar_wait(empty(t), phase(t) ^ 1);
+        pstamp(0);
+"""),
+    ("""          mbar_arrive(bar);
+        }
+      }
+    }
+  } else {""", f"""          mbar_arrive(bar);
+        }}
+      }}
+      pstamp(1);
+      if (ptid == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
+        pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 10] = pst[0];
+        pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 11] = pst[1];
+      }}
+    }}
+  }} else {{"""),
+)
+LATENT_ENTRY = ("pmt_latent_attention", "pmt_latent_prefill")
 
 VARIANTS = {
     "degridder": ("gridder.cu", "pmt_degridder", {}),
@@ -383,17 +595,19 @@ VARIANTS = {
                               ROWS_OF_UNITS),
     "scatter PDL": ("cache_update.cu", COPY_ENTRIES, {}, PDL),
     "latent": ("latent_attention.cu", LATENT_ENTRY, {}),
-    "latent kKT 16": ("latent_attention.cu", LATENT_ENTRY, {"kKT": 16}),
-    "latent one row tile": ("latent_attention.cu", LATENT_ENTRY,
-                            {"kMaxRowTiles": 1}),
-    "latent one row tile kKT 16": ("latent_attention.cu", LATENT_ENTRY,
-                                   {"kMaxRowTiles": 1, "kKT": 16}),
-    "latent full score": ("latent_attention.cu", LATENT_ENTRY, {},
-                          LATENT_FULL_SCORE),
-    "latent bulk copies": ("latent_attention.cu", LATENT_ENTRY, {},
-                           LATENT_BULK),
-    "latent bulk copies kKT 16": ("latent_attention.cu", LATENT_ENTRY,
-                                  {"kKT": 16}, LATENT_BULK),
+    "latent stamped": ("latent_attention.cu", LATENT_ENTRY, {},
+                       LATENT_NEW_STAMPS),
+    "latent mma.sync": ("latent_attention.cu", LATENT_ENTRY, {}, LATENT_MMA_SYNC),
+    "latent mma.sync stamped": ("latent_attention.cu", LATENT_ENTRY, {},
+                             LATENT_STAMPS),
+    "latent mma.sync kKT 16": ("latent_attention.cu", LATENT_ENTRY,
+                            {"kKT": 16}, LATENT_MMA_SYNC),
+    "latent mma.sync one row tile": ("latent_attention.cu", LATENT_ENTRY,
+                                  {"kMaxRowTiles": 1}, LATENT_MMA_SYNC),
+    "latent mma.sync full score": ("latent_attention.cu", LATENT_ENTRY, {},
+                                LATENT_MMA_SYNC + LATENT_FULL_SCORE),
+    "latent mma.sync bulk copies": ("latent_attention.cu", LATENT_ENTRY, {},
+                                 LATENT_MMA_SYNC + LATENT_BULK),
 }
 
 
@@ -491,56 +705,126 @@ def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
     return calls, checks
 
 
-# Rows 3v, 2v and 8v's cases (chip_smoke.LATENT_CASES) in bf16.
+# Rows 3v, 2v and 8v's cases (chip_smoke.LATENT_CASES), over a bf16
+# cache and over int8 codes.
 LATENT_TIMED = ("decode", "prefill", "prefill_paged")
+LATENT_CACHES = ("bf16", "int8")
+STAGES = {"latent mma.sync stamped": (
+    "ring wait", "barrier", "issue loads", "widen codes", "score products",
+    "exchange partials", "softmax", "PV products"),
+    "latent stamped": (
+    "full wait", "widen or zero", "S issue", "PV issue and S wait",
+    "scores and maxima", "maxima barrier", "p and its stores", "p barrier",
+    "PV wait and release", "-", "producer empty waits", "producer issue",
+    "q wait")}
 
 
-def latent_calls(smoke, la, refs, dev, stream, libs) -> tuple:
+def latent_calls(smoke, la, refs, quant, dev, stream, libs) -> tuple:
     """{call name: call} of each latent-attention variant at rows 3v, 2v
-    and 8v's cases (bf16 q over a bf16 cache; the variants with one row
-    tile launch with one), and {call name: (got, want)} to check once
-    after a first call."""
+    and 8v's cases (bf16 q over a bf16 cache or int8 codes; the shipped
+    source launches the prefill cases on its prefill kernel, the
+    mma.sync variants on the decode kernel's prefill branch, those with one row
+    tile with one), and {call name: (got, want)} to check once after a
+    first call."""
     import torch
     calls, checks = {}, {}
+    if not any(name.startswith("latent") for name in libs):
+        return calls, checks
     g, hd, hdv = (smoke.LATENT[k] for k in ("g", "hd", "hdv"))
+    scale = 1.0 / math.sqrt(192)
     for kind in LATENT_TIMED:
         cs = smoke.LATENT_CASES[kind]
-        q, kx, cache, table, pos = smoke._latent_inputs(
+        q, kx, cache0, table, pos = smoke._latent_inputs(
             dev, torch.bfloat16, kind, cs, g, hd)
         decode = kind.startswith("decode")
         t = 1 if decode else cs["t"]
         b = cs["b"]
         c = cs["nb"] * cs["ps"] if table is not None else cs["c"]
-        want = refs[kind](*smoke._latent_args(kind, q, kx, cache, table, pos),
-                          scale=1.0 / math.sqrt(192), v_width=hdv)
-        for name, lib in libs.items():
-            if not name.startswith("latent"):
-                continue
-            tiles = 1 if "one row tile" in name else la.row_tiles(t * g)
-            groups = b * math.ceil(t * g / (16 * tiles))
-            nsplit = la.split_count(groups, c, 132)
-            tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
-            ws = torch.empty(max(groups * nsplit * 16 * tiles * (hdv + 2), 1),
-                             device=dev)
-            out = torch.empty((b, 1, t, g, hdv), dtype=torch.bfloat16,
-                              device=dev)
-            qq = q.view(b, 1, t, g, hd)
-            key = f"{name}, {kind}"
-            calls[key] = (
-                lambda lib=lib, out=out, ws=ws, tickets=tickets, qq=qq,
-                kx=kx, cache=cache, table=table, pos=pos, tiles=tiles,
-                nsplit=nsplit, decode=decode, t=t, b=b, c=c:
-                lib.pmt_latent_attention(
-                    qq.data_ptr(), None if kx is None else kx.data_ptr(),
-                    cache.data_ptr(), None, pos.data_ptr(),
-                    None if table is None else table.data_ptr(),
-                    out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, t,
-                    c, 1 if table is None else table.shape[1],
-                    c if table is None else cache.shape[1], 1, g, hd, hdv,
-                    1.0 / math.sqrt(192), int(decode), int(table is not None),
-                    1, nsplit, tiles, stream()))
-            checks[key] = (out, want.view(b, 1, t, g, hdv))
+        qq = q.view(b, 1, t, g, hd)
+        for mode in LATENT_CACHES:
+            cache, ks = (cache0, None) if mode == "bf16" \
+                else quant.quantize(cache0, mode)
+            want = refs[kind](*smoke._latent_args(kind, q, kx, cache, table,
+                                                  pos),
+                              scale=scale, v_width=hdv, k_scale=ks)
+            for name, lib in libs.items():
+                if not name.startswith("latent"):
+                    continue
+                prefill_kernel = not name.startswith("latent mma.sync") \
+                    and not decode
+                if prefill_kernel:
+                    tiles, rows = 0, la.PREFILL_ROWS
+                    groups = la.prefill_groups(b, 1, t, g)
+                    nsplit = la.prefill_split_count(groups, c, 132)
+                else:
+                    tiles = 1 if "one row tile" in name \
+                        else la.row_tiles(t * g)
+                    rows = 16 * tiles
+                    groups = b * math.ceil(t * g / rows)
+                    nsplit = la.split_count(groups, c, 132)
+                tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
+                ws = torch.empty(max(groups * nsplit * rows * (hdv + 2), 1),
+                                 device=dev)
+                out = torch.empty((b, 1, t, g, hdv), dtype=torch.bfloat16,
+                                  device=dev)
+                ptrs = (qq.data_ptr(), None if kx is None else kx.data_ptr(),
+                        cache.data_ptr(), None if ks is None
+                        else ks.data_ptr(), pos.data_ptr(),
+                        None if table is None else table.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), tickets.data_ptr())
+                nb = 1 if table is None else table.shape[1]
+                ps = c if table is None else cache.shape[1]
+                code = 1 if ks is None else 2
+                if prefill_kernel:
+                    call = functools.partial(
+                        lib.pmt_latent_prefill, *ptrs, b, t, c, nb, ps,
+                        cache.shape[0], 1, g, hd, hdv, scale,
+                        int(table is not None), code, nsplit)
+                else:
+                    call = functools.partial(
+                        lib.pmt_latent_attention, *ptrs, b, t, c, nb, ps, 1,
+                        g, hd, hdv, scale, int(decode),
+                        int(table is not None), code, nsplit, tiles)
+                key = f"{name}, {kind} {mode}"
+                # the tensors behind the pointers live as long as the call
+                calls[key] = lambda call=call, keep=(out, ws, tickets, qq, kx,
+                                                     cache, ks, table, pos): \
+                    call(stream())
+                checks[key] = (out, want.view(b, 1, t, g, hdv))
     return calls, checks
+
+
+def latent_stamps(lib, call, stages) -> dict:
+    """One launch of a stamped variant: {stage: clock cycles a tile}
+    summed over the blocks that had tiles, and the blocks and tiles."""
+    import torch
+    n = STAMP_BLOCKS * STAMP_SLOTS
+    buf = (ctypes.c_ulonglong * n)()
+    lib.pmt_latent_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if lib.pmt_latent_stamps(buf, n):  # zeroes what earlier launches left
+        raise RuntimeError("pmt_latent_stamps failed")
+    if call():
+        raise RuntimeError("the stamped launch failed")
+    torch.cuda.synchronize()
+    if lib.pmt_latent_stamps(buf, n):
+        raise RuntimeError("pmt_latent_stamps failed")
+    blocks = [buf[i * STAMP_SLOTS:(i + 1) * STAMP_SLOTS]
+              for i in range(STAMP_BLOCKS) if buf[i * STAMP_SLOTS + 15]]
+    tiles = sum(blk[15] for blk in blocks)
+    out = {"blocks": len(blocks), "tiles": tiles, "cycles_a_tile": {
+        stage: sum(blk[k] for blk in blocks) / tiles
+        for k, stage in enumerate(stages)}}
+    timed = [(blk[13], blk[14]) for blk in blocks if blk[14]]
+    if timed:  # the global timer (ns) at each block's start and end
+        t0 = min(a for a, _ in timed)
+        starts = sorted(a - t0 for a, _ in timed)
+        out["timeline_us"] = {
+            "span": (max(b for _, b in timed) - t0) / 1e3,
+            "block_mean": sum(b - a for a, b in timed) / len(timed) / 1e3,
+            "block_max": max(b - a for a, b in timed) / 1e3,
+            "start_quartiles": [starts[len(starts) * k // 4] / 1e3
+                                for k in range(4)] + [starts[-1] / 1e3]}
+    return out
 
 
 def quant_calls(smoke, cu_ref, quant, dev, stream, libs) -> tuple:
@@ -763,8 +1047,8 @@ def main() -> int:
     lcalls, checks = latent_calls(smoke, latent_attention, {
         "decode": da_ref.decode_attention_ref,
         "prefill": pa_ref.prefill_attention_ref,
-        "prefill_paged": pa_ref.prefill_attention_paged_ref}, dev, stream,
-        libs)
+        "prefill_paged": pa_ref.prefill_attention_paged_ref}, quant, dev,
+        stream, libs)
     for name, (got, want) in checks.items():
         if lcalls[name]():
             raise RuntimeError(f"{name}: the launch failed")
@@ -773,6 +1057,16 @@ def main() -> int:
         print(f"{name}: max |err| {err:.3g}", flush=True)
         if not err <= smoke.TOL[torch.bfloat16]:
             raise AssertionError(f"{name} disagrees with the plain version")
+        variant = name.split(",")[0]
+        if variant in STAGES and (variant != "latent stamped"
+                                  or "prefill" in name):
+            print(json.dumps({"stamps": name, **latent_stamps(
+                libs[variant], lcalls[name], STAGES[variant])}), flush=True)
+    if checks:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,"
+                              "clocks.max.sm", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        print(f"SM clock, max SM clock: {smi.stdout.strip()}", flush=True)
     calls.update(lcalls)
     timers.update({name: smoke.graph_ms for name in lcalls})
     qcalls, checks = quant_calls(smoke, cu_ref, quant, dev, stream, libs)
