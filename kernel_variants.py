@@ -29,16 +29,18 @@ checked bit for bit) at decode (8 rows into 1024 slots), the paged
 decode (every row valid: ``valids`` None) and the paged chunk (B 8, T
 32, masked rows), beside an empty kernel (``csrc/empty.cu``) on one
 block of 32 threads and on the pair's grids; the latent-attention
-kernels (rows 3v, 2v, 8v): the shipped source (decode on
+kernels (rows 3v, 7v, 2v, 8v): the shipped source (decode on
 ``latent_attention_kernel``, the chunks on ``latent_prefill_kernel``),
 the prefill kernel with ``clock64()`` stamps by stage and the global
 timer at each block's start and end (``LATENT_NEW_STAMPS``), beside the
 chunk's first design on ``mma.sync`` (the decode kernel's prefill
 branch, ``LATENT_MMA_SYNC``), that loop with stamps
 (``LATENT_STAMPS``; both printed as cycles a tile, summed over every
-block of one launch), with key tiles of 16, one row tile a block,
-``LATENT_FULL_SCORE`` and ``LATENT_BULK``, by ``graph_ms`` at
-``chip_smoke.LATENT_CASES``' decode, chunk and paged chunk over a bf16
+block of one launch; the decode kernel's blocks also by the global
+timer at the ends of their ``PHASES``), with key tiles of 16, one row
+tile a block, ``LATENT_FULL_SCORE`` and ``LATENT_BULK``, by
+``graph_ms`` at ``chip_smoke.LATENT_CASES``' decode, paged decode, chunk
+and paged chunk over a bf16
 cache and int8 codes, checked within ``chip_smoke.TOL[bf16]``.  ROUNDS
 rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
@@ -424,7 +426,76 @@ LATENT_STAMPS = LATENT_MMA_SYNC + STAMPS_COMMON + (
       pmt_stamps[blk * {STAMP_SLOTS} + 15] = ntiles;
     }}
 """),
+) + (
+    # the global timer (ns) on thread 0 of every block at its phases'
+    # ends: 13 its start, 9 q and the first tile in, 10 the tiles done,
+    # 11 the partial stored, 12 the ticket taken (8: 1 + is_last), 14 its
+    # end (the fold done, for the last block of a group)
+    ("""  const int split = blockIdx.x, bh = blockIdx.z;""",
+     f"""  auto gstamp = [&](int k) {{
+    if (threadIdx.x == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + k] = now;
+    }}
+  }};
+  gstamp(13);
+  const int split = blockIdx.x, bh = blockIdx.z;"""),
+    ("""      if (i == 0) {
+#pragma unroll""", """      if (i == 0) gstamp(9);
+      if (i == 0) {
+#pragma unroll"""),
+    ("""#pragma unroll
+  for (int u = 0; u < 2; ++u) {  // a row's l is spread over its quad""",
+     """  gstamp(10);
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {  // a row's l is spread over its quad"""),
+    ("""        }
+    }
+    return;
+  }
+
+  // Split-KV: this split's partial, then the ticket.""",
+     """        }
+    }
+    gstamp(14);
+    return;
+  }
+
+  // Split-KV: this split's partial, then the ticket."""),
+    ("""    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + group, 1) == nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;""", f"""    }}
+  }}
+  __threadfence();
+  __syncthreads();
+  gstamp(11);
+  if (tid == 0) is_last = atomicAdd(tickets + group, 1) == nsplit - 1;
+  __syncthreads();
+  gstamp(12);
+  if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS})
+    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 8] = 1 + is_last;
+  if (!is_last) {{
+    gstamp(14);
+    return;
+  }}"""),
+    ("""  if (tid == 0) tickets[group] = 0;  // ready for the next launch
+}
+
+// -- the prefill chunk""", """  gstamp(14);
+  if (tid == 0) tickets[group] = 0;  // ready for the next launch
+}
+
+// -- the prefill chunk"""),
 )
+# The phases of a block of the decode kernel by the global timer (slots
+# of LATENT_STAMPS): (name, from slot, to slot).
+PHASES = (("q and first tile", 13, 9), ("tiles", 9, 10),
+          ("partial store", 10, 11), ("ticket", 11, 12), ("fold", 12, 14))
 # The prefill kernel with clock64() stamps, consumer thread 0 (warpgroup
 # 0) by stage: 0 the wait for a full tile, 1 widening codes or zeroing
 # rows (and its named barrier), 2 issuing S, 3 issuing the last tile's p
@@ -705,9 +776,9 @@ def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
     return calls, checks
 
 
-# Rows 3v, 2v and 8v's cases (chip_smoke.LATENT_CASES), over a bf16
+# Rows 3v, 7v, 2v and 8v's cases (chip_smoke.LATENT_CASES), over a bf16
 # cache and over int8 codes.
-LATENT_TIMED = ("decode", "prefill", "prefill_paged")
+LATENT_TIMED = ("decode", "decode_paged", "prefill", "prefill_paged")
 LATENT_CACHES = ("bf16", "int8")
 STAGES = {"latent mma.sync stamped": (
     "ring wait", "barrier", "issue loads", "widen codes", "score products",
@@ -720,7 +791,7 @@ STAGES = {"latent mma.sync stamped": (
 
 
 def latent_calls(smoke, la, refs, quant, dev, stream, libs) -> tuple:
-    """{call name: call} of each latent-attention variant at rows 3v, 2v
+    """{call name: call} of each latent-attention variant at rows 3v, 7v, 2v
     and 8v's cases (bf16 q over a bf16 cache or int8 codes; the shipped
     source launches the prefill cases on its prefill kernel, the
     mma.sync variants on the decode kernel's prefill branch, those with one row
@@ -814,6 +885,17 @@ def latent_stamps(lib, call, stages) -> dict:
     out = {"blocks": len(blocks), "tiles": tiles, "cycles_a_tile": {
         stage: sum(blk[k] for blk in blocks) / tiles
         for k, stage in enumerate(stages)}}
+    started = [buf[i * STAMP_SLOTS:(i + 1) * STAMP_SLOTS]
+               for i in range(STAMP_BLOCKS) if buf[i * STAMP_SLOTS + 13]]
+    if any(blk[8] for blk in started):  # the decode kernel's phases
+        out["phases_us"] = {}
+        for name, a, b in PHASES:
+            spans = [(blk[b] - blk[a]) / 1e3 for blk in started
+                     if blk[a] and blk[b] and (name != "fold" or blk[8] == 2)]
+            out["phases_us"][name] = {
+                "blocks": len(spans), "mean": statistics.mean(spans),
+                "max": max(spans)} if spans else None
+        blocks = started
     timed = [(blk[13], blk[14]) for blk in blocks if blk[14]]
     if timed:  # the global timer (ns) at each block's start and end
         t0 = min(a for a, _ in timed)
@@ -1046,6 +1128,7 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ref as da_ref
     lcalls, checks = latent_calls(smoke, latent_attention, {
         "decode": da_ref.decode_attention_ref,
+        "decode_paged": da_ref.decode_attention_paged_ref,
         "prefill": pa_ref.prefill_attention_ref,
         "prefill_paged": pa_ref.prefill_attention_paged_ref}, quant, dev,
         stream, libs)
