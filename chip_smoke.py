@@ -71,10 +71,10 @@ Phases, in order; any failure exits nonzero:
      kernels), within TOL; a decode row with lens -1 exactly 0; each main
      case timed beside its byte and operation bounds and, contiguous
      bf16, SDPA over the expanded and sliced tensors; rows 1, 4, 5, 6 at
-     F 576 through the one-leaf ops, bit for bit; the prefill launcher's
-     shared memory and TMA rule against the library's (the chunks, 2v
-     and 8v, run ``latent_prefill_kernel``: wgmma fed by TMA, its SASS
-     gated in phase 3b).
+     F 576 through the one-leaf ops, bit for bit; the latent launcher's
+     shared memory, splits and TMA rule against the library's (all four
+     rows run ``latent_kernel``: wgmma fed by TMA, the splits folded
+     across a cluster, its SASS gated in phase 3b).
      3f. the flash-attention kernel (the train path's) against
      ``flash_attention_ref`` at the train shapes (B 8, S 2048, 9 heads on
      3 kv heads, hd 64, bf16, causal) and at odd ones (fp32, GQA groups
@@ -1662,15 +1662,33 @@ def check_latent(fns: dict, dev) -> dict:
 
 
 def check_latent_plan(lib, la) -> None:
-    """The latent prefill launcher's plan against the library's: each
-    width tier's and cache dtype's shared memory, and the rule that picks
-    TMA or the producer's element copies (16-byte-aligned bases, rows of
-    whole 16-byte units, page boxes of 8 rows or more)."""
+    """The latent launcher's plan against the library's: each width
+    tier's and cache dtype's shared memory; the splits of decode launches
+    (rows 3v, 7v: 16 groups x 8 splits, one wave) and prefill launches
+    (rows 2v, 8v) and of small G; and the rule that picks TMA or the
+    producer's element copies (16-byte-aligned bases, rows of whole
+    16-byte units, page boxes of 8 rows or more; no chunk at decode)."""
     for hd, hdv in ((24, 16), (36, 32), (72, 64), (576, 512)):
         for code in (1, 2, 3):
-            got = lib.pmt_latent_prefill_smem_bytes(hd, hdv, code)
-            if got != la.prefill_smem_bytes(hd, code >= 2):
-                raise AssertionError(f"prefill smem at hd {hd} differs: {got}")
+            got = lib.pmt_latent_smem_bytes(hd, hdv, code)
+            if got != la.smem_bytes(hd, code >= 2):
+                raise AssertionError(f"latent smem at hd {hd} differs: {got}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, t, g, c in ((8, 1, 128, 1024), (1, 1, 128, 1024), (3, 1, 3, 100),
+                       (3, 1, 4, 96), (32, 1, 128, 1024), (1, 32, 128, 1024),
+                       (8, 32, 128, 1024), (2, 9, 3, 100)):
+        for decode in ((True, False) if t == 1 else (False,)):
+            groups = la.decode_groups(b, 1, g) if decode \
+                else la.prefill_groups(b, 1, t, g)
+            want = (la.decode_split_count if decode
+                    else la.prefill_split_count)(groups, c, sms)
+            got = lib.pmt_latent_splits(b, 1, t, g, c, sms, int(decode))
+            if got != want:
+                raise AssertionError(f"latent splits at B{b} T{t} G{g} C{c} "
+                                     f"decode {decode}: {got} != {want}")
+    if la.decode_groups(8, 1, 128) * la.decode_split_count(16, 1024, sms) \
+            > sms:
+        raise AssertionError("the decode's blocks take more than one wave")
     dev = torch.device("cuda")
     for hd in (36, 72, 576):
         for dt in (torch.bfloat16, torch.int8):
@@ -1680,14 +1698,17 @@ def check_latent_plan(lib, la) -> None:
                 q = flat[shift:shift + 64 * hd].view(1, 1, 1, 64, hd)
                 kc = torch.empty(1, 16, 1, hd, dtype=dt, device=dev)
                 for ps in (None, 4, 16):
-                    got = lib.pmt_latent_prefill_tma(
-                        q.data_ptr(), kc.data_ptr(), kc.data_ptr(), hd,
-                        ps or 16, int(ps is not None),
-                        1 if dt == torch.bfloat16 else 2)
-                    if bool(got) != la.loads_by_tma(q, kc, kc, ps):
-                        raise AssertionError(f"the TMA rule differs at hd "
-                                             f"{hd} {dt} +{shift} ps {ps}")
-    log("  latent prefill plan (shared memory, TMA rule) = the library's")
+                    for kx in (kc, None):
+                        got = lib.pmt_latent_tma(
+                            q.data_ptr(), None if kx is None
+                            else kx.data_ptr(), kc.data_ptr(), hd, ps or 16,
+                            int(ps is not None),
+                            1 if dt == torch.bfloat16 else 2)
+                        if bool(got) != la.loads_by_tma(q, kx, kc, ps):
+                            raise AssertionError(
+                                f"the TMA rule differs at hd {hd} {dt} "
+                                f"+{shift} ps {ps} kx {kx is not None}")
+    log("  latent plan (shared memory, splits, TMA rule) = the library's")
 
 
 def check_latent_scatters(cu_ops, cu_ref, quant, dev) -> None:
@@ -2297,9 +2318,10 @@ REDESIGNS = (
     # the copying scatters, contiguous and paged x the 16-byte path and
     # the element path, flat packed
     ("copy_scatter_kernel", "cache_update.cu", 4, {"LDG", "STG"}, set()),
-    # MLA's prefill chunk (rows 2v, 8v): wgmma fed by TMA, no mma.sync;
-    # widths 128, 576 x contiguous, paged x bf16, int8, fp8_e4m3 caches
-    ("latent_prefill_kernel", "latent_attention.cu", 12, {"HGMMA", "UTMALDG"},
+    # MLA's latent attention, decode and the prefill chunk (rows 3v, 7v,
+    # 2v, 8v): wgmma fed by TMA, no mma.sync; widths 128, 576 x
+    # contiguous, paged x bf16, int8, fp8_e4m3 caches
+    ("latent_kernel", "latent_attention.cu", 12, {"HGMMA", "UTMALDG"},
      {"HMMA"}),
 )
 
@@ -2307,7 +2329,7 @@ REDESIGNS = (
 # Kernels whose spills (a few bytes, ptxas's 168 registers a thread at
 # nine warps) must lie outside the tile loop, the span from the first
 # HGMMA to the last, rather than be none.
-SPILLS_OUTSIDE_LOOP = ("latent_prefill_kernel",)
+SPILLS_OUTSIDE_LOOP = ("latent_kernel",)
 
 
 def spills_in_loop(text: str) -> bool:
@@ -2321,8 +2343,9 @@ def spills_in_loop(text: str) -> bool:
 
 def check_redesigns(build) -> None:
     """The tensor-core prefill kernels (bf16 q over bf16 or codes) run on
-    the tensor cores (their SASS holds HMMA), MLA's prefill-chunk kernels
-    on wgmma fed by TMA (HGMMA and UTMALDG, no HMMA), the GEMM and flash-decode
+    the tensor cores (their SASS holds HMMA), MLA's latent kernels (decode
+    and the prefill chunk) on wgmma fed by TMA (HGMMA and UTMALDG, no
+    HMMA), the GEMM and flash-decode
     kernels on the CUDA cores in float32 (FFMA, no HMMA or HGMMA), the
     gridder's and the degridder's phasor on the SFU (MUFU), JACOBI2D's
     16-byte path loads and stores 16 bytes an instruction (LDG and STG
@@ -2330,7 +2353,7 @@ def check_redesigns(build) -> None:
     bytes an instruction (LDG.128), the copying scatters' 16-byte path
     loads and stores 16 bytes an instruction (LDG.128, STG.128), and
     none of them, nor the STREAM triad, spills a byte (ptxas), but MLA's
-    prefill-chunk kernels, which spill nothing in their tile loops."""
+    latent kernels, which spill nothing in their tile loops."""
     funcs = sass_functions(build.library_path())
     wide = [{op.split(".")[0] for _, op, _ in _SASS.findall(text)
              if ".128" in op}

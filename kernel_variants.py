@@ -29,18 +29,16 @@ checked bit for bit) at decode (8 rows into 1024 slots), the paged
 decode (every row valid: ``valids`` None) and the paged chunk (B 8, T
 32, masked rows), beside an empty kernel (``csrc/empty.cu``) on one
 block of 32 threads and on the pair's grids; the latent-attention
-kernels (rows 3v, 7v, 2v, 8v): the shipped source (decode on
-``latent_attention_kernel``, the chunks on ``latent_prefill_kernel``),
-the prefill kernel with ``clock64()`` stamps by stage and the global
-timer at each block's start and end (``LATENT_NEW_STAMPS``), beside the
-chunk's first design on ``mma.sync`` (the decode kernel's prefill
-branch, ``LATENT_MMA_SYNC``), that loop with stamps
-(``LATENT_STAMPS``; both printed as cycles a tile, summed over every
-block of one launch; the decode kernel's blocks also by the global
-timer at the ends of their ``PHASES``), with key tiles of 16, one row
-tile a block, ``LATENT_FULL_SCORE`` and ``LATENT_BULK``, by
-``graph_ms`` at ``chip_smoke.LATENT_CASES``' decode, paged decode, chunk
-and paged chunk over a bf16
+kernel (``latent_kernel``; rows 3v, 7v, 2v, 8v): the shipped source
+(the splits folded across a cluster), with ``clock64()`` stamps by
+stage and the global timer at the ends of each block's ``PHASES``
+(``LATENT_STAMPS``; printed as cycles a tile summed over every block of
+one launch, and microseconds a phase), and with the fold of the design
+before it (``LATENT_TICKET_FOLD``: partials in device memory, the last
+block of a group folding them alone) and with the cluster's fold out of
+line (``LATENT_FOLD_OUT_OF_LINE``), by ``graph_ms`` at
+``chip_smoke.LATENT_CASES``' decode, paged decode, chunk and paged
+chunk over a bf16
 cache and int8 codes, checked within ``chip_smoke.TOL[bf16]``.  ROUNDS
 rounds, each call once a round, the
 order rotated round by round.  With name prefixes, only the variants
@@ -218,147 +216,196 @@ PDL = (
 COPY_ENTRIES = ("pmt_cache_update", "pmt_paged_cache_update")
 # name -> (source, entry point(s), {constant: value}[, ((old, new), ...)]);
 # {} and no passages is the shipped design
-# The latent-attention kernel with every warp of a row tile forming the
-# whole score (q fragments read from shared memory a step at a time) in
-# place of a quarter of its depth and the partials' meeting in shared
-# memory: four times the score's products, one barrier a tile fewer.
-LATENT_FULL_SCORE = (
-    ("""#pragma unroll
-      for (int j = 0; j < NKQ; ++j) {
-        const int kk = sl * NKQ + j;
-        if (kk >= KSTEPS || kk * 16 >= hd) break;
-#pragma unroll
-        for (int np = 0; np < kKT / 16; ++np) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(sc[2 * np], qf[j], kb[0], kb[1]);
-          mma_bf16_16816(sc[2 * np + 1], qf[j], kb[2], kb[3]);
+# The latent-attention kernel with the split fold of the design before
+# it: each split stores its fp32 partial, row maxima and sums to device
+# memory and takes a ticket, and the group's last block to take one folds
+# every split's partial alone (8 chunks of 16 bytes a thread in flight),
+# in place of the cluster's fold through distributed shared memory.  The
+# partials and tickets are the variant's own device arrays (enough for
+# 128 group-splits of 64 x 512, rows 3v, 7v and 2v), and no cluster is
+# launched.
+FOLD_SLOTS = 128
+LATENT_TICKET_FOLD = (
+    ("""// Rows of a TMA box of the paged pools""",
+     f"""__device__ float pmt_fold_ws[{FOLD_SLOTS} * 64 * (512 + 2)];
+__device__ int pmt_fold_tickets[{FOLD_SLOTS}];
+
+// Rows of a TMA box of the paged pools"""),
+    ("""  __shared__ float fold_ml[2][kRows];  // a split's row maxima and sums, for the fold""",
+     """  __shared__ int is_last;"""),
+    ("""  const int limit = limit_of(b);""",
+     """  const int limit = limit_of(b);
+  const int group = bh * gridDim.y + blockIdx.y;
+  float* ws = pmt_fold_ws;
+  int* tickets = pmt_fold_tickets;"""),
+    ("""          if (wg == 0 && (lane & 3) == 0) {
+            fold_ml[0][r] = m_run[j];
+            fold_ml[1][r] = l_tot[j];
+          }
         }
-      }""", """#pragma unroll 4
-      for (int kk = 0; kk < KSTEPS; ++kk) {
-        if (kk * 16 >= hd) break;
-        uint32_t qa[4];
-        ldmatrix_x4(qa, qs + (rt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + kk * 16 +
-                            (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < kKT / 16; ++np) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16_16816(sc[2 * np], qa, kb[0], kb[1]);
-          mma_bf16_16816(sc[2 * np + 1], qa, kb[2], kb[3]);
+      }""", """          if (wg == 0 && (lane & 3) == 0 && r < rows) {
+            ml[2 * r] = m_run[j];
+            ml[2 * r + 1] = l_tot[j];
+          }
+        }
+        named_sync(4, 128 * kConsumers);
+        if (hdv % 4 == 0) {
+          const int units = hdv / 4;
+          for (int u = tid; u < rows * units; u += 128 * kConsumers) {
+            const int r = u / units, c = u - r * units;
+            *reinterpret_cast<float4*>(acc + (size_t)r * hdv + c * 4) =
+                *reinterpret_cast<const float4*>(stage + r * DV + (c ^ (r & 7)) * 4);
+          }
+        } else {
+          for (int e = tid; e < rows * hdv; e += 128 * kConsumers) {
+            const int r = e / hdv, c = e - r * hdv;
+            acc[(size_t)r * hdv + c] = stage[r * DV + ((c >> 2) ^ (r & 7)) * 4 + (c & 3)];
+          }
         }
       }"""),
-    ("""#pragma unroll
-      for (int j = 0; j < kKT / 8; ++j)
+    ("""        float* stage = reinterpret_cast<float*>(sm);  // [kRows][DV], chunks of 4
 #pragma unroll
-        for (int e = 0; e < 4; ++e) xmine[(j * 4 + e) * 32 + lane] = sc[j][e];
-      __syncthreads();
+        for (int j = 0; j < 2; ++j) {
+          const int r = r0 + 8 * j;
 #pragma unroll
-      for (int j = 0; j < kKT / 8; ++j)
+          for (int i = 0; i < NW / 8; ++i) {
+            const int col = wg * NW + 8 * i + c0;""",
+     """        float* acc = ws + ((size_t)group * nsplit + split) * kRows * hdv;
+        float* ml = ws + (size_t)gridDim.y * gridDim.z * nsplit * kRows * hdv +
+                    ((size_t)group * nsplit + split) * kRows * 2;
+        float* stage = reinterpret_cast<float*>(sm);  // [kRows][DV], chunks of 4
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float s = 0.f;
+        for (int j = 0; j < 2; ++j) {
+          const int r = r0 + 8 * j;
 #pragma unroll
-          for (int w = 0; w < kSlices; ++w) s += xtile[w * kXch + (j * 4 + e) * 32 + lane];
-          sc[j][e] = s;
-        }""", ""),
+          for (int i = 0; i < NW / 8; ++i) {
+            const int col = wg * NW + 8 * i + c0;"""),
+    # the fold, from the kernel's fold to its end (FOLD_START .. FOLD_END)
+    ("""  cluster[0].val.clusterDim.x = a.nsplit;""",
+     """  cluster[0].val.clusterDim.x = 1;"""),
 )
-# The latent-attention kernel with each bf16 key tile moved by one bulk
-# copy (cp.async.bulk, the TMA's 1-D form) a row, completing on an
-# mbarrier a ring slot, in place of hd / 8 16-byte cp.async a row: 32
-# copies a tile where there were 2304 at hd 576.  A tile's rows past its
-# keys keep a finite earlier row (the ring is zeroed once), which its
-# masks weigh 0.
-LATENT_BULK = (
-    ("""// Shared memory of a block: q (16 x row tiles rows) | the key ring""",
-     """__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// Shared memory of a block: q (16 x row tiles rows) | the key ring"""),
-    ("""  __shared__ int is_last;
-  const int tid = threadIdx.x, nthreads = blockDim.x;""",
-     """  __shared__ int is_last;
-  __shared__ __align__(8) uint64_t full[kStages];
-  const int tid = threadIdx.x, nthreads = blockDim.x;"""),
-    ("""    // zero padding: columns [hd, DK) of the q and key rows (and code rows)
-    for (int r = tid; r < RB + kStages * kKT; r += nthreads)
-      for (int d = hd; d < DK; ++d) qs[(size_t)r * P + d] = zero;""",
-     """    for (int r = tid; r < RB + kStages * kKT; r += nthreads)
-      for (int d = r < RB ? hd : 0; d < DK; ++d) qs[(size_t)r * P + d] = zero;
-    if (tid == 0) {
-      for (int st = 0; st < kStages; ++st) mbar_init(smem_u32(&full[st]), 1);
-      mbar_init_fence();
+TICKET_FOLD_BODY = """  if (nsplit == 1) return;
+  const size_t groups = (size_t)gridDim.y * gridDim.z;
+  auto acc_of = [&](int s) { return ws + ((size_t)group * nsplit + s) * kRows * hdv; };
+  auto ml_of = [&](int s) {
+    return ws + groups * nsplit * kRows * hdv + ((size_t)group * nsplit + s) * kRows * 2;
+  };
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(tickets + group, 1) == nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  unsigned live = 0;
+  for (int s = 0; s < nsplit; ++s) {
+    int l0, h0;
+    share(s, l0, h0);
+    if (h0 > l0 || (!decode && s == nsplit - 1)) live |= 1u << s;
+  }
+  float* wts = reinterpret_cast<float*>(sm);
+  for (int r = tid; r < rows; r += blockDim.x) {
+    float mv[kMaxSplits], lv[kMaxSplits];
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      const bool on = (live >> s) & 1u;
+      mv[s] = on ? __ldcg(ml_of(s) + 2 * r) : PMT_NEG_INF;
+      lv[s] = on ? __ldcg(ml_of(s) + 2 * r + 1) : 0.f;
     }
-    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
-    __syncthreads();"""),
-    ("""      const bf16* kt = (cache ? reinterpret_cast<const bf16*>(kc) : kx) + (size_t)h * hd;
-      bf16* kd = ks + buf * kKT * P;
-      if (vec) copy_rows(kd, kt, P, hd / 8);
-      else copy_elems(kd, kt, P, zero);
-      cp_async_commit();
-    };""",
-     """      const bf16* kt = (cache ? reinterpret_cast<const bf16*>(kc) : kx) + (size_t)h * hd;
-      bf16* kd = ks + buf * kKT * P;
-      const uint32_t bar = smem_u32(&full[buf]);
-      if (vec) {
-        if (tid < 32) {
-          if (tid == 0) mbar_arrive_expect_tx(bar, n * hd * 2);
-          __syncwarp();
-          if (tid < n) bulk_copy(kd + tid * P, kt + row_of(tid) * kstride, hd * 2, bar);
-        }
-      } else {
-        copy_elems(kd, kt, P, zero);
-        if (tid == 0) mbar_arrive(bar);
+    float M = PMT_NEG_INF, Lsum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) M = fmaxf(M, mv[s]);
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s) {
+      mv[s] = (live >> s) & 1u ? ex2(mv[s] - M) : 0.f;
+      Lsum += mv[s] * lv[s];
+    }
+    const float inv = 1.f / fmaxf(Lsum, 1e-30f);
+#pragma unroll
+    for (int s = 0; s < kMaxSplits; ++s)
+      if (s < nsplit) wts[s * kRows + r] = mv[s] * inv;
+  }
+  __syncthreads();
+  constexpr int kBatch = 8;
+  const int width = hdv % 4 == 0 ? 4 : 1;
+  const int groups_row = hdv / width, total = rows * groups_row;
+  const size_t out0 = (size_t)bh * rows_total + row0;
+  for (int i0 = tid; i0 < total; i0 += kBatch * blockDim.x) {
+    float4 sum[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) sum[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < nsplit; ++s) {
+      if (!((live >> s) & 1u)) continue;
+      float4 v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i >= total) continue;
+        const int r = i / groups_row, d = (i - r * groups_row) * width;
+        const float* src = acc_of(s) + (size_t)r * hdv + d;
+        v[k] = width == 4 ? __ldcg(reinterpret_cast<const float4*>(src))
+                          : make_float4(__ldcg(src), 0.f, 0.f, 0.f);
       }
-      cp_async_commit();
-    };"""),
-    ("""            cp_async4(sd + r, r < n ? ksc + row_of(r) * KVH + h : ksc, r < n ? 4 : 0);
-          cp_async_commit();
-          return;""",
-     """            cp_async4(sd + r, r < n ? ksc + row_of(r) * KVH + h : ksc, r < n ? 4 : 0);
-          cp_async_commit();
-          if (tid == 0) mbar_arrive(smem_u32(&full[buf]));
-          return;"""),
-    ("""      // tile i is in for every thread; every warp is done with tile i - 1
-      // (its slot, which tile i + 2 takes, and the partial scores)
-      __syncthreads();""",
-     """      mbar_wait(smem_u32(&full[i % kStages]), (i / kStages) & 1);
-      asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
-      __syncthreads();"""),
-)
-# The decode kernel's prefill branch (the chunk's first design, on
-# mma.sync), which the shipped entry point refuses (the chunk has a kernel
-# of its own), launched again through pmt_latent_attention with decode 0.
-LATENT_MMA_SYNC = ((
-    """      tickets == nullptr || (nsplit > 1 && ws == nullptr) || !decode || T != 1 ||
-      (paged && page_table == nullptr) ||""",
-    """      tickets == nullptr || (nsplit > 1 && ws == nullptr) || (decode && T != 1) ||
-      (!decode && kx == nullptr) || (paged && page_table == nullptr) ||"""),)
-# That loop with clock64() stamps on thread 0 of every block (up to
-# STAMP_BLOCKS), summed over its tiles by stage: 0 the wait for the ring
-# (cp.async.wait_group), 1 the block barrier after it, 2 issuing the
-# tile two ahead, 3 widening codes (and its barrier), 4 the score
-# products (ldmatrix and mma.sync issued), 5 the exchange of the
-# partial scores (stores, barrier, sums: it also waits for the products'
-# results), 6 the softmax (with the accumulator's rescale), 7 the PV
-# products; slot 8 the block's tiles.  pmt_latent_stamps copies them out
-# and zeroes them.
-STAMP_BLOCKS, STAMP_SLOTS = 4096, 16
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = i0 + k * blockDim.x;
+        if (i >= total) continue;
+        const float w = wts[s * kRows + i / groups_row];
+        sum[k].x = fmaf(w, v[k].x, sum[k].x);
+        sum[k].y = fmaf(w, v[k].y, sum[k].y);
+        sum[k].z = fmaf(w, v[k].z, sum[k].z);
+        sum[k].w = fmaf(w, v[k].w, sum[k].w);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i >= total) continue;
+      const int r = i / groups_row, d = (i - r * groups_row) * width;
+      bf16* dst = out + (out0 + r) * hdv + d;
+      dst[0] = __float2bfloat16(sum[k].x);
+      if (width == 4) {
+        dst[1] = __float2bfloat16(sum[k].y);
+        dst[2] = __float2bfloat16(sum[k].z);
+        dst[3] = __float2bfloat16(sum[k].w);
+      }
+    }
+  }
+  if (tid == 0) tickets[group] = 0;
+}
+"""
+FOLD_START = "  if (nsplit == 1) return;\n\n  // The fold, spread over the group's cluster"
+FOLD_END = "  cluster_sync();  // no block leaves while another may still read its shared memory\n}\n"
+LATENT_TICKET_FOLD += (((FOLD_START, FOLD_END), TICKET_FOLD_BODY),)
+# The kernel with clock64() stamps, consumer thread 0 (warpgroup 0) by
+# stage: 0 the wait for a full tile, 1 widening codes or zeroing rows
+# (and its named barrier), 2 issuing S, 3 issuing the last tile's p . v
+# and waiting for S, 4 the scores' scale, masks and row maxima, 5 the
+# named barrier that shares the maxima, 6 p, its split and its stores, 7
+# the named barrier that shares p, 8 waiting for the last tile's p . v
+# and its release; 12 the wait for q; and producer thread 0: 10 its waits
+# for an empty stage, 11 issuing loads (q's included) and widening codes.
+# Slot 15 the block's tiles.  And the global timer (ns) on thread 0 at the
+# ends of a block's PHASES: 13 its start, 16 q in, 17 the tiles done, 18
+# the output stored or the partial kept, 19 the cluster met (every split's
+# partial kept), 20 its share of the fold stored, 14 its end (21: 1, 2
+# where it folds).  pmt_latent_stamps copies them out and zeroes them.
+STAMP_BLOCKS, STAMP_SLOTS = 4096, 24
 STAMP_BLK = "blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)"
-STAMPS_COMMON = (
-    ("""template <typename TC>
-__host__ __device__ inline size_t smem_bytes(int DK, int row_tiles) {""",
+PHASES = (("q", 13, 16), ("tiles", 16, 17), ("output or partial", 17, 18),
+          ("cluster wait", 18, 19), ("fold", 19, 20), ("leave", 20, 14))
+GSTAMP = f"""  auto gstamp = [&](int k) {{
+    if (threadIdx.x == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
+      unsigned long long now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + k] = now;
+    }}
+  }};
+"""
+LATENT_STAMPS = (
+    ("""// Rows of a TMA box of the paged pools""",
      f"""__device__ unsigned long long pmt_stamps[{STAMP_BLOCKS * STAMP_SLOTS}];
 
-template <typename TC>
-__host__ __device__ inline size_t smem_bytes(int DK, int row_tiles) {{"""),
+// Rows of a TMA box of the paged pools"""),
     ("""extern "C" int pmt_latent_smem_bytes(""",
      """extern "C" int pmt_latent_stamps(void* dst, int n) {
   cudaError_t err = cudaMemcpyFromSymbol(dst, pmt_stamps, n * sizeof(unsigned long long));
@@ -369,143 +416,6 @@ __host__ __device__ inline size_t smem_bytes(int DK, int row_tiles) {{"""),
 }
 
 extern "C" int pmt_latent_smem_bytes("""),
-)
-LATENT_STAMPS = LATENT_MMA_SYNC + STAMPS_COMMON + (
-    ("""    load_tile(0, 0);  // q rides in tile 0's group
-""", """    unsigned long long stamp_acc[8] = {};
-    long long stamp_t = clock64();
-    auto stamp = [&](int k) {
-      const long long now = clock64();
-      stamp_acc[k] += now - stamp_t;
-      stamp_t = now;
-    };
-    load_tile(0, 0);  // q rides in tile 0's group
-"""),
-    ("""        cp_async_wait<0>();
-      // tile i is in for every thread""", """        cp_async_wait<0>();
-      stamp(0);
-      // tile i is in for every thread"""),
-    ("""      __syncthreads();
-      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
-""", """      __syncthreads();
-      stamp(1);
-      if (i + 2 < ntiles) load_tile(i + 2, (i + 2) % kStages);
-      stamp(2);
-"""),
-    ("""          widen_tile(i % kStages);
-          __syncthreads();
-        }
-      }
-""", """          widen_tile(i % kStages);
-          __syncthreads();
-        }
-      }
-      stamp(3);
-"""),
-    ("""      // The row tile's four partials meet""",
-     """      stamp(4);
-      // The row tile's four partials meet"""),
-    ("""      // scale, masks, online softmax (log2 units), on the fragments.  A""",
-     """      stamp(5);
-      // scale, masks, online softmax (log2 units), on the fragments.  A"""),
-    ("""      // O += p . v over this warp's value columns""",
-     """      stamp(6);
-      // O += p . v over this warp's value columns"""),
-    ("""          mma_bf16_16816(o[2 * np + 1], pl, vb[2], vb[3]);
-        }
-      }
-    }
-""", f"""          mma_bf16_16816(o[2 * np + 1], pl, vb[2], vb[3]);
-        }}
-      }}
-      stamp(7);
-    }}
-    const int blk = {STAMP_BLK};
-    if (tid == 0 && blk < {STAMP_BLOCKS}) {{
-      for (int k = 0; k < 8; ++k) pmt_stamps[blk * {STAMP_SLOTS} + k] = stamp_acc[k];
-      pmt_stamps[blk * {STAMP_SLOTS} + 15] = ntiles;
-    }}
-"""),
-) + (
-    # the global timer (ns) on thread 0 of every block at its phases'
-    # ends: 13 its start, 9 q and the first tile in, 10 the tiles done,
-    # 11 the partial stored, 12 the ticket taken (8: 1 + is_last), 14 its
-    # end (the fold done, for the last block of a group)
-    ("""  const int split = blockIdx.x, bh = blockIdx.z;""",
-     f"""  auto gstamp = [&](int k) {{
-    if (threadIdx.x == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
-      unsigned long long now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + k] = now;
-    }}
-  }};
-  gstamp(13);
-  const int split = blockIdx.x, bh = blockIdx.z;"""),
-    ("""      if (i == 0) {
-#pragma unroll""", """      if (i == 0) gstamp(9);
-      if (i == 0) {
-#pragma unroll"""),
-    ("""#pragma unroll
-  for (int u = 0; u < 2; ++u) {  // a row's l is spread over its quad""",
-     """  gstamp(10);
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {  // a row's l is spread over its quad"""),
-    ("""        }
-    }
-    return;
-  }
-
-  // Split-KV: this split's partial, then the ticket.""",
-     """        }
-    }
-    gstamp(14);
-    return;
-  }
-
-  // Split-KV: this split's partial, then the ticket."""),
-    ("""    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) is_last = atomicAdd(tickets + group, 1) == nsplit - 1;
-  __syncthreads();
-  if (!is_last) return;""", f"""    }}
-  }}
-  __threadfence();
-  __syncthreads();
-  gstamp(11);
-  if (tid == 0) is_last = atomicAdd(tickets + group, 1) == nsplit - 1;
-  __syncthreads();
-  gstamp(12);
-  if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS})
-    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 8] = 1 + is_last;
-  if (!is_last) {{
-    gstamp(14);
-    return;
-  }}"""),
-    ("""  if (tid == 0) tickets[group] = 0;  // ready for the next launch
-}
-
-// -- the prefill chunk""", """  gstamp(14);
-  if (tid == 0) tickets[group] = 0;  // ready for the next launch
-}
-
-// -- the prefill chunk"""),
-)
-# The phases of a block of the decode kernel by the global timer (slots
-# of LATENT_STAMPS): (name, from slot, to slot).
-PHASES = (("q and first tile", 13, 9), ("tiles", 9, 10),
-          ("partial store", 10, 11), ("ticket", 11, 12), ("fold", 12, 14))
-# The prefill kernel with clock64() stamps, consumer thread 0 (warpgroup
-# 0) by stage: 0 the wait for a full tile, 1 widening codes or zeroing
-# rows (and its named barrier), 2 issuing S, 3 issuing the last tile's p
-# . v and waiting for S, 4 the scores' scale, masks and row maxima, 5 the
-# named barrier that shares the maxima, 6 p, its split and its stores, 7
-# the named barrier that shares p, 8 waiting for the last tile's p . v
-# and its release; 12 the wait for q; and producer thread 0: 10 its
-# waits for an empty stage, 11 issuing loads (q's included) and widening
-# codes.
-LATENT_NEW_STAMPS = STAMPS_COMMON + (
     ("""    if (ntiles > 0) mbar_wait(q_full, 0);
     for (int t = 0; t < ntiles; ++t) {""", """    unsigned long long stamp_acc[13] = {};
     long long stamp_t = clock64();
@@ -516,22 +426,11 @@ LATENT_NEW_STAMPS = STAMPS_COMMON + (
     };
     if (ntiles > 0) mbar_wait(q_full, 0);
     stamp(12);
+    if (ntiles > 0) gstamp(16);
     for (int t = 0; t < ntiles; ++t) {"""),
     ("""  const int split = blockIdx.x, h = blockIdx.z % KVH, b = b_of_z, bh = b * KVH + h;""",
-     f"""  unsigned long long block_t0;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(block_t0));
+     GSTAMP + """  gstamp(13);
   const int split = blockIdx.x, h = blockIdx.z % KVH, b = b_of_z, bh = b * KVH + h;"""),
-    ("""  if (nsplit == 1) return;
-
-  // The ticket; the last block of the group folds""", f"""  if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) {{
-    unsigned long long block_t1;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(block_t1));
-    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 13] = block_t0;
-    pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 14] = block_t1;
-  }}
-  if (nsplit == 1) return;
-
-  // The ticket; the last block of the group folds"""),
     ("""      mbar_wait(full(t), phase(t));
       const int base""", """      mbar_wait(full(t), phase(t));
       stamp(0);
@@ -579,6 +478,10 @@ LATENT_NEW_STAMPS = STAMPS_COMMON + (
     }}
     if (ntiles > 0) {{  // the last tile's p . v
 """),
+    ("""    if (ntiles > 0 || nsplit == 1) {
+      float l_tot[2];""", """    if (ntiles > 0) gstamp(17);
+    if (ntiles > 0 || nsplit == 1) {
+      float l_tot[2];"""),
     ("""      for (int t = 0; t < ntiles; ++t) {
         mbar_wait(empty(t), phase(t) ^ 1);
 """, """      unsigned long long pst[2] = {};
@@ -607,8 +510,31 @@ LATENT_NEW_STAMPS = STAMPS_COMMON + (
       }}
     }}
   }} else {{"""),
+    ("""  if (nsplit == 1) return;
+
+  // The fold, spread over the group's cluster""", """  gstamp(18);
+  if (nsplit == 1) {
+    gstamp(14);
+    return;
+  }
+
+  // The fold, spread over the group's cluster"""),
+    ("""  cluster_sync();
+  unsigned live = 0;""", f"""  cluster_sync();
+  gstamp(19);
+  if (tid == 0 && {STAMP_BLK} < {STAMP_BLOCKS}) pmt_stamps[({STAMP_BLK}) * {STAMP_SLOTS} + 21] = 2;
+  unsigned live = 0;"""),
+    ("""  cluster_sync();  // no block leaves while another may still read its shared memory
+}""", """  gstamp(20);
+  cluster_sync();  // no block leaves while another may still read its shared memory
+  gstamp(14);
+}"""),
 )
-LATENT_ENTRY = ("pmt_latent_attention", "pmt_latent_prefill")
+# The cluster's fold out of line, a call in place of inlined code (the
+# kernel's registers allotted without the fold's).
+LATENT_FOLD_OUT_OF_LINE = (("__device__ __forceinline__ void fold_splits(",
+                            "__device__ __noinline__ void fold_splits("),)
+LATENT_ENTRY = "pmt_latent_attention"
 
 VARIANTS = {
     "degridder": ("gridder.cu", "pmt_degridder", {}),
@@ -667,18 +593,11 @@ VARIANTS = {
     "scatter PDL": ("cache_update.cu", COPY_ENTRIES, {}, PDL),
     "latent": ("latent_attention.cu", LATENT_ENTRY, {}),
     "latent stamped": ("latent_attention.cu", LATENT_ENTRY, {},
-                       LATENT_NEW_STAMPS),
-    "latent mma.sync": ("latent_attention.cu", LATENT_ENTRY, {}, LATENT_MMA_SYNC),
-    "latent mma.sync stamped": ("latent_attention.cu", LATENT_ENTRY, {},
-                             LATENT_STAMPS),
-    "latent mma.sync kKT 16": ("latent_attention.cu", LATENT_ENTRY,
-                            {"kKT": 16}, LATENT_MMA_SYNC),
-    "latent mma.sync one row tile": ("latent_attention.cu", LATENT_ENTRY,
-                                  {"kMaxRowTiles": 1}, LATENT_MMA_SYNC),
-    "latent mma.sync full score": ("latent_attention.cu", LATENT_ENTRY, {},
-                                LATENT_MMA_SYNC + LATENT_FULL_SCORE),
-    "latent mma.sync bulk copies": ("latent_attention.cu", LATENT_ENTRY, {},
-                                 LATENT_MMA_SYNC + LATENT_BULK),
+                       LATENT_STAMPS),
+    "latent ticket fold": ("latent_attention.cu", LATENT_ENTRY, {},
+                           LATENT_TICKET_FOLD),
+    "latent fold out of line": ("latent_attention.cu", LATENT_ENTRY, {},
+                                LATENT_FOLD_OUT_OF_LINE),
 }
 
 
@@ -689,6 +608,13 @@ def variant_source(text: str, values: dict, passages=()) -> str:
         if n != 1:
             raise AssertionError(f"no single constant {name} to set")
     for old, new in passages:
+        if isinstance(old, tuple):  # the region from old[0] to old[1]
+            start, end = old
+            if text.count(start) != 1 or end not in text.split(start)[1]:
+                raise AssertionError(f"no region {start[:40]!r} to replace")
+            head, tail = text.split(start)
+            text = head + new + tail.split(end, 1)[1]
+            continue
         if text.count(old) != 1:
             raise AssertionError(f"no single passage {old[:40]!r} to replace")
         text = text.replace(old, new)
@@ -780,29 +706,24 @@ def prefill_calls(smoke, pa_kernel, pa_ref, dev, stream, libs) -> tuple:
 # cache and over int8 codes.
 LATENT_TIMED = ("decode", "decode_paged", "prefill", "prefill_paged")
 LATENT_CACHES = ("bf16", "int8")
-STAGES = {"latent mma.sync stamped": (
-    "ring wait", "barrier", "issue loads", "widen codes", "score products",
-    "exchange partials", "softmax", "PV products"),
-    "latent stamped": (
+STAGES = (
     "full wait", "widen or zero", "S issue", "PV issue and S wait",
     "scores and maxima", "maxima barrier", "p and its stores", "p barrier",
     "PV wait and release", "-", "producer empty waits", "producer issue",
-    "q wait")}
+    "q wait")
 
 
-def latent_calls(smoke, la, refs, quant, dev, stream, libs) -> tuple:
-    """{call name: call} of each latent-attention variant at rows 3v, 7v, 2v
-    and 8v's cases (bf16 q over a bf16 cache or int8 codes; the shipped
-    source launches the prefill cases on its prefill kernel, the
-    mma.sync variants on the decode kernel's prefill branch, those with one row
-    tile with one), and {call name: (got, want)} to check once after a
-    first call."""
+def latent_calls(smoke, refs, quant, dev, stream, libs) -> tuple:
+    """{call name: call} of each latent-attention variant at rows 3v, 7v,
+    2v and 8v's cases (bf16 q over a bf16 cache or int8 codes), and {call
+    name: (got, want)} to check once after a first call."""
     import torch
     calls, checks = {}, {}
     if not any(name.startswith("latent") for name in libs):
         return calls, checks
     g, hd, hdv = (smoke.LATENT[k] for k in ("g", "hd", "hdv"))
     scale = 1.0 / math.sqrt(192)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for kind in LATENT_TIMED:
         cs = smoke.LATENT_CASES[kind]
         q, kx, cache0, table, pos = smoke._latent_inputs(
@@ -821,53 +742,32 @@ def latent_calls(smoke, la, refs, quant, dev, stream, libs) -> tuple:
             for name, lib in libs.items():
                 if not name.startswith("latent"):
                     continue
-                prefill_kernel = not name.startswith("latent mma.sync") \
-                    and not decode
-                if prefill_kernel:
-                    tiles, rows = 0, la.PREFILL_ROWS
-                    groups = la.prefill_groups(b, 1, t, g)
-                    nsplit = la.prefill_split_count(groups, c, 132)
-                else:
-                    tiles = 1 if "one row tile" in name \
-                        else la.row_tiles(t * g)
-                    rows = 16 * tiles
-                    groups = b * math.ceil(t * g / rows)
-                    nsplit = la.split_count(groups, c, 132)
-                tickets = torch.zeros(groups, dtype=torch.int32, device=dev)
-                ws = torch.empty(max(groups * nsplit * rows * (hdv + 2), 1),
-                                 device=dev)
                 out = torch.empty((b, 1, t, g, hdv), dtype=torch.bfloat16,
                                   device=dev)
-                ptrs = (qq.data_ptr(), None if kx is None else kx.data_ptr(),
-                        cache.data_ptr(), None if ks is None
-                        else ks.data_ptr(), pos.data_ptr(),
-                        None if table is None else table.data_ptr(),
-                        out.data_ptr(), ws.data_ptr(), tickets.data_ptr())
-                nb = 1 if table is None else table.shape[1]
-                ps = c if table is None else cache.shape[1]
-                code = 1 if ks is None else 2
-                if prefill_kernel:
-                    call = functools.partial(
-                        lib.pmt_latent_prefill, *ptrs, b, t, c, nb, ps,
-                        cache.shape[0], 1, g, hd, hdv, scale,
-                        int(table is not None), code, nsplit)
-                else:
-                    call = functools.partial(
-                        lib.pmt_latent_attention, *ptrs, b, t, c, nb, ps, 1,
-                        g, hd, hdv, scale, int(decode),
-                        int(table is not None), code, nsplit, tiles)
+                call = functools.partial(
+                    lib.pmt_latent_attention, qq.data_ptr(),
+                    None if kx is None else kx.data_ptr(), cache.data_ptr(),
+                    None if ks is None else ks.data_ptr(), pos.data_ptr(),
+                    None if table is None else table.data_ptr(),
+                    out.data_ptr(), b, t, c,
+                    1 if table is None else table.shape[1],
+                    c if table is None else cache.shape[1], cache.shape[0],
+                    1, g, hd, hdv, scale, int(decode),
+                    int(table is not None), 1 if ks is None else 2, sms)
                 key = f"{name}, {kind} {mode}"
                 # the tensors behind the pointers live as long as the call
-                calls[key] = lambda call=call, keep=(out, ws, tickets, qq, kx,
-                                                     cache, ks, table, pos): \
+                calls[key] = lambda call=call, keep=(out, qq, kx, cache, ks,
+                                                     table, pos): \
                     call(stream())
                 checks[key] = (out, want.view(b, 1, t, g, hdv))
     return calls, checks
 
 
-def latent_stamps(lib, call, stages) -> dict:
-    """One launch of a stamped variant: {stage: clock cycles a tile}
-    summed over the blocks that had tiles, and the blocks and tiles."""
+def latent_stamps(lib, call) -> dict:
+    """One launch of the stamped variant: {stage: clock cycles a tile}
+    summed over the blocks that had tiles, the blocks and tiles, each
+    phase's mean and longest span over the blocks (us, the global timer),
+    and the launch's timeline."""
     import torch
     n = STAMP_BLOCKS * STAMP_SLOTS
     buf = (ctypes.c_ulonglong * n)()
@@ -879,33 +779,29 @@ def latent_stamps(lib, call, stages) -> dict:
     torch.cuda.synchronize()
     if lib.pmt_latent_stamps(buf, n):
         raise RuntimeError("pmt_latent_stamps failed")
-    blocks = [buf[i * STAMP_SLOTS:(i + 1) * STAMP_SLOTS]
-              for i in range(STAMP_BLOCKS) if buf[i * STAMP_SLOTS + 15]]
-    tiles = sum(blk[15] for blk in blocks)
-    out = {"blocks": len(blocks), "tiles": tiles, "cycles_a_tile": {
-        stage: sum(blk[k] for blk in blocks) / tiles
-        for k, stage in enumerate(stages)}}
     started = [buf[i * STAMP_SLOTS:(i + 1) * STAMP_SLOTS]
                for i in range(STAMP_BLOCKS) if buf[i * STAMP_SLOTS + 13]]
-    if any(blk[8] for blk in started):  # the decode kernel's phases
-        out["phases_us"] = {}
-        for name, a, b in PHASES:
-            spans = [(blk[b] - blk[a]) / 1e3 for blk in started
-                     if blk[a] and blk[b] and (name != "fold" or blk[8] == 2)]
-            out["phases_us"][name] = {
-                "blocks": len(spans), "mean": statistics.mean(spans),
-                "max": max(spans)} if spans else None
-        blocks = started
-    timed = [(blk[13], blk[14]) for blk in blocks if blk[14]]
-    if timed:  # the global timer (ns) at each block's start and end
-        t0 = min(a for a, _ in timed)
-        starts = sorted(a - t0 for a, _ in timed)
-        out["timeline_us"] = {
-            "span": (max(b for _, b in timed) - t0) / 1e3,
-            "block_mean": sum(b - a for a, b in timed) / len(timed) / 1e3,
-            "block_max": max(b - a for a, b in timed) / 1e3,
-            "start_quartiles": [starts[len(starts) * k // 4] / 1e3
-                                for k in range(4)] + [starts[-1] / 1e3]}
+    worked = [blk for blk in started if blk[15]]
+    tiles = sum(blk[15] for blk in worked)
+    out = {"blocks": len(started), "with_tiles": len(worked), "tiles": tiles,
+           "cycles_a_tile": {stage: sum(blk[k] for blk in worked) / tiles
+                             for k, stage in enumerate(STAGES)},
+           "phases_us": {}}
+    for name, a, b in PHASES:
+        spans = [(blk[b] - blk[a]) / 1e3 for blk in started
+                 if blk[a] and blk[b]]
+        out["phases_us"][name] = {
+            "blocks": len(spans), "mean": statistics.mean(spans),
+            "max": max(spans)} if spans else None
+    t0 = min(blk[13] for blk in started)
+    starts = sorted(blk[13] - t0 for blk in started)
+    out["timeline_us"] = {
+        "span": (max(blk[14] for blk in started) - t0) / 1e3,
+        "block_mean": statistics.mean(blk[14] - blk[13]
+                                      for blk in started) / 1e3,
+        "block_max": max(blk[14] - blk[13] for blk in started) / 1e3,
+        "start_quartiles": [starts[len(starts) * k // 4] / 1e3
+                            for k in range(4)] + [starts[-1] / 1e3]}
     return out
 
 
@@ -1124,9 +1020,8 @@ def main() -> int:
             raise AssertionError(f"{name} disagrees with the plain version")
     calls.update(pcalls)
     timers.update({name: smoke.graph_ms for name in pcalls})
-    from repro_torch.kernels import latent_attention
     from repro_torch.kernels.decode_attention import ref as da_ref
-    lcalls, checks = latent_calls(smoke, latent_attention, {
+    lcalls, checks = latent_calls(smoke, {
         "decode": da_ref.decode_attention_ref,
         "decode_paged": da_ref.decode_attention_paged_ref,
         "prefill": pa_ref.prefill_attention_ref,
@@ -1140,11 +1035,9 @@ def main() -> int:
         print(f"{name}: max |err| {err:.3g}", flush=True)
         if not err <= smoke.TOL[torch.bfloat16]:
             raise AssertionError(f"{name} disagrees with the plain version")
-        variant = name.split(",")[0]
-        if variant in STAGES and (variant != "latent stamped"
-                                  or "prefill" in name):
+        if name.startswith("latent stamped,"):
             print(json.dumps({"stamps": name, **latent_stamps(
-                libs[variant], lcalls[name], STAGES[variant])}), flush=True)
+                libs["latent stamped"], lcalls[name])}), flush=True)
     if checks:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,"
                               "clocks.max.sm", "--format=csv,noheader"],

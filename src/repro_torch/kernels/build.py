@@ -62,14 +62,12 @@ SIGNATURES = {
     "pmt_prefill_attention_paged_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                        _I, _I, _F, _I, _F, _I, _I, _I, _P],
-    "pmt_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-                             _I, _I, _P],
-    "pmt_latent_smem_bytes": [_I, _I, _I, _I],
-    "pmt_latent_prefill": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
-    "pmt_latent_prefill_smem_bytes": [_I, _I, _I],
-    "pmt_latent_prefill_tma": [_P, _P, _P, _I, _I, _I, _I],
+    "pmt_latent_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                             _P],
+    "pmt_latent_splits": [_I, _I, _I, _I, _I, _I, _I],
+    "pmt_latent_smem_bytes": [_I, _I, _I],
+    "pmt_latent_tma": [_P, _P, _P, _I, _I, _I, _I],
     "pmt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                             _F, _I, _P],
     "pmt_flash_smem_bytes": [_I],

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
-// TMA tile loads, shared-memory matrix descriptors and the warpgroup
-// matrix multiply (wgmma), as inline PTX; and the warp-level pieces
+// cluster barriers and distributed shared memory, TMA tile loads,
+// shared-memory matrix descriptors and the warpgroup matrix multiply
+// (wgmma), as inline PTX; and the warp-level pieces
 // (cp.async of 16 and 4 bytes, ldmatrix, mma.sync m16n8k16) of the kernels whose
 // tiles are too small or too scattered for TMA and wgmma.  No library beyond the CUDA
 // headers: the tensor maps the TMA loads read are encoded on the host
@@ -73,6 +74,40 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `count` threads, whole warps.
 __device__ __forceinline__ void named_sync(uint32_t id, uint32_t count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// -- clusters --------------------------------------------------------------------
+
+// Barrier over every thread of the cluster: its blocks' shared-memory
+// writes before it are seen by reads after it from any block of the
+// cluster.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address, in the cluster's shared window, of shared address `addr`
+// of the cluster's block `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Loads from another block's shared memory (distributed shared memory).
+__device__ __forceinline__ float ld_dsmem_f32(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(x) : "r"(addr));
+  return x;
+}
+
+__device__ __forceinline__ float4 ld_dsmem_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
 }
 
 // -- TMA -------------------------------------------------------------------------

@@ -1,11 +1,13 @@
-"""The latent-attention prefill launcher's plan on the CPU
-(``kernels/latent_attention.py``): the prefill kernel's shared memory
-at every width tier and cache dtype within a block's 232,448 bytes, its
-row blocks and splits at rows 2v's and 8v's served shapes, the shape and
+"""The latent-attention launcher's plan for the prefill chunk on the CPU
+(``kernels/latent_attention.py``): the kernel's shared memory at every
+width tier and cache dtype within a block's 232,448 bytes, its row
+blocks and splits at rows 2v's and 8v's served shapes, the shape and
 stride rule that picks TMA or the producer's element copies, and
-``takes`` admitting exactly the inputs it admitted before the prefill
-kernel was redesigned.  ``tests/test_torch_latent_prefill_cuda.py``
-holds these formulas to the C library's on the card.
+``takes`` admitting exactly the inputs it admitted before the kernel was
+redesigned.  ``tests/test_torch_latent_decode.py`` has the decode's
+plan; ``tests/test_torch_latent_prefill_cuda.py`` and
+``tests/test_torch_latent_decode_cuda.py`` hold these formulas to the C
+library's on the card.
 """
 import math
 
@@ -21,7 +23,7 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block can have on the H100
 @pytest.mark.parametrize("hd", [1, 24, 64, 72, 128, 129, 320, 576])
 @pytest.mark.parametrize("codes", [False, True])
 def test_prefill_smem_fits_a_block(hd, codes):
-    n = la.prefill_smem_bytes(hd, codes)
+    n = la.smem_bytes(hd, codes)
     dk = 128 if hd <= 128 else 576
     # q, the ring of three key tiles and p_hi | p_lo at least
     assert 64 * dk * 2 + 3 * 32 * dk * 2 + 64 * 128 < n
@@ -33,8 +35,8 @@ def test_prefill_smem_at_full_width():
     # 8,192 + row maxima 512 + barriers 64 + 1 KB of alignment slack; over
     # codes also an 18,432-byte code tile and three stages' 128 bytes of
     # row scales
-    assert la.prefill_smem_bytes(576, False) == 202_304
-    assert la.prefill_smem_bytes(576, True) == 221_120
+    assert la.smem_bytes(576, False) == 202_304
+    assert la.smem_bytes(576, True) == 221_120
 
 
 @pytest.mark.parametrize("shape, groups, splits", [
@@ -123,9 +125,13 @@ def test_takes_admits_what_it_admitted(q_dtype, cache_dtype, hd, v_width):
 
 
 def test_prefill_workspace_rows():
-    # a split's partial holds 64 rows of hdv floats and (m, l) a row
+    # no workspace in device memory: a split's partial, 64 rows of hdv
+    # floats, stays in its block's q and ring for the cluster's fold (row
+    # 2v: 64 clusters of 2), the fold's weights in p's two buffers
     groups = la.prefill_groups(1, 1, 32, 128)
     nsplit = la.prefill_split_count(groups, 1024, 132)
-    assert groups * nsplit * la.PREFILL_ROWS * (512 + 2) \
-        == 64 * 2 * 64 * 514
-    assert math.ceil(32 * 128 / la.PREFILL_ROWS) == groups
+    assert (groups, nsplit) == (64, 2)
+    for dk, dv in ((128, 128), (576, 512)):
+        assert la.ROWS * dv * 4 <= la.ROWS * dk * 2 + 3 * 32 * dk * 2
+    assert la.MAX_SPLITS * la.ROWS * 4 <= 2 * la.ROWS * 128
+    assert math.ceil(32 * 128 / la.ROWS) == groups

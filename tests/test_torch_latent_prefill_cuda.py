@@ -1,14 +1,14 @@
-"""The latent-attention prefill kernel (rows 2v and 8v:
-``csrc/latent_attention.cu`` ``latent_prefill_kernel``, wgmma over 64
-packed rows fed by TMA) on the card against its plain versions
+"""The latent-attention kernel's prefill chunk (rows 2v and 8v:
+``csrc/latent_attention.cu`` ``latent_kernel``, wgmma over 64 packed
+rows fed by TMA) on the card against its plain versions
 (``prefill_attention/ref.py``), through the prefill wrappers, over bf16,
 int8 and fp8_e4m3 caches, contiguous and paged: one query token, 9 and
 80 (longer than a 32-key tile); offsets 0, 1, 15, 16, 17 and off the
 tile; G 3, 4 and 128; pages of 8 and 16 with the table's unused entries
 on page 0; the producer's element-copy path (rows of 72 bytes, a base
 off its 16-byte alignment, pages of 4); two launches in a row (the
-split tickets back at 0).  Also the launcher's plan held to the
-library's: shared memory and the TMA rule.
+splits folded across a cluster each time).  Also the launcher's plan
+held to the library's: shared memory, splits and the TMA rule.
 
 Marked ``cuda``: these skip where there is no card.  On the machine with
 the card run them with
@@ -132,8 +132,8 @@ def test_prefill_kernel_misaligned_q_copies(card, cache, paged):
 @pytest.mark.parametrize("cache", CACHES, ids=str)
 @pytest.mark.parametrize("paged", [False, True])
 def test_prefill_kernel_twice_in_a_row(card, cache, paged):
-    # G128 T1 over six rows: 12 row blocks over 6 splits, each block's
-    # ticket folded and reset by its last split, then used again
+    # G128 T1 over six rows: 12 row blocks over 6 splits, each group's
+    # splits one cluster that folds them, launched twice
     run, ref, args, kw = _inputs(card, "G128 T1", cache, paged)
     assert latent_attention.prefill_split_count(
         latent_attention.prefill_groups(6, 1, 1, 128), 720) == 6
@@ -145,8 +145,14 @@ def test_prefill_plan_matches_the_library(card):
     lib = build.library()
     for hd, hdv in ((24, 16), (36, 32), (72, 64), (128, 128), (576, 512)):
         for code in (1, 2, 3):
-            assert lib.pmt_latent_prefill_smem_bytes(hd, hdv, code) == \
-                latent_attention.prefill_smem_bytes(hd, code >= 2)
+            assert lib.pmt_latent_smem_bytes(hd, hdv, code) == \
+                latent_attention.smem_bytes(hd, code >= 2)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for b, t, g, c in ((1, 32, 128, 1024), (8, 32, 128, 1024),
+                       (6, 1, 128, 720), (2, 9, 3, 100), (3, 80, 4, 64)):
+        groups = latent_attention.prefill_groups(b, 1, t, g)
+        assert lib.pmt_latent_splits(b, 1, t, g, c, sms, 0) == \
+            latent_attention.prefill_split_count(groups, c, sms)
     for hd in (24, 36, 72, 576):
         for cache in (torch.bfloat16, torch.int8):
             for shift in (0, 1):
@@ -158,7 +164,7 @@ def test_prefill_plan_matches_the_library(card):
                 kc = torch.empty(1, 16, 1, hd, dtype=cache, device=card)
                 for ps in (None, 4, 8, 16, 24):
                     want = latent_attention.loads_by_tma(q, kx, kc, ps)
-                    got = lib.pmt_latent_prefill_tma(
+                    got = lib.pmt_latent_tma(
                         q.data_ptr(), kx.data_ptr(), kc.data_ptr(), hd,
                         ps or 16, int(ps is not None),
                         build.dtype_code(cache, codes=cache != torch.bfloat16))

@@ -156,9 +156,8 @@ def test_latent_smem_matches_the_library(card):
     lib = build.library()
     for hd, hdv in ((24, 16), (72, 64), (576, 512)):
         for code in (1, 2):
-            for tiles in (1, 2):
-                assert lib.pmt_latent_smem_bytes(hd, hdv, code, tiles) == \
-                    latent_attention.smem_bytes(hd, code == 2, tiles)
+            assert lib.pmt_latent_smem_bytes(hd, hdv, code) == \
+                latent_attention.smem_bytes(hd, code == 2)
 
 
 @pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32], ids=str)
