@@ -130,6 +130,28 @@ Phases, in order; any failure exits nonzero:
      that add up, the pages held after a run equal to the prefix tree's,
      prefix hits in both runs and priced saved prefill joules in the
      warm one; then a short run under the profiler.
+     5p. the preemption plane on the paged path: (a) tests/
+     test_serve_preempt.py's pressured mix through reduced fp32
+     smollm-135m (pages of 8 and 16) and deepseek-v3 (``moe=None,
+     mtp=False``, pages of 16) with ``preempt=True``, with a swap store
+     and without, and smollm's swap path over int8 and fp8_e4m3 pools:
+     greedy tokens, every ``preemption`` counter but the joules and the
+     preempt log on the card equal to the CPU engine's, and over fp32
+     pools tokens equal to the unpressured run's; (b) phase 5's 16
+     requests (priorities 0 and 1 in turn) through full-width
+     smollm-135m, paged (page 16, bf16) on a pool of 96 pages, once
+     with a 1 GiB swap store and once with a swap budget of 0: phase 5's
+     checks, preemptions >= 1 and as many resumes, no request retired
+     ``"preempted-retry-exhausted"``, pool gauges that add up, an empty
+     store, the paged kernels launched and the contiguous ones not;
+     prints preemptions and resumes by destination and route, the swap
+     copies' bytes, time and GB/s each way, the wasted and recovered
+     tokens and joules and tokens/s beside the card's name and power
+     limit (tokens against phase 5's logged, not gated); (c) one live
+     row's decode logits turned NaN once: that request retires
+     ``"error"``, its pages never reach the radix tree, the others give
+     the clean tokens; a run with a watchdog of 1e-9 s a step completes
+     and flags hung steps.
      5c. phase 5's 16 requests, through ``PHASE_5C_LAYERS`` (10) of the
      model's 30 layers, once per quantized cache mode and layout
      (int8, fp8_e4m3; contiguous, paged at page 16 with the default
@@ -189,7 +211,8 @@ Phases, in order; any failure exits nonzero:
      row's session joules are within 10% of an independent
      ``EnergyMeter`` reading of the same window.
   7. print the ``{"kernels": [...]}`` line (19 rows: the 15 kernels and
-     rows 2v, 3v, 7v, 8v with their launches in phase 5m; the attention
+     rows 2v, 3v, 7v, 8v with their launches in phase 5m, the paged rows
+     with their launches in phase 5p's swap run beside; the attention
      kernels with their quantized launches and times beside, the
      quantizing scatters with fp8_e4m3's times beside int8's, the four
      scatters' times a pair call's; row 9 with its launches on phase 5w's
@@ -2858,13 +2881,15 @@ def serve_workload(cfg, Request, rng) -> tuple:
 
 
 def served_run(eng, Request, prompts, kernels, meter, index, session,
-               energy, serve_launch):
+               energy, serve_launch, priorities=None):
     """One timed, metered serve run with every launch count set to 0
     just before it; checks its output and its PMT records (a wave engine
     opens no request spans: its ``serve/wave<N>`` regions are checked
     instead), and returns the counts read just after it, each request's
-    tokens and the run's figures (tokens/s, J/token, stall p95 ms)."""
-    reqs = [Request(prompt=p, max_new_tokens=64) for p in prompts]
+    tokens and the run's figures (tokens/s, J/token, stall p95 ms).  A
+    preempted request's spans, one set a stay in a slot, are summed."""
+    reqs = [Request(prompt=p, max_new_tokens=64, priority=pr)
+            for p, pr in zip(prompts, priorities or [0] * len(prompts))]
     session.flush()
     n_before = len(energy.records)
     zero_counts(kernels)
@@ -3069,6 +3094,249 @@ def check_once_a_layer(cfg, counts, steps, scatter, label,
     if counts[scatter] != want:
         raise AssertionError(f"{label}: {scatter} is not launched once a "
                              f"layer a step")
+
+
+# -- phase 5p: the preemption plane ----------------------------------------------
+# (a) tests/test_serve_preempt.py's pressured mix (a long decoder, a
+# neighbour, a page-hungry latecomer) on reduced fp32 models, with that
+# test's pools (9 pages of 8, 4 of 16).
+PREEMPT_MIX = [(13, 16), (21, 4), (40, 4)]
+# (arch, page size, cache dtype, with a swap store)
+PREEMPT_SMALL = tuple(
+    (arch, ps, "float32", swap)
+    for arch, ps in (("smollm-135m", 8), ("smollm-135m", 16),
+                     ("deepseek-v3-671b", 16))
+    for swap in (True, False)) + (("smollm-135m", 8, "int8", True),
+                                  ("smollm-135m", 8, "fp8_e4m3", True))
+# (b) full-width smollm-135m's pool, deliberately short: 96 usable pages of
+# 16 tokens, at 30 layers x k and v x 3 kv heads x 64 x 2 bytes = 23,040
+# bytes a token, 35.4 MB; phase 5's 16 requests would hold ~220 pages in
+# 8 slots, so fresh admissions preempt.
+PREEMPT_POOL_PAGES = 96
+
+
+def check_small_preempt(configs, model_mod, ServeEngine, Request,
+                        PageSwapStore):
+    """Phase 5p (a): the pressured mix through reduced smollm-135m (pages
+    of 8 and 16) and reduced deepseek-v3 (``moe=None, mtp=False``, pages
+    of 16), fp32, ``preempt=True`` with a swap store and without, and
+    smollm's swap path over int8 and fp8_e4m3 pools: the greedy tokens,
+    every ``preemption`` counter but the joules and the preempt log on
+    the card equal the CPU engine's; over fp32 pools the tokens also
+    equal the unpressured engine's on the card (over codes a resume
+    requantizes rows, so that is logged)."""
+    models = {}
+    for arch, ps, cache, swap in PREEMPT_SMALL:
+        if arch not in models:
+            over = dict(moe=None, mtp=False) \
+                if arch.startswith("deepseek") else {}
+            cfg = dataclasses.replace(
+                configs.get_config(arch, reduced=True), dtype="float32",
+                prefill_chunk=16, **over)
+            models[arch] = cfg, model_mod.init_params(cfg, seed=0,
+                                                      device="cpu")
+        cfg, params = models[arch]
+
+        def mix():
+            rng = np.random.default_rng(11)
+            return [Request(prompt=rng.integers(
+                2, cfg.vocab_size - 1, size=(p,)).tolist(), max_new_tokens=n)
+                for p, n in PREEMPT_MIX]
+
+        cache_dtype = torch.float32 if cache == "float32" else cache
+        free = ServeEngine(cfg, params, batch_size=2, max_len=64,
+                           kv_layout="paged", kv_page_size=ps,
+                           cache_dtype=cache_dtype, device="cuda")
+        unpressured = [r.out for r in free.generate(mix())]
+        got = []
+        for dev in ("cpu", "cuda"):
+            eng = ServeEngine(
+                cfg, params, batch_size=2, max_len=64, kv_layout="paged",
+                kv_page_size=ps, kv_pool_pages=9 if ps == 8 else 4,
+                preempt=True, swap_store=PageSwapStore() if swap else None,
+                cache_dtype=cache_dtype, device=dev)
+            done = eng.generate(mix())
+            pre = eng.stats()["preemption"]
+            got.append(([r.out for r in done],
+                        {k: v for k, v in pre.items()
+                         if not k.endswith("joules")},
+                        [(e["event"], e["rid"], e.get("via"), e.get("dest"))
+                         for e in eng.preempt_log]))
+        cpu, card_run = got
+        tokens, counters, plog = card_run
+        log(f"  reduced {arch} fp32, {cache} pool, page {ps}, "
+            f"{'swap store' if swap else 'no swap store'}: "
+            f"{counters['preemptions']} preempted, {counters['resumes']} "
+            f"resumed, log {plog}; card equal to the CPU: {card_run == cpu}, "
+            f"tokens equal to the unpressured run's: {tokens == unpressured}")
+        if card_run != cpu:
+            raise AssertionError(f"phase 5p {arch} {cache} page {ps}: card "
+                                 f"{card_run} against the CPU's {cpu}")
+        if cache == "float32" and tokens != unpressured:
+            raise AssertionError(f"phase 5p {arch} page {ps}: pressured "
+                                 f"tokens differ from the unpressured")
+        if counters["preemptions"] < 1 or (swap and "swap" not in [
+                via for _, _, via, _ in plog]):
+            raise AssertionError(f"phase 5p {arch} page {ps}: the mix did "
+                                 f"not preempt as it should: {plog}")
+
+
+def serve_preempt(configs, model_mod, ServeEngine, Request, kernels,
+                  serve_kernels, nvml, pmt, serve_launch, PageSwapStore,
+                  prompts, bf16_tokens, card) -> tuple:
+    """Phase 5p (b): phase 5's 16 requests (priorities 0 and 1 in turn)
+    through full-width smollm-135m, paged (page 16, 8 slots, max_len
+    1024, chunk 32, bf16) on a pool of ``PREEMPT_POOL_PAGES`` with
+    ``preempt=True``, under one PMT session (cpuutil + nvml): once with a
+    1 GiB swap store, once with a swap budget of 0 (tree and recompute
+    resumes), each on a fresh engine that has learned the card's J per
+    prefill token from a warm-up.  Each run: phase 5's checks, at least
+    one preemption and as many resumes, no request retired
+    ``"preempted-retry-exhausted"``, pool gauges that add up, an empty
+    swap store, the paged kernels launched and the contiguous ones not.
+    Returns the swap run's launch counts and the weights, for (c)."""
+    cfg = configs.get_config("smollm-135m")
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    per_token = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    log(f"  pool: {PREEMPT_POOL_PAGES} usable pages of 16 tokens, "
+        f"{per_token} B a token, {PREEMPT_POOL_PAGES * 16 * per_token / 1e6:.1f}"
+        f" MB; priorities 0 and 1 in turn [{card}]")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    reader = nvml.NvmlReader(0)
+    priorities = [i % 2 for i in range(len(prompts))]
+    launches = None
+    try:
+        for index, (name, budget) in enumerate(
+                (("swap store of 1 GiB", 1 << 30), ("swap budget 0", 0)), 1):
+            store = PageSwapStore(budget)
+            eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
+                              prefill_chunk=32, cache_dtype=torch.bfloat16,
+                              kv_layout="paged", kv_page_size=16,
+                              kv_pool_pages=PREEMPT_POOL_PAGES, preempt=True,
+                              swap_store=store, session=session)
+            # the warm-up's prefill spans (4 x 512 tokens) are long enough
+            # for the card's joules to resolve: the resumes' price
+            rng = np.random.default_rng(2)
+            eng.generate([Request(prompt=rng.integers(
+                0, cfg.vocab_size, 512).tolist(), max_new_tokens=4)
+                for _ in range(4)])
+            torch.cuda.synchronize()
+            session.flush()
+            for rec in energy.records:
+                if rec.sensor == "nvml":
+                    eng.on_record(rec)
+            zero_counts(serve_kernels)
+            counts, out, figs = served_run(
+                eng, Request, prompts, kernels, nvml.EnergyMeter(reader),
+                index, session, energy, serve_launch, priorities=priorities)
+            contiguous = read_counts(serve_kernels)
+            if any(contiguous.values()):
+                raise AssertionError(f"phase 5p: the paged path launched a "
+                                     f"contiguous kernel: {contiguous}")
+            pre = eng.stats()["preemption"]
+            kc = eng.stats()["kv_cache"]
+            vias, dests = {}, {}
+            for e in eng.preempt_log:
+                key, by = ("via", vias) if e["event"] == "resume" \
+                    else ("dest", dests)
+                by[e[key]] = by.get(e[key], 0) + 1
+            io = eng.swap_copies
+            rate = lambda b, s: f"{b / s / 1e9:.3f} GB/s" if s else "none"
+            log(f"  run {index} ({name}): {pre['preemptions']} preemptions "
+                f"by dest {dests}, {pre['resumes']} resumes by via {vias}; "
+                f"wasted {pre['wasted_tokens']} tokens "
+                f"{pre['wasted_joules']:.3f} J, recovered "
+                f"{pre['recovered_tokens']} tokens "
+                f"{pre['recovered_joules']:.3f} J; "
+                f"{figs['tokens_per_s']:.1f} tokens/s [{card}]")
+            log(f"  run {index} ({name}): swap out {io['pages_out']} pages "
+                f"{io['bytes_out']} B in {io['seconds_out'] * 1e3:.3f} ms "
+                f"({rate(io['bytes_out'], io['seconds_out'])}), in "
+                f"{io['pages_in']} pages {io['bytes_in']} B in "
+                f"{io['seconds_in'] * 1e3:.3f} ms "
+                f"({rate(io['bytes_in'], io['seconds_in'])}); store "
+                f"{store.stats()} [{card}]")
+            log(f"  run {index} ({name}): {serve_launch.kv_pool_line(kc)}")
+            agree = sum(a == b for a, b in zip(out, bf16_tokens))
+            log(f"  run {index}: {agree} of {len(out)} requests' tokens equal "
+                f"to phase 5's unpressured run (not gated in bf16: a resume "
+                f"off the chunk grid reorders sums)")
+            if pre["preemptions"] < 1 or pre["resumes"] != pre["preemptions"]:
+                raise AssertionError(f"phase 5p run {index}: "
+                                     f"{pre['preemptions']} preemptions, "
+                                     f"{pre['resumes']} resumes")
+            if kc["pages_used"] + kc["pages_free"] != kc["pages_total"]:
+                raise AssertionError(f"pool gauges do not add up: {kc}")
+            if len(store) or store.bytes_used:
+                raise AssertionError(f"swap store not empty: "
+                                     f"{store.stats()}")
+            if launches is None:
+                launches = counts
+    finally:
+        reader.close()
+        session.close()
+    return launches, params
+
+
+def check_quarantine_card(configs, ServeEngine, Request, params, prompts,
+                          card) -> None:
+    """Phase 5p (c): four of phase 5's prompts (16 new tokens each)
+    through full-width smollm-135m, paged, once clean and once with the
+    paged decode step wrapped to turn one live row's logits NaN once:
+    that request retires ``"error"``, its pages never reach the radix
+    tree, the others give the clean tokens.  Then a run with
+    ``watchdog_step_timeout_s=1e-9`` completes and flags hung steps."""
+    cfg = configs.get_config("smollm-135m")
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, batch_size=4, max_len=1024,
+                           prefill_chunk=32, cache_dtype=torch.bfloat16,
+                           kv_layout="paged", kv_page_size=16, **kw)
+
+    def reqs():
+        return [Request(prompt=p, max_new_tokens=16) for p in prompts[:4]]
+
+    clean = [r.out for r in engine().generate(reqs())]
+    eng = engine()
+    fns = eng._paged_fns
+    hit = {}
+
+    def poisoned(params_, caches, tokens, cur, table):
+        logits = fns.decode(params_, caches, tokens, cur, table)
+        if not hit:
+            hit["row"] = int((table != 0).any(dim=1).nonzero()[0, 0])
+            logits[hit["row"]] = float("nan")
+        return logits
+
+    eng._paged_fns = fns._replace(decode=poisoned)
+    done = eng.generate(reqs())
+    bad = [i for i, r in enumerate(done) if r.finish_reason == "error"]
+    others = [i for i in range(len(done)) if i not in bad]
+    n_tree = 0
+    for i in bad:
+        n_tree, pages = eng._radix.match(list(done[i].prompt))
+        eng._pool.release(pages)
+    log(f"  quarantine: row {hit.get('row')} poisoned once; requests "
+        f"{bad} retired error, {eng.quarantined} quarantined, "
+        f"{eng.nonfinite_logit_rows} non-finite rows, its prompt's tokens "
+        f"on the tree {n_tree}; the others equal to the clean run: "
+        f"{[done[i].out == clean[i] for i in others]} [{card}]")
+    if len(bad) != 1 or eng.quarantined != 1 or n_tree \
+            or any(done[i].out != clean[i] for i in others) \
+            or any(done[i].finish_reason != "length" for i in others):
+        raise AssertionError("phase 5p: the quarantine misbehaved")
+    events = []
+    eng = engine(watchdog_step_timeout_s=1e-9)
+    eng.event_sink = events.append
+    done = eng.generate(reqs())
+    kinds = {e["kind"] for e in events}
+    log(f"  watchdog at 1e-9 s a step: {eng.hung_steps} hung steps, events "
+        f"{sorted(kinds)}, finish reasons "
+        f"{sorted({r.finish_reason for r in done})}")
+    if not eng.hung_steps or kinds != {"hung_step"} \
+            or any(r.finish_reason != "length" for r in done):
+        raise AssertionError("phase 5p: the watchdog misbehaved")
 
 
 # Phase 5c's depth: 10 of smollm-135m's 30 layers (its widths whole), so
@@ -4113,6 +4381,7 @@ def main() -> int:
     from repro_torch.models import model as model_mod
     from repro_torch.optim import optimizers as optim
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.swap import PageSwapStore
     from repro_torch.train import steps as train
 
     t_start = time.perf_counter()
@@ -4249,6 +4518,21 @@ def main() -> int:
     launches.update(serve_paged(configs, model_mod, ServeEngine, Request,
                                 paged_kernels, nvml, pmt, serve_launch,
                                 kernels))
+
+    log(f"[5p] the preemption plane on the paged path: (a) reduced fp32 "
+        f"smollm-135m (pages of 8 and 16) and deepseek-v3 (pages of 16) "
+        f"under pool pressure, card vs CPU; (b) full-width smollm-135m, "
+        f"phase 5's 16 requests on {PREEMPT_POOL_PAGES} pages of 16, with a "
+        f"swap store and without; (c) quarantine and the watchdog "
+        f"{elapsed()}")
+    check_small_preempt(configs, model_mod, ServeEngine, Request,
+                        PageSwapStore)
+    preempt_launches, full_params = serve_preempt(
+        configs, model_mod, ServeEngine, Request, paged_kernels, kernels,
+        nvml, pmt, serve_launch, PageSwapStore, prompts, bf16_tokens, card)
+    check_quarantine_card(configs, ServeEngine, Request, full_params,
+                          prompts, card)
+    del full_params
 
     log(f"[5c] serve smollm-135m at full width, {PHASE_5C_LAYERS} of its "
         f"layers, with quantized KV caches: phase 5's 16 requests, int8 and "
@@ -4394,6 +4678,9 @@ def main() -> int:
                "quant_paged_cache_update": "paged int8"}.get(row["name"])
         if run:
             row["mla_launches"] = mla_launches[run][row["name"]]
+        # the paged rows' launches on phase 5p's swap run
+        if row["name"] in preempt_launches:
+            row["preempt_launches"] = preempt_launches[row["name"]]
     # rows 2v, 3v, 7v, 8v: launches on phase 5m's bf16 runs (quant_launches:
     # its int8 runs), times at the slice's shapes, bf16 with int8's and
     # fp8_e4m3's beside

@@ -9,7 +9,9 @@ Usage:
       [--temperature 0] [--request-deadline-s S] \
       [--cache-dtype {bfloat16,float32,int8,fp8_e4m3}] \
       [--kv-layout paged [--kv-page-size 16] [--kv-pool-blocks N] \
-       [--no-prefix-cache]] [--num-layers N] [--no-moe]
+       [--no-prefix-cache] [--preempt] [--preempt-max-retries 8] \
+       [--retry-backoff-s 0] [--swap-bytes B] [--retry-errors] \
+       [--watchdog-step-timeout-s S]] [--num-layers N] [--no-moe]
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are random
 token ids with lengths spread over [1, max_len / 2], made from
@@ -28,8 +30,11 @@ prefill/decode split (continuous mode: waves open no request spans),
 the decode stalls behind prefills (count and p95), the KV cache's
 storage and footprint (the ``kv cache: <dtype>, <N> B/token`` line;
 ``--cache-dtype int8`` or ``fp8_e4m3`` stores codes plus float32 row
-scales) and each request's token count.  With ``--kv-layout paged`` it also prints the page pool's
-use and the prefix cache's hits (the ``kv pool:`` line).
+scales) and each request's token count.  With ``--kv-layout paged`` it
+also prints the page pool's use and the prefix cache's hits (the ``kv
+pool:`` line), and, with ``--preempt`` or where a step was quarantined or
+flagged hung, the preemption plane's counters (the ``preemption:``
+line; ``--swap-bytes`` adds the swap store's).
 
 ``--num-layers`` and ``--no-moe`` override the config: ``--arch
 deepseek-v3-671b --num-layers 3 --no-moe`` is the published model's
@@ -50,6 +55,7 @@ from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Request, ServeEngine, stall_p95
+from repro_torch.serve.swap import PageSwapStore
 
 
 def request_energy(records) -> dict:
@@ -110,6 +116,27 @@ def kv_pool_line(kc: dict) -> str:
     return line
 
 
+def preemption_line(pre: dict) -> str:
+    """The JAX launcher's ``preemption:`` line from
+    ``stats()["preemption"]``."""
+    line = (f"preemption: {pre['preemptions']} preempted, "
+            f"{pre['resumes']} resumed "
+            f"({pre['recovered_tokens']} tokens recovered "
+            f"~{pre['recovered_joules']:.2f} J, "
+            f"{pre['wasted_tokens']} re-run "
+            f"~{pre['wasted_joules']:.2f} J wasted), "
+            f"{pre['retries_exhausted']} retries exhausted, "
+            f"{pre['quarantined']} quarantined, "
+            f"{pre['hung_steps']} hung steps")
+    if "swap" in pre:
+        sw = pre["swap"]
+        line += (f"; swap: {sw['swapped_out_pages']} pages out / "
+                 f"{sw['swapped_in_pages']} in, "
+                 f"{sw['bytes_used']} B held, "
+                 f"{sw['rejected_puts']} rejected")
+    return line
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
@@ -167,6 +194,31 @@ def main(argv=None):
                          "layout; default on)")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false")
+    ap.add_argument("--preempt", action="store_true",
+                    help="preemption and resume (paged layout): on pool "
+                         "exhaustion the lowest-priority live request is "
+                         "preempted page-aligned, its written pages parked "
+                         "in the radix tree (or host swap, see "
+                         "--swap-bytes), and it resumes through chunked "
+                         "prefill once pressure clears")
+    ap.add_argument("--preempt-max-retries", type=int, default=8,
+                    help="preemptions a request survives before retiring "
+                         "with reason 'preempted-retry-exhausted'")
+    ap.add_argument("--retry-backoff-s", type=float, default=0.0,
+                    help="base of the exponential re-admission backoff "
+                         "for preempted or quarantined requests (0 = "
+                         "immediate retry)")
+    ap.add_argument("--swap-bytes", type=int, default=None,
+                    help="host-memory swap budget for preempted pages "
+                         "(bytes); unset = radix-tree checkpoints only")
+    ap.add_argument("--retry-errors", action="store_true",
+                    help="restart NaN/Inf-quarantined requests from "
+                         "scratch (bounded by --preempt-max-retries) "
+                         "instead of retiring them with reason 'error'")
+    ap.add_argument("--watchdog-step-timeout-s", type=float, default=None,
+                    help="engine watchdog (paged layout): a fenced device "
+                         "step slower than this counts a hung step and "
+                         "emits an event")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="override the config's layer count")
     ap.add_argument("--no-moe", action="store_true",
@@ -196,6 +248,9 @@ def main(argv=None):
         for _ in range(args.requests)]
     backends = ["cpuutil", "nvml"] if device.type == "cuda" \
         else ["cpuutil"]
+    swap_store = None
+    if args.swap_bytes is not None:
+        swap_store = PageSwapStore(capacity_bytes=args.swap_bytes)
     with pmt.Session(backends) as session:
         energy = session.add_exporter(pmt.MemoryExporter())
         engine = ServeEngine(cfg, params, batch_size=args.batch,
@@ -207,6 +262,13 @@ def main(argv=None):
                              kv_pool_pages=args.kv_pool_blocks,
                              prefix_cache=args.prefix_cache,
                              cache_dtype=args.cache_dtype,
+                             preempt=args.preempt,
+                             preempt_max_retries=args.preempt_max_retries,
+                             retry_backoff_s=args.retry_backoff_s,
+                             retry_errors=args.retry_errors,
+                             swap_store=swap_store,
+                             watchdog_step_timeout_s=(
+                                 args.watchdog_step_timeout_s),
                              greedy=args.temperature <= 0.0,
                              temperature=args.temperature or 1.0,
                              seed=args.seed, device=device, session=session)
@@ -237,6 +299,9 @@ def main(argv=None):
           f"{kc['bytes_per_token']:.1f} B/token")
     if args.kv_layout == "paged":
         print(kv_pool_line(kc))
+        pre = st["preemption"]
+        if pre["enabled"] or pre["quarantined"] or pre["hung_steps"]:
+            print(preemption_line(pre))
     for i, r in enumerate(done):
         print(f"  req{i}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
               f"({r.finish_reason})")

@@ -48,7 +48,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks, layers
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -427,6 +427,18 @@ def init_paged_caches(cfg: ModelConfig, num_pages: int, page_size: int,
         cfg, r, num_pages, page_size, dtype, dev)
         for r in range(lay.unit_len)} for _ in range(lay.n_units)]
     return {"units": _stack(per_unit)}
+
+
+def paged_page_axes(cfg: ModelConfig) -> list:
+    """The page axis of each leaf of :func:`init_paged_caches`, in
+    ``tree_leaves`` order: the stacked units' axis, then the leaf's shape
+    as ``blocks.cache_leaf_specs`` gives it for the lead (P, page_size).
+    The engine's swap path gathers and scatters pages along it."""
+    lead = ("pages", "page_size")
+    per_unit = {f"r{r}": {name: 1 + shape.index("pages") for name, (shape, _)
+                          in blocks.cache_leaf_specs(cfg, r, lead).items()}
+                for r in range(unit_layout(cfg).unit_len)}
+    return tree_leaves({"units": per_unit})
 
 
 class PagedServeFns(NamedTuple):

@@ -65,8 +65,21 @@ engine's device, seeded with ``seed``: the Gumbel-max draw, on the
 device, so a decode burst still syncs once.  JAX's PRNG streams cannot
 be matched, so a seed gives its own stream, repeatable run to run.
 
-Still to come, each with its slice (see ROADMAP.md), and refused here:
-preemption and swap, and the power governor.
+The paged path carries the JAX engine's preemption plane
+(``preempt=True``): when the pool cannot cover a fresh admission even
+after radix eviction, the lowest-priority live request is preempted
+page-aligned, its written pages parked in a host ``PageSwapStore``
+(``serve/swap.py``) or the radix tree, and it rejoins the queue with
+exponential backoff; its resume prefills ``prompt + out`` from the
+checkpoint that covers more.  Rows whose logits turn non-finite are
+quarantined (``"error"``, or retried from scratch with
+``retry_errors``), and their pages never reach the tree; a watchdog
+counts fenced steps slower than ``watchdog_step_timeout_s``; ``drain()``
+checkpoints everything in flight and returns.  Deadlines and backoff
+read the module's ``_clock``.
+
+Still to come, with its slice (see ROADMAP.md), and refused here: the
+power governor.
 """
 from __future__ import annotations
 
@@ -76,7 +89,7 @@ import dataclasses
 import math
 import os
 import time
-from typing import Any, Deque, Dict, List, Optional, Sequence, Union
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -88,6 +101,11 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.blocks import cache_leaf_specs, layer_window
 from repro_torch.serve.paging import PagePool, RadixPrefixCache
 from repro_torch.tree import tree_leaves
+
+# The clock of deadlines and retry backoff, and the sleep that waits out
+# a backoff (module attributes, so a test can drive them).
+_clock = time.monotonic
+_sleep = time.sleep
 
 
 def stall_p95(events) -> float:
@@ -130,9 +148,24 @@ def resolve_prefill_chunk(cfg: ModelConfig,
 class Request:
     """One serve request: prompt in, ``out`` tokens back.
 
-    ``finish_reason`` is None until served, then ``"length"`` (ran to
-    ``max_new_tokens``) or ``"timeout"`` (past ``deadline_s``, measured
-    from ``generate()`` submission; keeps the tokens generated so far).
+    ``finish_reason`` is None until served (or still None after
+    ``drain()`` checkpointed it mid-flight: submitting it again resumes
+    it), then:
+
+      * ``"length"``: ran to ``max_new_tokens``;
+      * ``"timeout"``: past ``deadline_s``, measured from ``generate()``
+        submission, waiting, mid-prefill, mid-decode or parked after a
+        preemption (timeout outranks retry); keeps the tokens so far;
+      * ``"preempted-retry-exhausted"``: preempted more than the
+        engine's ``preempt_max_retries`` times; keeps the tokens
+        generated before the last preemption;
+      * ``"error"``: the step that would have produced its next token
+        gave non-finite logits; quarantined (pages dropped, never
+        adopted into the prefix tree), unless ``retry_errors`` retries
+        it from scratch first.
+
+    ``priority`` orders preemption victims: lower goes first (ties: the
+    least progress, then the lowest id).
     """
 
     prompt: Sequence[int]
@@ -142,6 +175,13 @@ class Request:
     tenant: Optional[str] = None    # recorded in engine.request_tenants
     deadline_s: Optional[float] = None
     finish_reason: Optional[str] = None
+    priority: int = 0
+    # -- engine-managed resume state (opaque to callers) --------------
+    _preempts: int = 0                      # times preempted so far
+    _retry_at: float = 0.0                  # ``_clock`` re-admission gate
+    _progress: int = 0                      # tokens computed at checkpoint
+    _swap_handle: Optional[int] = None      # PageSwapStore entry
+    _swap_pages: int = 0
 
 
 @dataclasses.dataclass
@@ -164,7 +204,7 @@ class _PagedPrefill:
     pages are reserved; chunks write straight into the shared pools
     through the slot's page-table row.  ``offset`` starts at
     ``matched_tokens`` when the radix prefix tree mapped cached pages
-    in: prefill resumes from the match."""
+    in, or a swap snapshot is restored: prefill resumes from there."""
 
     req: Request
     slot: int
@@ -172,6 +212,9 @@ class _PagedPrefill:
     plen: int
     offset: int
     matched_tokens: int = 0
+    # (host leaf tensors, n_pages): a swap snapshot awaiting its scatter
+    # into the fresh pages (resumes from swap only)
+    swap_restore: Optional[Tuple[List[torch.Tensor], int]] = None
 
 
 class _Slots:
@@ -200,7 +243,7 @@ class _Slots:
         self.req_ctxs: List[Any] = [None] * b
         self.pf_ctxs: List[Any] = [None] * b
         self.dec_ctxs: List[Any] = [None] * b
-        self.deadlines = {id(r): time.monotonic() + r.deadline_s
+        self.deadlines = {id(r): _clock() + r.deadline_s
                           for r in requests if r.deadline_s is not None}
 
     def busy(self) -> bool:
@@ -223,28 +266,34 @@ class _Slots:
             ctxs[j].__exit__(None, None, None)
             ctxs[j] = None
 
-    def admit(self, j: int, st, prefill_tokens: int) -> None:
-        """``st`` prefills ``waiting[0]`` in slot j.  The slot is reserved
-        before anything here can raise, so ``close_all`` releases what
-        the layout committed to it."""
+    def admit(self, j: int, st, prefill_tokens: int, k: int = 0,
+              resume: bool = False) -> None:
+        """``st`` prefills ``waiting[k]`` in slot j (a ``resume`` keeps
+        its id and tokens).  The slot is reserved before anything here
+        can raise, so ``close_all`` releases what the layout committed
+        to it."""
         self.reserved[j] = True
-        r = self.eng._admit(self.waiting.pop(0))
-        self._open(self.req_ctxs, j, r.id, r.max_new_tokens)
+        r = self.waiting.pop(k)
+        if not resume:
+            r = self.eng._admit(r)
+        self._open(self.req_ctxs, j, r.id, r.max_new_tokens - len(r.out))
         self._open(self.pf_ctxs, j, r.id, prefill_tokens, phase="prefill")
         self.prefills.append(st)
 
     def go_live(self, st, first: int, next_pos: int) -> None:
         """``st`` finished prefill with ``first`` generated: its slot
         becomes a decode row.  The prefill span closes and the decode
-        span opens back to back, so the two tile the request span."""
+        span opens back to back, so the two tile the request span.  A
+        resumed request continues its budget, not a fresh one."""
         j, r = st.slot, st.req
         self.prefills.remove(st)
         self.reserved[j] = False
         self._close(self.pf_ctxs, j)
-        self._open(self.dec_ctxs, j, r.id, r.max_new_tokens, phase="decode")
+        left = r.max_new_tokens - len(r.out)
+        self._open(self.dec_ctxs, j, r.id, left, phase="decode")
         self.tokens[j, 0] = first
         self.pos[j] = next_pos
-        self.remaining[j] = r.max_new_tokens - 1
+        self.remaining[j] = left - 1
         self.active[j] = r
         r.out.append(first)
         if self.remaining[j] == 0:
@@ -259,13 +308,23 @@ class _Slots:
         self._close(self.req_ctxs, j)
         self.active[j] = None
 
+    def vacate(self, j: int) -> None:
+        """Slot j gives its request up without retiring it (preempted,
+        drained or quarantined): its spans close and the slot is free.
+        The caller has dealt with its pages."""
+        self._close(self.pf_ctxs, j)
+        self._close(self.dec_ctxs, j)
+        self._close(self.req_ctxs, j)
+        self.active[j] = None
+        self.reserved[j] = False
+
     def sweep_deadlines(self) -> None:
-        """Retire every request past its deadline — waiting, mid-prefill
-        (free its slot), or mid-decode (keep the tokens generated so
-        far)."""
+        """Retire every request past its deadline — waiting (a parked
+        one drops its checkpoint), mid-prefill (free its slot), or
+        mid-decode (keep the tokens generated so far)."""
         if not self.deadlines:
             return
-        now = time.monotonic()
+        now = _clock()
 
         def expired(r: Request) -> bool:
             dl = self.deadlines.get(id(r))
@@ -274,7 +333,9 @@ class _Slots:
         kept = []
         for r in self.waiting:
             if expired(r):
+                # timeout outranks retry
                 r.finish_reason = "timeout"
+                self.eng._drop_resume_state(r)
                 self.eng._timeouts += 1
             else:
                 kept.append(r)
@@ -286,6 +347,7 @@ class _Slots:
             self._close(self.pf_ctxs, st.slot)
             self._close(self.req_ctxs, st.slot)
             st.req.finish_reason = "timeout"
+            self.eng._drop_resume_state(st.req)
             self.eng._timeouts += 1
         for j in self.live():
             if expired(self.active[j]):
@@ -300,10 +362,15 @@ class _Slots:
             math.ceil(max(0, st.plen - st.offset) / chunk)
             for st in self.prefills) if chunk else 0
 
-    def decode(self, live: List[int], step) -> None:
+    def decode(self, live: List[int], step, on_poison=None,
+               watchdog=None) -> None:
         """Advance the live rows by a burst of decode steps on the device
-        (``step(tokens, pos)`` gives the logits), read every token back
-        at once, and retire the rows that are done.
+        (``step(tokens, pos)`` gives the logits and, where the layout
+        quarantines, each row's "all finite" flag, else None), read every
+        token and flag back in one host copy, and retire the rows that
+        are done.  A row with a non-finite step keeps the tokens strictly
+        before it and goes to ``on_poison(j)``; ``watchdog(seconds,
+        steps)`` sees the burst's time up to the host read.
 
         Retirement is deterministic (exactly ``max_new_tokens`` per
         request), so with no admission work pending the burst runs until
@@ -320,18 +387,30 @@ class _Slots:
             # bound the device-side run.
             steps = min(steps, 8)
         eng = self.eng
+        t0 = time.perf_counter()
         tok_dev = torch.as_tensor(self.tokens, device=eng.device)
         pos_dev = torch.as_tensor(self.pos, device=eng.device)
-        outs = []
+        outs, oks = [], []
         for _ in range(steps):
-            tok_dev = eng._pick(step(tok_dev, pos_dev))[:, None]
+            logits, ok = step(tok_dev, pos_dev)
+            tok_dev = eng._pick(logits)[:, None]
             outs.append(tok_dev)
+            if ok is not None:
+                oks.append(ok[:, None].to(tok_dev.dtype))
             pos_dev = pos_dev + 1
-        gen = torch.cat(outs, dim=1).cpu().numpy()
+        read = torch.cat(outs + oks, dim=1).cpu().numpy()
+        gen, okm = read[:, :steps], read[:, steps:].astype(bool)
         # the host read waited for every step, so spans closed below are
         # fenced.
+        if watchdog is not None:
+            watchdog(time.perf_counter() - t0, steps)
         for j in live:
             r = self.active[j]
+            if oks and not okm[j].all():
+                good = int(np.argmax(~okm[j]))
+                r.out.extend(gen[j, :good].tolist())
+                on_poison(j)
+                continue
             r.out.extend(gen[j].tolist())
             self.tokens[j, 0] = gen[j, -1]
             self.pos[j] += steps
@@ -397,12 +476,36 @@ class ServeEngine:
         admissions wait for pages.
       prefix_cache: keep retired requests' full pages in a radix tree
         for copy-free prefix reuse (paged layout).
+      preempt: preemption and resume (paged layout only).  When the
+        pool cannot cover a fresh admission even after radix eviction,
+        the lowest-priority live request is preempted page-aligned: its
+        written full pages go to the swap store when one is given (the
+        device pages are freed and a restore is sure), else to the radix
+        tree (copy-free, but pool-resident and evictable: a later miss
+        recomputes), and it rejoins the queue with a resume point.
+      preempt_max_retries: preemptions one request tolerates before it
+        retires ``"preempted-retry-exhausted"``.
+      retry_backoff_s: base re-admission delay after a preemption (it
+        doubles with each preemption of that request); 0 retries at once.
+      retry_errors: retry quarantined (non-finite-logit) requests from
+        scratch, within the same budget and backoff, instead of retiring
+        them ``"error"``.
+      swap_store: a ``serve.swap.PageSwapStore`` for preempted pages
+        (paged layout only); None: tree or recompute.
+      watchdog_step_timeout_s: a fenced prefill chunk or decode step (per
+        step of a burst) slower than this counts a ``hung_steps`` and
+        emits a ``hung_step`` event (paged layout only).  Detection
+        only: a device step cannot be aborted from the host.
       greedy, temperature, seed: decoding policy.  ``greedy=False``
         samples every token (the first of each prefill too) at
         ``temperature`` from one ``torch.Generator`` seeded with ``seed``,
         kept across ``generate()`` calls.
-      governor, preempt, swap_store: accepted at their defaults only;
-        other values belong to later slices and raise.
+      governor: accepted at None only; the governor comes with a later
+        slice and raises.
+
+    ``event_sink``, when set, receives one dict per preempt, resume,
+    retry_exhausted, quarantine, hung_step, drain_checkpoint and drain
+    event; a sink that raises is ignored.
     """
 
     def __init__(self, cfg: ModelConfig, params, batch_size: int,
@@ -414,7 +517,10 @@ class ServeEngine:
                  kv_page_size: Optional[int] = None,
                  kv_pool_pages: Optional[int] = None,
                  prefix_cache: bool = True,
-                 preempt: bool = False, swap_store=None,
+                 preempt: bool = False, preempt_max_retries: int = 8,
+                 retry_backoff_s: float = 0.0, retry_errors: bool = False,
+                 swap_store=None,
+                 watchdog_step_timeout_s: Optional[float] = None,
                  greedy: bool = True, temperature: float = 1.0,
                  seed: int = 0,
                  cache_dtype: Union[str, torch.dtype] = torch.bfloat16,
@@ -436,13 +542,22 @@ class ServeEngine:
                                  "(prefill_chunk > 0)")
         later = {
             "governor": governor is not None,
-            "preempt": bool(preempt),
-            "swap_store": swap_store is not None,
         }
         for what, hit in later.items():
             if hit:
                 raise NotImplementedError(
                     f"{what} is not ported yet (see ROADMAP.md)")
+        if kv_layout != "paged":
+            if preempt:
+                raise ValueError("preempt=True requires kv_layout='paged'")
+            if swap_store is not None:
+                raise ValueError("swap_store requires kv_layout='paged'")
+            if watchdog_step_timeout_s is not None:
+                raise ValueError(
+                    "watchdog_step_timeout_s requires kv_layout='paged'")
+        if watchdog_step_timeout_s is not None \
+                and watchdog_step_timeout_s <= 0:
+            raise ValueError("watchdog_step_timeout_s must be > 0")
         if isinstance(cache_dtype, str):
             named = {"bfloat16": torch.bfloat16, "float32": torch.float32}
             if cache_dtype in QUANT_MODES:
@@ -494,6 +609,33 @@ class ServeEngine:
         self._nonfinite = torch.zeros((), dtype=torch.int64,
                                       device=self.device)
 
+        # -- preemption, resume, quarantine, watchdog ----------------------
+        self.preempt_enabled = bool(preempt)
+        self.preempt_max_retries = int(preempt_max_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_errors = bool(retry_errors)
+        self.swap_store = swap_store
+        self.watchdog_step_timeout_s = watchdog_step_timeout_s
+        self.preemptions = 0
+        self.preempt_resumes = 0
+        self.retries_exhausted = 0
+        self.wasted_tokens = 0              # computed once, run again
+        self.wasted_joules = 0.0            # ... priced at the learned J/token
+        self.recovered_tokens = 0           # restored from the tree or swap
+        self.recovered_joules = 0.0
+        self.quarantined = 0
+        self.hung_steps = 0
+        self.drains = 0
+        # one entry per preempt and resume, which the stats' totals sum
+        self.preempt_log: List[Dict[str, Any]] = []
+        # the swap path's host copies: pages, bytes and fenced seconds
+        # each way
+        self.swap_copies = {"pages_out": 0, "bytes_out": 0,
+                            "seconds_out": 0.0, "pages_in": 0,
+                            "bytes_in": 0, "seconds_in": 0.0}
+        self._drain_requested = False
+        self.event_sink: Optional[Any] = None
+
         # -- paged KV (page pools + page tables + prefix reuse) ----------
         self.kv_page_size = int(kv_page_size if kv_page_size is not None
                                 else cfg.kv_page_size)
@@ -528,6 +670,13 @@ class ServeEngine:
             # owns pages between runs.
             self._paged_caches = model_mod.init_paged_caches(
                 cfg, usable + 1, ps, dtype=cache_dtype, device=self.device)
+            # the swap path's view of the pools: each leaf with its page
+            # axis, and the bytes one page holds over every leaf
+            self._pool_leaves = list(zip(
+                tree_leaves(self._paged_caches),
+                model_mod.paged_page_axes(cfg)))
+            self._page_bytes = sum(t.nbytes // t.shape[ax]
+                                   for t, ax in self._pool_leaves)
             self._page_table = np.zeros(
                 (batch_size, self._pages_per_slot), np.int32)
             self._slot_pages: List[List[int]] = \
@@ -571,8 +720,14 @@ class ServeEngine:
                         "deadline_s requires continuous mode (waves have "
                         "no per-request retirement point)")
             if r.finish_reason is not None:
-                r.id = None             # a completed request: serve afresh
+                # a completed request is served afresh; one with an id and
+                # no finish_reason was drained (or its run raised) mid-
+                # flight, and the paged path resumes it
+                r.id = None
                 r.out = []
+                r._preempts = 0
+                r._progress = 0
+                self._drop_resume_state(r)
             r.finish_reason = None
             plen = len(r.prompt)
             if chunk:
@@ -620,14 +775,26 @@ class ServeEngine:
             "requests_timed_out": self._timeouts,
             "compile_counts": dict(self.compile_counts),
             "kv_cache": self._kv_cache_stats(),
-            "preemption": {
-                "enabled": False, "preemptions": 0, "resumes": 0,
-                "retries_exhausted": 0, "wasted_tokens": 0,
-                "wasted_joules": 0.0, "recovered_tokens": 0,
-                "recovered_joules": 0.0, "quarantined": 0,
-                "hung_steps": 0, "drains": 0,
-            },
+            "preemption": self._preemption_stats(),
         }
+
+    def _preemption_stats(self) -> Dict[str, Any]:
+        pre: Dict[str, Any] = {
+            "enabled": self.preempt_enabled,
+            "preemptions": self.preemptions,
+            "resumes": self.preempt_resumes,
+            "retries_exhausted": self.retries_exhausted,
+            "wasted_tokens": self.wasted_tokens,
+            "wasted_joules": self.wasted_joules,
+            "recovered_tokens": self.recovered_tokens,
+            "recovered_joules": self.recovered_joules,
+            "quarantined": self.quarantined,
+            "hung_steps": self.hung_steps,
+            "drains": self.drains,
+        }
+        if self.swap_store is not None:
+            pre["swap"] = self.swap_store.stats()
+        return pre
 
     def _kv_cache_stats(self) -> Dict[str, Any]:
         s: Dict[str, Any] = {
@@ -692,6 +859,88 @@ class ServeEngine:
         jpt = joules / tokens
         self._prefill_jpt = jpt if self._prefill_jpt is None \
             else 0.8 * self._prefill_jpt + 0.2 * jpt
+
+    def drain(self) -> None:
+        """Ask for a graceful drain: at its next scheduler checkpoint the
+        paged engine checkpoints every request in flight page-aligned
+        (to swap or the tree, as a preemption does, charging no retry),
+        leaves ``finish_reason`` None on everything unfinished and
+        returns from ``generate()``.  Submitting the same ``Request``
+        objects again resumes them.  Safe from another thread (one flag
+        write)."""
+        self._drain_requested = True
+
+    def _emit_event(self, kind: str, rid: Optional[int], **fields) -> None:
+        """Hand one preemption-plane event to ``event_sink``; a sink that
+        raises never stops serving."""
+        sink = self.event_sink
+        if sink is None:
+            return
+        ev = {"kind": kind, "rid": rid, "timestamp_s": time.time()}
+        ev.update(fields)
+        try:
+            sink(ev)
+        except Exception:
+            pass
+
+    def _drop_resume_state(self, r: Request) -> None:
+        """Discard a request's parked swap entry: it will not resume
+        (timeout while waiting, retry budget spent, or retirement after
+        a resume through the tree)."""
+        if r._swap_handle is not None and self.swap_store is not None:
+            self.swap_store.drop(r._swap_handle)
+        r._swap_handle = None
+        r._swap_pages = 0
+
+    # -- page swap (preemption's host-memory path) ---------------------------
+    def _fence(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _swap_out(self, pages: List[int]) -> Optional[int]:
+        """Copy ``pages`` of every pool leaf to host memory (pinned when
+        the pools are on the card) into the swap store; returns its
+        handle, or None when the store's budget refuses the entry (then
+        nothing is copied).  The copies go through byte views, as
+        ``_swap_in``'s do.  Fenced, so the copy's time is measured."""
+        store = self.swap_store
+        if not store.admits(len(pages) * self._page_bytes):
+            return None
+        t0 = time.perf_counter()
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        data = []
+        for leaf, ax in self._pool_leaves:
+            part = leaf.view(torch.uint8).index_select(ax, idx)
+            if part.is_cuda:
+                host = torch.empty(part.shape, dtype=part.dtype,
+                                   pin_memory=True)
+                host.copy_(part, non_blocking=True)
+                part = host
+            data.append(part.view(leaf.dtype))
+        self._fence()
+        handle = store.put(data, len(pages))
+        io = self.swap_copies
+        io["pages_out"] += len(pages)
+        io["bytes_out"] += store.nbytes(data)
+        io["seconds_out"] += time.perf_counter() - t0
+        return handle
+
+    def _swap_in(self, pages: List[int], data: List[torch.Tensor]) -> None:
+        """Scatter a swap snapshot into ``pages`` of every pool leaf.  The
+        copies go through byte views: no dtype conversion, and fp8 codes
+        copy where ``index_copy_`` has no kernel for their dtype.  Fenced,
+        so the copy's time is measured."""
+        t0 = time.perf_counter()
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        for (leaf, ax), part in zip(self._pool_leaves, data):
+            part = part.to(self.device, non_blocking=True)
+            leaf.view(torch.uint8).index_copy_(ax, idx,
+                                               part.view(torch.uint8))
+        self._fence()
+        io = self.swap_copies
+        io["pages_in"] += len(pages)
+        io["bytes_in"] += sum(int(t.nbytes) for t in data)
+        io["seconds_in"] += time.perf_counter() - t0
 
     # -- continuous batching --------------------------------------------------
     def _admit(self, r: Request) -> Request:
@@ -767,16 +1016,22 @@ class ServeEngine:
         return tok if final else None
 
     def _serve(self, requests: List[Request], slots: _Slots,
-               iterate) -> List[Request]:
+               iterate, drain=None) -> List[Request]:
         """The loop both layouts share: sweep deadlines, then one
         ``iterate()`` (admission, prefill, a decode burst) until every
-        request is served, all inside one ``serve/batch<N>`` region."""
+        request is served, all inside one ``serve/batch<N>`` region.  A
+        requested drain runs ``drain()`` (where the layout has one) and
+        returns at the next checkpoint."""
         agg_id = self._batch_count
         self._batch_count += 1
         total_tokens = sum(r.max_new_tokens for r in requests)
         with self._measure_ctx(agg_id, tokens=total_tokens):
             try:
                 while slots.busy():
+                    if drain is not None and self._drain_requested:
+                        self._drain_requested = False
+                        drain()
+                        break
                     slots.sweep_deadlines()
                     slots.update_gauges()
                     iterate()
@@ -795,7 +1050,7 @@ class ServeEngine:
         def step(tok_dev, pos_dev):
             logits = self._fns.decode(self.params, caches, tok_dev, pos_dev)
             self._count_nonfinite(logits)
-            return logits
+            return logits, None
 
         def insert(j: int, row) -> None:
             for live_leaf, leaf in zip(cache_leaves, tree_leaves(row)):
@@ -846,12 +1101,21 @@ class ServeEngine:
         the rest of ``ceil((plen + max_new - 1) / page_size)`` pages up
         front, so decode never waits for a page mid-request.  Returns
         None when the pool cannot cover it now, even after evicting
-        tree pages (the caller leaves the request waiting)."""
+        tree pages (the caller leaves the request waiting).
+
+        A resume (``r.id`` already set: preempted, drained or
+        quarantined with a retry) prefills ``prompt + out`` from the
+        checkpoint that covers more, the tree's match or the swap
+        snapshot (restored by the caller from ``swap_restore``); its
+        already-computed tokens past the checkpoint are booked as waste,
+        those before it as recovered, both priced at the learned J per
+        prefill token."""
         pool, radix = self._pool, self._radix
         ps = self.kv_page_size
-        toks_all = list(r.prompt)
+        resume = r.id is not None
+        toks_all = list(r.prompt) + list(r.out)
         plen = len(toks_all)
-        pages_needed = math.ceil((plen + r.max_new_tokens - 1) / ps)
+        pages_needed = math.ceil((len(r.prompt) + r.max_new_tokens - 1) / ps)
         matched: List[int] = []
         if radix is not None:
             _, mpages = radix.match(toks_all)
@@ -861,25 +1125,64 @@ class ServeEngine:
             if use < len(mpages):
                 pool.release(mpages[use:])
             matched = mpages[:use]
-        fresh = pool.alloc(pages_needed - len(matched))
+        # a parked swap snapshot beats a shorter tree match: the matched
+        # refs are dropped and the snapshot restored into fresh pages
+        use_swap = resume and r._swap_handle is not None \
+            and self.swap_store is not None \
+            and r._swap_pages > len(matched)
+        need = pages_needed if use_swap else pages_needed - len(matched)
+        fresh = pool.alloc(need)
         if fresh is None and radix is not None:
-            radix.evict_for(pages_needed - len(matched))
-            fresh = pool.alloc(pages_needed - len(matched))
+            radix.evict_for(need)
+            fresh = pool.alloc(need)
         if fresh is None:
             if matched:
                 pool.release(matched)
-            return None
-        slot_pages, mt = matched + fresh, len(matched) * ps
+            return None             # a snapshot stays parked for the next try
+        swap_restore = None
+        if use_swap:
+            if matched:
+                pool.release(matched)
+            n_restore = r._swap_pages
+            swap_restore = (self.swap_store.get(r._swap_handle), n_restore)
+            r._swap_handle = None
+            r._swap_pages = 0
+            slot_pages, mt = fresh, n_restore * ps
+        else:
+            slot_pages, mt = matched + fresh, len(matched) * ps
+            if resume:
+                self._drop_resume_state(r)  # the tree won; snapshot stale
         self._slot_pages[j] = slot_pages
         self._page_table[j, :] = 0
         self._page_table[j, :len(slot_pages)] = slot_pages
-        self.prefix_hit_tokens += mt
-        if mt and self._prefill_jpt is not None:
-            self.saved_prefill_joules += mt * self._prefill_jpt
+        if resume:
+            jpt = self._prefill_jpt or 0.0
+            rec = min(mt, r._progress)
+            waste = max(0, r._progress - mt)
+            self.preempt_resumes += 1
+            self.recovered_tokens += rec
+            self.recovered_joules += rec * jpt
+            self.wasted_tokens += waste
+            self.wasted_joules += waste * jpt
+            self.preempt_log.append({
+                "event": "resume", "rid": r.id,
+                "rerun_tokens": waste, "recovered_tokens": rec,
+                "wasted_joules": waste * jpt,
+                "recovered_joules": rec * jpt,
+                "via": "swap" if swap_restore is not None else
+                       ("tree" if mt else "recompute")})
+            self._emit_event(
+                "preempt_resume", r.id, rerun_tokens=waste,
+                recovered_tokens=rec, wasted_joules=waste * jpt,
+                recovered_joules=rec * jpt)
+        else:
+            self.prefix_hit_tokens += mt
+            if mt and self._prefill_jpt is not None:
+                self.saved_prefill_joules += mt * self._prefill_jpt
         toks = np.zeros((plen + self.prefill_chunk,), np.int64)
         toks[:plen] = toks_all
         return _PagedPrefill(req=r, slot=j, toks=toks, plen=plen, offset=mt,
-                             matched_tokens=mt)
+                             matched_tokens=mt, swap_restore=swap_restore)
 
     def _release_slot_pages(self, j: int) -> None:
         if self._slot_pages[j]:
@@ -887,11 +1190,19 @@ class ServeEngine:
             self._slot_pages[j] = []
         self._page_table[j, :] = 0
 
+    def _note_watchdog(self, dt: float, steps: int, phase: str) -> None:
+        wd = self.watchdog_step_timeout_s
+        if wd is not None and dt / max(1, steps) > wd:
+            self.hung_steps += 1
+            self._emit_event("hung_step", None, phase=phase, elapsed_s=dt,
+                             steps=steps)
+
     def _step_paged_prefills(self, slots: _Slots) -> None:
         """Batched chunk admissions: ONE (B, chunk) dispatch advances
         EVERY pending prefill by one chunk, each row at its own offset;
         passenger rows ride with ``last_idx == -1`` and write nothing.
-        Fenced (the token read waits for the device)."""
+        Fenced (the token read waits for the device).  A row that
+        finishes its prefill on non-finite logits is quarantined."""
         b, chunk, dev = self.batch, self.prefill_chunk, self.device
         decode_live = bool(slots.live())
         t0 = time.perf_counter()
@@ -908,30 +1219,161 @@ class ServeEngine:
             torch.as_tensor(offs, device=dev),
             torch.as_tensor(last, device=dev),
             torch.as_tensor(self._page_table, device=dev))
+        ok = torch.isfinite(logits).all(dim=-1)
         done = [st.slot for st in slots.prefills
                 if st.offset + chunk >= st.plen]
         if done:
-            self._count_nonfinite(logits[torch.as_tensor(done, device=dev)])
-        tok = self._pick(logits).cpu().numpy()              # fence
+            self._nonfinite += (~ok[torch.as_tensor(done, device=dev)]).sum()
+        tok = self._pick(logits)
+        # tokens and flags in one host copy: the fence
+        tok, okp = torch.stack([tok, ok.to(tok.dtype)]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        self._note_watchdog(dt, 1, "prefill")
         if decode_live:
-            self.stall_events.append(time.perf_counter() - t0)
+            self.stall_events.append(dt)
         for st in list(slots.prefills):
             st.offset += chunk
-            if st.offset >= st.plen:
-                slots.go_live(st, int(tok[st.slot]), st.plen)
+            if st.offset < st.plen:
+                continue
+            if not okp[st.slot]:
+                slots.prefills.remove(st)
+                self._quarantine(slots, st.req, st.slot, "prefill")
+                continue
+            slots.go_live(st, int(tok[st.slot]), st.plen)
+
+    # -- the preemption plane --------------------------------------------------
+    def _checkpoint_pages(self, r: Request, written: List[int],
+                          pages: List[int]) -> str:
+        """Park a checkpointed request's written full pages for a later
+        resume: in the swap store when there is one and it has room (the
+        device pages are freed, a restore is sure), else in the radix
+        tree (copy-free, pool-resident, evictable: a later miss
+        recomputes).  Returns where they went."""
+        n_full = len(written) // self.kv_page_size
+        if not n_full:
+            return "none"
+        if self.swap_store is not None:
+            handle = self._swap_out(pages[:n_full])
+            if handle is not None:
+                r._swap_handle = handle
+                r._swap_pages = n_full
+                return "swap"
+        if self._radix is not None:
+            self._radix.insert(list(written)[:n_full * self.kv_page_size],
+                               pages[:n_full])
+            return "tree"
+        return "dropped"
+
+    def _requeue(self, slots: _Slots, r: Request) -> None:
+        """Back to the waiting queue, behind an exponential backoff."""
+        backoff = self.retry_backoff_s * (2 ** (r._preempts - 1)) \
+            if self.retry_backoff_s > 0.0 else 0.0
+        r._retry_at = _clock() + backoff
+        slots.waiting.append(r)
+
+    def _preempt_slot(self, slots: _Slots, j: int) -> None:
+        """Preempt the decoding request in slot ``j``: checkpoint its
+        written pages, free the slot, requeue it (or retire it
+        ``"preempted-retry-exhausted"`` past its budget)."""
+        r = slots.active[j]
+        r._preempts += 1
+        if r._preempts > self.preempt_max_retries:
+            self.retries_exhausted += 1
+            self._emit_event("retry_exhausted", r.id,
+                             preempts=r._preempts - 1)
+            slots.retire(j, reason="preempted-retry-exhausted")
+            return
+        written = list(r.prompt) + r.out[:-1]
+        dest = self._checkpoint_pages(r, written, self._slot_pages[j])
+        r._progress = len(r.prompt) + len(r.out)
+        pages_held = len(self._slot_pages[j])
+        self._release_slot_pages(j)
+        slots.vacate(j)
+        self.preemptions += 1
+        self._requeue(slots, r)
+        self.preempt_log.append({
+            "event": "preempt", "rid": r.id, "dest": dest,
+            "pages_held": pages_held, "progress_tokens": r._progress})
+        self._emit_event("preempt", r.id, dest=dest, pages=pages_held,
+                         progress=r._progress)
+
+    @staticmethod
+    def _pick_victim(slots: _Slots, cand: Optional[Request]) -> Optional[int]:
+        """The lowest-priority decoding slot (ties: the least progress,
+        the least recompute; then the lowest id).  Never preempts up the
+        priority order for ``cand``."""
+        live = slots.live()
+        if not live:
+            return None
+        act = slots.active
+        j = min(live, key=lambda x: (act[x].priority,
+                                     len(act[x].prompt) + len(act[x].out),
+                                     act[x].id))
+        if cand is not None and act[j].priority > cand.priority:
+            return None
+        return j
+
+    def _quarantine(self, slots: _Slots, r: Request, j: int,
+                    phase: str) -> None:
+        """The step giving ``r``'s next token had non-finite logits: drop
+        its pages (never adopted: poison must not seed the prefix tree),
+        close its spans, and retry it from scratch with backoff or retire
+        it ``"error"``."""
+        self.quarantined += 1
+        self._emit_event("quarantine", r.id, phase=phase,
+                         tokens_kept=len(r.out))
+        self._release_slot_pages(j)
+        slots.vacate(j)
+        self._drop_resume_state(r)
+        if self.retry_errors and r._preempts < self.preempt_max_retries:
+            r._preempts += 1
+            r.out = []              # the poisoned run contributes nothing
+            r._progress = 0
+            self._requeue(slots, r)
+        else:
+            r.finish_reason = "error"
+
+    def _drain_checkpoint(self, slots: _Slots, requests: List[Request]
+                          ) -> None:
+        """Checkpoint every request in flight (decoding ones as a
+        preemption does but charging no retry, prefilling ones parking
+        the chunks already written), leaving ``finish_reason`` None so
+        that a later ``generate()`` resumes them."""
+        self.drains += 1
+        for j in slots.live():
+            r = slots.active[j]
+            written = list(r.prompt) + r.out[:-1]
+            dest = self._checkpoint_pages(r, written, self._slot_pages[j])
+            r._progress = len(r.prompt) + len(r.out)
+            self._release_slot_pages(j)
+            slots.vacate(j)
+            self._emit_event("drain_checkpoint", r.id, dest=dest)
+        for st in list(slots.prefills):
+            r = st.req
+            slots.prefills.remove(st)
+            dest = self._checkpoint_pages(r, st.toks[:st.offset].tolist(),
+                                          self._slot_pages[st.slot])
+            r._progress = st.offset
+            self._release_slot_pages(st.slot)
+            slots.vacate(st.slot)
+            self._emit_event("drain_checkpoint", r.id, dest=dest)
+        self._emit_event("drain", None, unfinished=sum(
+            1 for r in requests if r.finish_reason is None))
 
     def _run_paged(self, requests: List[Request]) -> List[Request]:
         """Continuous batching over the page pools.
 
         Differences from ``_run_continuous``: admission reserves pages
         instead of a cache row, and may wait on the pool as well as on
-        slots; prefill chunks write straight into the shared pools
-        through the slot's page-table row, every pending admission's
-        chunk batched into one dispatch (``_step_paged_prefills``);
-        decode sees a masked page table (mid-prefill and dead rows read
-        and write only the scratch page); retirement adopts the
-        request's full pages into the radix prefix tree before releasing
-        its references.
+        slots (or, with ``preempt``, preempt a live request for a fresh
+        one); requests backing off after a preemption wait their turn;
+        prefill chunks write straight into the shared pools through the
+        slot's page-table row, every pending admission's chunk batched
+        into one dispatch (``_step_paged_prefills``); decode sees a
+        masked page table (mid-prefill and dead rows read and write only
+        the scratch page) and flags each row's non-finite steps for the
+        quarantine; retirement adopts the request's full pages into the
+        radix prefix tree before releasing its references.
         """
         b, dev = self.batch, self.device
         radix, ps = self._radix, self.kv_page_size
@@ -939,6 +1381,8 @@ class ServeEngine:
         self._pool_short = False
 
         def release(j: int, r: Optional[Request], retired: bool) -> None:
+            if retired:
+                self._drop_resume_state(r)
             if retired and radix is not None:
                 # Adopt the full pages actually written — the prompt and
                 # every generated token fed back (the last one never
@@ -957,15 +1401,38 @@ class ServeEngine:
         slots = _Slots(self, requests, release)
 
         def iterate():
-            # Admission: page reservation for each free slot.  A pool too
-            # drained to cover the next request defers it — retirements
-            # free pages; an idle engine always admits, since one slot's
-            # pages fit the pool (checked in __init__) and an idle pool,
-            # after prefix-tree eviction, is wholly free.
+            # Everything waiting may be backing off with nothing in
+            # flight: sleep the shortest backoff off (in slices) rather
+            # than spin on admission.
+            if slots.waiting and not slots.prefills and not slots.live():
+                nxt = min(w._retry_at for w in slots.waiting)
+                now = _clock()
+                if nxt > now:
+                    _sleep(min(nxt - now, 0.05))
+            # Admission: page reservation for each free slot, in queue
+            # order among the requests not backing off.  A pool too
+            # drained to cover the next request defers it (or, with
+            # preempt, a fresh one preempts a victim once; a resumed one
+            # never does: evicting live work to readmit evicted work
+            # would thrash).  An idle engine always admits, since one
+            # slot's pages fit the pool (checked in __init__) and an
+            # idle pool, after prefix-tree eviction, is wholly free.
             for j in range(b):
                 if not (slots.waiting and slots.free(j)):
                     continue
-                st = self._admit_paged(slots.waiting[0], j)
+                now = _clock()
+                elig = [i for i, w in enumerate(slots.waiting)
+                        if w._retry_at <= now]
+                if not elig:
+                    break
+                k = elig[0]
+                cand = slots.waiting[k]
+                st = self._admit_paged(cand, j)
+                if st is None and self.preempt_enabled and cand.id is None:
+                    victim = self._pick_victim(slots, cand)
+                    if victim is not None:
+                        self._preempt_slot(slots, victim)
+                        st = self._admit_paged(cand, j)
                 if st is None:
                     # count each episode of waiting on pages once
                     if not self._pool_short:
@@ -974,8 +1441,15 @@ class ServeEngine:
                     break
                 self._pool_short = False
                 # the phase span counts the tokens actually prefilled: a
-                # prefix hit shrinks the work
-                slots.admit(j, st, st.plen - st.matched_tokens)
+                # prefix hit or a restore shrinks the work
+                slots.admit(j, st, st.plen - st.matched_tokens, k=k,
+                            resume=cand.id is not None)
+                if st.swap_restore is not None:
+                    # the snapshot goes into the fresh pages; prefill then
+                    # continues at its edge
+                    data, npg = st.swap_restore
+                    st.swap_restore = None
+                    self._swap_in(self._slot_pages[j][:npg], data)
             slots.update_gauges()
             if slots.prefills:
                 self._step_paged_prefills(slots)
@@ -995,12 +1469,19 @@ class ServeEngine:
             def step(tok_dev, pos_dev):
                 logits = self._paged_fns.decode(self.params, caches, tok_dev,
                                                 pos_dev, pt_dec)
-                self._count_nonfinite(logits[live_dev])
-                return logits
+                ok = torch.isfinite(logits).all(dim=-1)
+                self._nonfinite += (~ok[live_dev]).sum()
+                return logits, ok
 
-            slots.decode(live, step)
+            slots.decode(
+                live, step,
+                on_poison=lambda j: self._quarantine(
+                    slots, slots.active[j], j, "decode"),
+                watchdog=lambda dt, n: self._note_watchdog(dt, n, "decode"))
 
-        return self._serve(requests, slots, iterate)
+        return self._serve(requests, slots, iterate,
+                           drain=lambda: self._drain_checkpoint(slots,
+                                                                requests))
 
     # -- synchronized waves (baseline) ----------------------------------------
     def _run_wave(self, wave: List[Request]) -> List[Request]:

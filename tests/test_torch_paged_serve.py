@@ -30,6 +30,7 @@ from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E4
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.serve.swap import PageSwapStore  # noqa: E402
 
 ATOL = 1e-5
 
@@ -60,6 +61,17 @@ def mk(vocab, cls=Request, n_req=5, seed=7, max_new=6):
 
 def outs(rs):
     return [r.out for r in rs]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The serve steps here are tiny: torch's intra-op threads only
+    contend, with JAX's and with the other workers of a parallel run.
+    Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -264,10 +276,13 @@ def test_paged_validation(setup):
         ServeEngine(cfg, params, kv_layout="paged", prefill_chunk=0, **kw)
     with pytest.raises(ValueError, match="kv_page_size"):
         ServeEngine(cfg, params, kv_layout="paged", kv_page_size=0, **kw)
-    for later in (dict(preempt=True), dict(swap_store=object()),
-                  dict(governor=object())):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(cfg, params, kv_layout="paged", **later, **kw)
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, params, kv_layout="paged", governor=object(), **kw)
+    # the preemption plane builds on the paged layout
+    eng = ServeEngine(cfg, params, kv_layout="paged", preempt=True,
+                      swap_store=PageSwapStore(), **kw)
+    assert eng.stats()["preemption"]["enabled"]
+    assert eng.stats()["preemption"]["swap"]["entries"] == 0
 
 
 def test_paged_admission_batching(setup):
@@ -406,3 +421,28 @@ def test_serve_launcher_paged_reports_pool_and_energy(capsys):
     assert "energy (cpuutil): " in out and " J/token" in out
     assert "kv pool: " in out and "8 tokens/page" in out
     assert "prefix cache: " in out
+
+
+def test_serve_launcher_preemption_flags(capsys):
+    """The launcher's preemption flags reach the engine, and it prints
+    the ``preemption`` block: 12 pages hold two of the three requests
+    (6 pages each), so the third, arriving while the shortest prompt
+    decodes and the longest still prefills in chunks of 8, preempts it
+    into the swap store."""
+    from repro_torch.launch import serve as serve_launch
+    serve_launch.main(["--reduced", "--device", "cpu", "--kv-layout",
+                       "paged", "--kv-page-size", "8", "--kv-pool-blocks",
+                       "12", "--prefill-chunk", "8", "--requests", "3",
+                       "--batch", "3", "--max-new", "20", "--max-len", "64",
+                       "--preempt", "--preempt-max-retries", "4",
+                       "--retry-backoff-s", "0", "--swap-bytes",
+                       str(1 << 20), "--retry-errors",
+                       "--watchdog-step-timeout-s", "1e-9"])
+    out = capsys.readouterr().out
+    line = [x for x in out.splitlines() if x.startswith("preemption: ")]
+    assert len(line) == 1
+    assert line[0].startswith("preemption: 1 preempted, 1 resumed ")
+    assert " 0 retries exhausted, 0 quarantined, " in line[0]
+    assert "0 hung steps" not in line[0] and " hung steps" in line[0]
+    assert "; swap: 3 pages out / 3 in, 0 B held, 0 rejected" in line[0]
+    assert out.count(" -> 20 tokens (length)") == 3
