@@ -152,6 +152,27 @@ Phases, in order; any failure exits nonzero:
      ``"error"``, its pages never reach the radix tree, the others give
      the clean tokens; a run with a watchdog of 1e-9 s a step completes
      and flags hung steps.
+     5g. the power governor and the telemetry plane: (a) phase 5's run 2
+     under an observer governor (no cap) over a ``PowerRecorder``
+     attached to its session and engine: tokens equal to run 1's, the
+     run's card watts and, at each decode step, the age of the newest
+     nvml sample; (b) 8 of phase 5's requests on its engine under a cap
+     halfway between the card's idle watts (after a 1 s sleep) and (a)'s:
+     phase 5's checks, at least one decision, as many as
+     ``stats()["governor"]`` counts, each a ``serve/governor/`` span; the
+     window peak after the ramp and tokens/s logged beside the cap and
+     phase 5; (c) 4 requests of 16 tokens under half the idle draw: every
+     request served, forced admits, decode pauses; then 4 requests of 16
+     tokens fail-closed at each of ``SIGNAL_TTLS`` (stale episodes and
+     forced admits logged); (d) 8 of phase 5's requests paged on 5p's
+     96 pages with ``preempt=True``, a 1 GiB swap store, no prefix
+     cache, ``pool_reserve_frac`` 0.25 and one ``request_shed()``, under
+     a fresh session with a ``TelemetryServer`` on 127.0.0.1 and an SSE
+     client: phase 5's checks, the paged kernels only, a pool block or
+     wait and a preemption after the shed, ``/stats`` with ``governor``,
+     ``kv_cache`` and ``preemption``, ``/requests`` joules within 1% of
+     the session's ``serve/req<N>`` records, ``record`` and ``preempt``
+     events on ``/stream``.
      5c. phase 5's 16 requests, through ``PHASE_5C_LAYERS`` (10) of the
      model's 30 layers, once per quantized cache mode and layout
      (int8, fp8_e4m3; contiguous, paged at page 16 with the default
@@ -212,7 +233,8 @@ Phases, in order; any failure exits nonzero:
      ``EnergyMeter`` reading of the same window.
   7. print the ``{"kernels": [...]}`` line (19 rows: the 15 kernels and
      rows 2v, 3v, 7v, 8v with their launches in phase 5m, the paged rows
-     with their launches in phase 5p's swap run beside; the attention
+     with their launches in phase 5p's swap run and rows 1-4, 7, 8 with
+     phase 5g's (b) and (d) beside; the attention
      kernels with their quantized launches and times beside, the
      quantizing scatters with fp8_e4m3's times beside int8's, the four
      scatters' times a pair call's; row 9 with its launches on phase 5w's
@@ -1529,7 +1551,7 @@ def check_paged_prefill(kernel, ref, dev, mode=None):
     return results
 
 
-# -- phase 3v: MLA's aliased latent cache ---------------------------------------
+# -- phase 3v: MLA's aliased latent cache -------------------------------------
 # The v_width branch of rows 2, 3, 7 and 8 (rows 2v, 3v, 7v, 8v).
 # deepseek-v3's latent cache at full width is one kv head whose 576-wide
 # rows are the keys and, their first 512 lanes, the values, shared by 128
@@ -2577,7 +2599,7 @@ def check_flash(kernel, ref, ops, dev, library: Path):
     return dict(results, serve_prefill=serve)
 
 
-# -- phase 4: small reference ---------------------------------------------------
+# -- phase 4: small reference -------------------------------------------------
 
 def check_small_reference(configs, model_mod, ServeEngine, Request):
     """Reduced smollm-135m, fp32: serve steps on the card (kernels)
@@ -2824,14 +2846,19 @@ def check_small_baselines(configs, model_mod, ServeEngine, Request,
         raise AssertionError("sampling is not deterministic per seed")
 
 
-# -- phase 5: serve at full width --------------------------------------------------
+# -- phase 5: serve at full width ---------------------------------------------
 
 def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
-               pmt, serve_launch):
+               pmt, serve_launch, telemetry, PowerGovernor):
     """Serve the 16 requests twice on one engine measured through one
     PMT session (cpuutil + nvml): the first run is the main path's (its
     launch counts go into the ``kernels`` line), the second measures the
-    spread of tokens/s and J/token on this card."""
+    spread of tokens/s and J/token on this card, under an observer
+    governor (no cap) over a ``PowerRecorder`` attached to the session
+    and the engine (phase 5g (a)): its tokens must equal the first run's,
+    and it measures the run's card watts and how old the newest watts
+    sample is at each decode step.  Returns, besides phase 5's figures,
+    the engine, its session and the recorder for phase 5g."""
     cfg = configs.get_config("smollm-135m")
     params = model_mod.init_params(cfg, seed=0, device="cuda")
     session = pmt.Session(["cpuutil", "nvml"])
@@ -2849,24 +2876,104 @@ def serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
     reader = nvml.NvmlReader(0)
     steps = count_steps(eng)
     runs = []
+    recorder = telemetry.PowerRecorder().attach(session, exporter=energy)
+    recorder.attach_engine(eng)
+    observed = {}
     try:
         log(f"  NVML: {reader.name()}, enforced power limit "
             f"{reader.power_limit_watts():.0f} W, now "
             f"{reader.power_watts():.0f} W")
         for i in (1, 2):
             steps.update(decode=0, chunk=0)
+            if i == 2:
+                observed = observe_run(eng, recorder, PowerGovernor)
             runs.append(served_run(eng, Request, prompts, kernels,
                                    nvml.EnergyMeter(reader), i, session,
                                    energy, serve_launch))
             # the bf16 contiguous chunk is two slice copies a layer
             check_once_a_layer(cfg, runs[-1][0], steps, "cache_update",
                                f"run {i}", chunks=False)
+        observed.update(observed.pop("finish")())
     finally:
         reader.close()
+    if runs[1][1] != runs[0][1]:
+        raise AssertionError("phase 5g (a): the observer-governed run's "
+                             "tokens differ from run 1's")
+    log(f"  5g (a): run 2 under an observer governor (no cap, backend "
+        f"nvml): tokens equal to run 1's; {observed['decisions']} "
+        f"decisions; card {observed['watts']:.2f} W over the run "
+        f"({observed['samples']} samples, window peak "
+        f"{observed['window_peak']:.2f} W); the newest watts sample's age "
+        f"at a decode step: median {observed['age_p50'] * 1e3:.1f} ms, "
+        f"p99 {observed['age_p99'] * 1e3:.1f} ms, max "
+        f"{observed['age_max'] * 1e3:.1f} ms over {observed['ages']} steps "
+        f"(a signal_ttl_s under the max would have declared the signal "
+        f"stale in this run)")
     traced = trace_serve(eng, cfg, Request, rng)
-    session.close()
+    live = dict(eng=eng, session=session, energy=energy, recorder=recorder,
+                observed=observed)
     return runs[0][0], prompts, runs[0][1], \
-        eng.stats()["kv_cache"]["bytes_per_token"], traced, runs[0][2]
+        eng.stats()["kv_cache"]["bytes_per_token"], traced, runs[0][2], live
+
+
+def nvml_window(recorder, n0: int, window_s: float,
+                ramp_s: float = 0.0) -> tuple:
+    """The card's watts the recorder gathered since its ``n0``-th nvml
+    sample: (mean, samples, the largest mean over a trailing
+    ``window_s`` window, windows ending ``ramp_s`` after the first
+    sample on)."""
+    recorder.poll_once()
+    series = recorder.watts_series("nvml").get("nvml", [])[n0:]
+    if not series:
+        return float("nan"), 0, float("nan")
+    peak = float("-inf")
+    lo = 0
+    for i, (t, _) in enumerate(series):
+        while series[lo][0] < t - window_s:
+            lo += 1
+        if t >= series[0][0] + ramp_s:
+            win = [w for _, w in series[lo:i + 1]]
+            peak = max(peak, sum(win) / len(win))
+    mean = sum(w for _, w in series) / len(series)
+    return mean, len(series), peak
+
+
+def observe_run(eng, recorder, PowerGovernor) -> dict:
+    """Phase 5g (a): put an observer governor (no cap, the nvml backend)
+    on the engine and time, at each decode step, the age of the newest
+    nvml sample on the recorder (what a ``signal_ttl_s`` is held
+    against).  Returns ``{"finish": f}``; ``f()`` takes the observer and
+    the wrapper off and returns the figures of the run."""
+    recorder.poll_once()
+    n0 = len(recorder.watts_series("nvml").get("nvml", []))
+    gov = PowerGovernor(recorder, backend="nvml")
+    eng.governor = gov
+    fns = eng._fns
+    ages = []
+
+    def decode(*args):
+        last = recorder.last_watts_ts(backend="nvml")
+        if last is not None:
+            ages.append(time.monotonic() - last)
+        return fns.decode(*args)
+
+    eng._fns = fns._replace(decode=decode)
+
+    def finish() -> dict:
+        eng._fns, eng.governor = fns, None
+        gov.close()
+        mean, n, peak = nvml_window(recorder, n0, gov.window_s)
+        xs = sorted(ages) or [float("nan")]
+        pick = lambda q: xs[min(len(xs) - 1, int(q * (len(xs) - 1)))]
+        if gov.throttle_count:
+            raise AssertionError(f"phase 5g (a): the observer decided "
+                                 f"{list(gov.decisions)}")
+        return {"decisions": gov.throttle_count, "watts": mean,
+                "samples": n, "window_peak": peak, "ages": len(ages),
+                "age_p50": pick(0.5), "age_p99": pick(0.99),
+                "age_max": xs[-1]}
+
+    return {"finish": finish}
 
 
 def serve_workload(cfg, Request, rng) -> tuple:
@@ -3096,7 +3203,7 @@ def check_once_a_layer(cfg, counts, steps, scatter, label,
                              f"layer a step")
 
 
-# -- phase 5p: the preemption plane ----------------------------------------------
+# -- phase 5p: the preemption plane -------------------------------------------
 # (a) tests/test_serve_preempt.py's pressured mix (a long decoder, a
 # neighbour, a page-hungry latecomer) on reduced fp32 models, with that
 # test's pools (9 pages of 8, 4 of 16).
@@ -3339,6 +3446,273 @@ def check_quarantine_card(configs, ServeEngine, Request, params, prompts,
         raise AssertionError("phase 5p: the watchdog misbehaved")
 
 
+# -- phase 5g: the power governor and the telemetry plane ---------------------
+
+def governor_figures(gov) -> str:
+    st = gov.stats()
+    model = st["slot_watts_model"]
+    fit = "none" if model is None else (
+        f"{model['slope_w_per_slot']:.3f} W a slot over "
+        f"{model['intercept_w']:.2f} W ({model['samples']} samples)")
+    step = "none" if gov._step_w is None else f"{gov._step_w:.3f} W"
+    return (f"{st['throttle_decisions']} decisions {st['throttle_actions']}, "
+            f"{st['pause_total_s'] * 1e3:.1f} ms paused; learned step "
+            f"{step}, slot model {fit}")
+
+
+def check_governed(st, gov, energy, n_before, label) -> None:
+    """The governor's count is the engine's ``stats()["governor"]``
+    (``st``, read at the end of the run), it decided at least once, and
+    its decisions are session spans."""
+    spans = [r.path for r in energy.records[n_before:]
+             if r.path.startswith("serve/governor/")]
+    log(f"  {label}: {len(spans)} serve/governor/<action><n> spans in the "
+        f"session")
+    if gov.throttle_count < 1 \
+            or st["throttle_decisions"] != gov.throttle_count or not spans:
+        raise AssertionError(f"{label}: {gov.throttle_count} decisions, "
+                             f"stats {st['throttle_decisions']}, "
+                             f"{len(spans)} spans")
+
+
+def serve_governed(live, Request, kernels, nvml, serve_launch, prompts,
+                   PowerGovernor, chunked, card) -> dict:
+    """Phase 5g (b) and (c) on phase 5's contiguous engine, session and
+    recorder.  (b): a cap from the card's idle watts (after a 1 s sleep)
+    and phase 5g (a)'s run watts, halfway between them, on the nvml
+    backend: 8 of phase 5's requests, phase 5's checks; the governor
+    decides at least once, as many times as ``stats()["governor"]``
+    says, and each decision is a ``serve/governor/`` span; the window
+    peak after a 1 s ramp is logged against the cap, and tokens/s
+    beside phase 5's.  (c): a cap of half the idle draw, 4 requests of
+    16 tokens: each completes, forced admits are recorded and decode
+    pauses.  Returns (b)'s launches of rows 1-3."""
+    eng, session, energy, recorder = (live[k] for k in (
+        "eng", "session", "energy", "recorder"))
+    time.sleep(1.0)
+    recorder.poll_once()
+    idle = recorder.mean_watts(1.0, backend="nvml")
+    busy = live["observed"]["watts"]
+    cap = idle + 0.5 * (busy - idle)
+    log(f"  5g (b): card idle {idle:.2f} W (the last second), 5g (a)'s run "
+        f"{busy:.2f} W: cap {cap:.2f} W [{card}]")
+    gov = PowerGovernor(recorder, cap_watts=cap, backend="nvml")
+    eng.governor = gov
+    recorder.poll_once()
+    n0 = len(recorder.watts_series("nvml").get("nvml", []))
+    session.flush()
+    n_before = len(energy.records)
+    reader = nvml.NvmlReader(0)
+    try:
+        launches, _, figs = served_run(eng, Request, prompts[:8], kernels,
+                                       nvml.EnergyMeter(reader), "5g (b)",
+                                       session, energy, serve_launch)
+        st = eng.stats()["governor"]
+    finally:
+        reader.close()
+        eng.governor = None
+        gov.close()
+    session.flush()
+    mean, n, peak = nvml_window(recorder, n0, gov.window_s, ramp_s=1.0)
+    log(f"  5g (b): {governor_figures(gov)}")
+    log(f"  5g (b): card {mean:.2f} W over the run ({n} samples), window "
+        f"({gov.window_s} s) peak after a 1 s ramp {peak:.2f} W against the "
+        f"cap {cap:.2f} W ({peak / cap:.3f}x; logged, not gated); "
+        f"{figs['tokens_per_s']:.1f} tokens/s, {figs['joules_per_token']:.4f}"
+        f" J/token against phase 5 run 1's {chunked['tokens_per_s']:.1f} and "
+        f"{chunked['joules_per_token']:.4f} (16 requests) [{card}]")
+    check_governed(st, gov, energy, n_before, "phase 5g (b)")
+    # (c) a cap no load can hold: liveness wins
+    gov = PowerGovernor(recorder, cap_watts=0.5 * idle, backend="nvml")
+    eng.governor = gov
+    n_before = len(energy.records)
+    t0 = time.perf_counter()
+    try:
+        done = eng.generate([Request(prompt=p, max_new_tokens=16)
+                             for p in prompts[:4]])
+        torch.cuda.synchronize()
+        st = eng.stats()["governor"]
+    finally:
+        eng.governor = None
+        gov.close()
+    wall = time.perf_counter() - t0
+    session.flush()
+    log(f"  5g (c): cap {0.5 * idle:.2f} W (half the idle draw), 4 requests "
+        f"of 16 tokens in {wall:.3f} s: {governor_figures(gov)}")
+    actions = gov.stats()["throttle_actions"]
+    if any(len(r.out) != 16 or r.finish_reason != "length" for r in done) \
+            or "admit_force" not in actions or not gov.pause_total_s > 0:
+        raise AssertionError(f"phase 5g (c): liveness under an unholdable "
+                             f"cap: {[len(r.out) for r in done]}, {actions}")
+    check_governed(st, gov, energy, n_before, "phase 5g (c)")
+    probe_signal_ttl(eng, recorder, Request, prompts, PowerGovernor,
+                     10.0 * max(busy, idle), card)
+    return launches
+
+
+# the signal TTLs phase 5g probes, in seconds: under and over the newest
+# nvml sample's largest age at a decode step (73-177 ms on an H100 80GB
+# HBM3 at 700 W, phase 5g (a))
+SIGNAL_TTLS = (0.05, 0.1, 0.2)
+
+
+def probe_signal_ttl(eng, recorder, Request, prompts, PowerGovernor, cap,
+                     card) -> None:
+    """Phase 5g's TTL probe: 4 of phase 5's requests of 16 tokens under a
+    cap no load reaches (``cap``) with ``fail_mode="closed"``, once per
+    ``SIGNAL_TTLS``: how often the nvml signal goes stale between the
+    recorder's polls, and what the closed mode's forced admits cost.
+    Logged, not gated, but for every request completing."""
+    for ttl in SIGNAL_TTLS:
+        gov = PowerGovernor(recorder, cap_watts=cap, backend="nvml",
+                            signal_ttl_s=ttl, fail_mode="closed")
+        eng.governor = gov
+        t0 = time.perf_counter()
+        try:
+            done = eng.generate([Request(prompt=p, max_new_tokens=16)
+                                 for p in prompts[:4]])
+            torch.cuda.synchronize()
+        finally:
+            eng.governor = None
+            gov.close()
+        wall = time.perf_counter() - t0
+        acts = gov.stats()["throttle_actions"]
+        log(f"  5g ttl {ttl} s (fail closed, cap {cap:.0f} W out of reach): "
+            f"{acts.get('signal_stale', 0)} stale episodes, "
+            f"{acts.get('admit_force', 0)} forced admits, "
+            f"{acts.get('chunk_force', 0)} forced chunks; "
+            f"{sum(len(r.out) for r in done) / wall:.1f} tokens/s [{card}]")
+        if any(len(r.out) != 16 for r in done):
+            raise AssertionError(f"phase 5g: a request starved at a signal "
+                                 f"TTL of {ttl} s")
+
+
+def sse_events(url: str, events: list) -> None:
+    """Read an SSE stream until the server closes it, appending each
+    event's name."""
+    import urllib.request
+    with urllib.request.urlopen(url + "/stream", timeout=30.0) as resp:
+        for line in resp:
+            if line.startswith(b"event: "):
+                events.append(line[len(b"event: "):].strip().decode())
+
+
+def http_json(url: str) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=30.0) as resp:
+        return json.loads(resp.read().decode())
+
+
+def serve_governed_paged(configs, model_mod, ServeEngine, Request, kernels,
+                         serve_kernels, nvml, pmt, serve_launch, telemetry,
+                         PowerGovernor, PageSwapStore, prompts, card) -> dict:
+    """Phase 5g (d): 8 of phase 5's requests through full-width
+    smollm-135m, paged (page 16, bf16) on phase 5p's pool of
+    ``PREEMPT_POOL_PAGES`` with ``preempt=True`` and a 1 GiB swap store,
+    no prefix cache (the governor's veto reads the free pages, and a
+    prefix tree holding the retired prompts' pages would keep them under
+    the reserve: every admission but the engine's forced ones vetoed),
+    under an uncapped
+    governor with ``pool_reserve_frac`` 0.25 and one ``request_shed()``
+    at the 40th decode step, a recorder and a ``TelemetryServer`` on
+    127.0.0.1 (an ephemeral port) over a fresh session (cpuutil + nvml),
+    an SSE client reading ``/stream`` throughout.  Phase 5's checks, the
+    paged kernels only; a pool block or wait and a preemption after the
+    shed among the decisions; ``/stats`` holds ``governor``, ``kv_cache``
+    and ``preemption``; each request's joules on ``/requests`` within 1%
+    of the session's ``serve/req<N>`` records; ``/stream`` delivered a
+    ``record`` and a ``preempt`` event.  Returns the run's launches of
+    rows 4, 7 and 8."""
+    import threading
+    cfg = configs.get_config("smollm-135m")
+    params = model_mod.init_params(cfg, seed=0, device="cuda")
+    session = pmt.Session(["cpuutil", "nvml"])
+    energy = session.add_exporter(pmt.MemoryExporter())
+    recorder = telemetry.PowerRecorder().attach(session, exporter=energy)
+    gov = PowerGovernor(recorder, pool_reserve_frac=0.25, backend="nvml")
+    eng = ServeEngine(cfg, params, batch_size=8, max_len=1024,
+                      prefill_chunk=32, cache_dtype=torch.bfloat16,
+                      kv_layout="paged", kv_page_size=16,
+                      kv_pool_pages=PREEMPT_POOL_PAGES, preempt=True,
+                      swap_store=PageSwapStore(1 << 30), prefix_cache=False,
+                      governor=gov, session=session)
+    recorder.attach_engine(eng)
+    rng = np.random.default_rng(3)
+    eng.generate([Request(prompt=rng.integers(0, cfg.vocab_size,
+                                              40).tolist(),
+                          max_new_tokens=4) for _ in range(2)])
+    torch.cuda.synchronize()
+    fns = eng._paged_fns
+    steps = [0]
+
+    def decode(*args):
+        steps[0] += 1
+        if steps[0] == 40:
+            gov.request_shed()
+        return fns.decode(*args)
+
+    eng._paged_fns = fns._replace(decode=decode)
+    server = telemetry.TelemetryServer(recorder, host="127.0.0.1",
+                                       port=0).start()
+    events: list = []
+    client = threading.Thread(target=sse_events, args=(server.url, events),
+                              daemon=True)
+    reader = nvml.NvmlReader(0)
+    try:
+        client.start()
+        zero_counts(serve_kernels)
+        n_dec = len(gov.decisions)
+        launches, _, figs = served_run(eng, Request, prompts[:8], kernels,
+                                       nvml.EnergyMeter(reader), "5g (d)",
+                                       session, energy, serve_launch)
+        contiguous = read_counts(serve_kernels)
+        session.flush()
+        recorder.poll_once()
+        stats = http_json(server.url + "/stats")
+        http_reqs = http_json(server.url + "/requests")["requests"]
+        time.sleep(0.5)              # the last records onto the stream
+    finally:
+        reader.close()
+        server.close()
+        client.join(timeout=10.0)
+        gov.close()
+        recorder.close()
+        session.close()
+    if any(contiguous.values()):
+        raise AssertionError(f"phase 5g (d): the paged path launched a "
+                             f"contiguous kernel: {contiguous}")
+    actions = [d.action for d in list(gov.decisions)[n_dec:]]
+    pre = eng.stats()["preemption"]
+    log(f"  5g (d): {governor_figures(gov)}; this run's decisions in order "
+        f"{actions}; {pre['preemptions']} preemptions, {pre['resumes']} "
+        f"resumes; {figs['tokens_per_s']:.1f} tokens/s [{card}]")
+    shed = actions.index("shed_request") if "shed_request" in actions \
+        else None
+    if not ({"pool_block", "pool_wait"} & set(actions)) or shed is None \
+            or "preempt" not in actions[shed:]:
+        raise AssertionError(f"phase 5g (d): decisions {actions} lack a pool "
+                             f"block or wait, or a preemption after the "
+                             f"shed")
+    missing = {"governor", "kv_cache", "preemption"} - set(stats)
+    by_req = serve_launch.request_energy(energy.records)
+    worst = float("inf")
+    if len(http_reqs) == eng._request_count:
+        worst = max(abs(d["joules"] - by_req[f"serve/req{rid}"]["joules"])
+                    / by_req[f"serve/req{rid}"]["joules"]
+                    for rid, d in http_reqs.items())
+    kinds = {k: events.count(k) for k in set(events)}
+    log(f"  5g (d): telemetry at {server.url}: /stats keys governor, "
+        f"kv_cache, preemption {'present' if not missing else missing}; "
+        f"/requests joules against the session's serve/req<N> records: "
+        f"largest gap {worst:.2e} of {len(http_reqs)} requests; /stream "
+        f"events {kinds}")
+    if missing or worst > 0.01 or not kinds.get("record") \
+            or not kinds.get("preempt"):
+        raise AssertionError("phase 5g (d): the telemetry plane missed a "
+                             "gate")
+    return launches
+
+
 # Phase 5c's depth: 10 of smollm-135m's 30 layers (its widths whole), so
 # that its four serve runs, host-bound, take a third of their time.
 PHASE_5C_LAYERS = 10
@@ -3436,7 +3810,7 @@ def serve_quantized(configs, model_mod, ServeEngine, Request, kernels,
     return totals
 
 
-# -- phase 4m: MLA's small reference -----------------------------------------------
+# -- phase 4m: MLA's small reference ------------------------------------------
 
 def check_small_mla(configs, model_mod, ServeEngine, Request, v_kernels):
     """Reduced deepseek-v3 (``moe=None, mtp=False``: three dense MLA
@@ -3475,7 +3849,7 @@ def check_small_mla(configs, model_mod, ServeEngine, Request, v_kernels):
         raise AssertionError(f"a v_width row did not launch: {counts}")
 
 
-# -- phase 5m: MLA serving at full width -----------------------------------------
+# -- phase 5m: MLA serving at full width --------------------------------------
 # deepseek-v3-671b's first three layers, which the published model keeps
 # dense (ff 18432), at every published width: d_model 7168, 128 heads,
 # q_lora 1536, kv_lora 512, rope 64 (a 576-wide latent cache row).
@@ -3618,7 +3992,7 @@ def mla_first_step(cfg, model_mod, params) -> dict:
             **{k: v for k, v in out.items() if k.endswith("ms")}}
 
 
-# -- phase 5w: the serve baselines at full width ----------------------------------
+# -- phase 5w: the serve baselines at full width ------------------------------
 # The first whole-prompt prefill's last logits through the flash kernel
 # against the same prefill through the dense attend, both in bf16: the
 # dense attend rounds its probabilities to bf16 before p @ v where the
@@ -3929,7 +4303,7 @@ def trace_summary(prof, wall: float, kernel_names) -> tuple:
     return busy_us / 1e3, named_us / 1e3
 
 
-# -- phase 5t: train at full width ---------------------------------------------
+# -- phase 5t: train at full width --------------------------------------------
 TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048          # SmolLM's training context
 # One bf16 step at the same weights and batch through the kernel and
@@ -4182,7 +4556,7 @@ def check_train_reference(configs, train, optim, data, ckpt) -> None:
                              "uninterrupted one")
 
 
-# -- phase 6: the paper's Fig. 2 on the card -------------------------------------
+# -- phase 6: the paper's Fig. 2 on the card ----------------------------------
 
 def probe_nvml(reader, fma32_cuda):
     """Which NVML quantity follows the card: samples the total-energy
@@ -4380,7 +4754,9 @@ def main() -> int:
     from repro_torch.launch import serve as serve_launch
     from repro_torch.models import model as model_mod
     from repro_torch.optim import optimizers as optim
+    from repro_torch import telemetry
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.governor import PowerGovernor
     from repro_torch.serve.swap import PageSwapStore
     from repro_torch.train import steps as train
 
@@ -4505,9 +4881,9 @@ def main() -> int:
         f"max_len 1024, chunk 32, bf16 {elapsed()}")
     kernels = {"cache_update": cu_kernel, "prefill_attention": pa_kernel,
                "decode_attention": da_kernel}
-    launches, prompts, bf16_tokens, bf16_bytes, bf16_trace, chunked = \
-        serve_full(configs, model_mod, ServeEngine, Request, kernels, nvml,
-                   pmt, serve_launch)
+    launches, prompts, bf16_tokens, bf16_bytes, bf16_trace, chunked, \
+        live = serve_full(configs, model_mod, ServeEngine, Request, kernels,
+                          nvml, pmt, serve_launch, telemetry, PowerGovernor)
 
     log(f"[5b] serve full-width smollm-135m paged: 16 requests sharing a "
         f"256-token system prompt, 8 slots, max_len 1024, chunk 32, page 16, "
@@ -4533,6 +4909,28 @@ def main() -> int:
     check_quarantine_card(configs, ServeEngine, Request, full_params,
                           prompts, card)
     del full_params
+
+    log(f"[5g] the power governor and the telemetry plane at full width: "
+        f"(a) was phase 5's run 2; (b) a binding cap and (c) an unholdable "
+        f"one on phase 5's contiguous engine; (d) paged on "
+        f"{PREEMPT_POOL_PAGES} pages with preemption, a pool reserve, a "
+        f"shed request and the HTTP/SSE server {elapsed()}")
+    t_phase = time.perf_counter()
+    try:
+        governor_launches = serve_governed(
+            live, Request, kernels, nvml, serve_launch, prompts,
+            PowerGovernor, chunked, card)
+    finally:
+        live["recorder"].close()
+        live["session"].close()
+        del live
+    governor_launches.update(serve_governed_paged(
+        configs, model_mod, ServeEngine, Request, paged_kernels, kernels,
+        nvml, pmt, serve_launch, telemetry, PowerGovernor, PageSwapStore,
+        prompts, card))
+    log(f"  5g launches: (b) rows 1-3 and (d) rows 4, 7, 8: "
+        f"{governor_launches}")
+    log(f"  phase 5g took {time.perf_counter() - t_phase:.1f} s")
 
     log(f"[5c] serve smollm-135m at full width, {PHASE_5C_LAYERS} of its "
         f"layers, with quantized KV caches: phase 5's 16 requests, int8 and "
@@ -4681,6 +5079,9 @@ def main() -> int:
         # the paged rows' launches on phase 5p's swap run
         if row["name"] in preempt_launches:
             row["preempt_launches"] = preempt_launches[row["name"]]
+        # rows 1-4, 7, 8: their launches on phase 5g's (b) and (d)
+        if row["name"] in governor_launches:
+            row["governor_launches"] = governor_launches[row["name"]]
     # rows 2v, 3v, 7v, 8v: launches on phase 5m's bf16 runs (quant_launches:
     # its int8 runs), times at the slice's shapes, bf16 with int8's and
     # fp8_e4m3's beside

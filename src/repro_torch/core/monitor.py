@@ -122,7 +122,7 @@ class PowerMonitor:
         usually the session's background resolver — so it must not
         block; if it raises it is dropped with a warning (mirroring the
         :class:`~repro_torch.core.export.MemoryExporter` subscriber contract).
-        The telemetry plane's :class:`~repro.telemetry.PowerRecorder`
+        The telemetry plane's :class:`~repro_torch.telemetry.PowerRecorder`
         hangs off this to stream per-step/per-request energy live.
         """
         with self._lock:

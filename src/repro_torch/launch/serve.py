@@ -11,7 +11,16 @@ Usage:
       [--kv-layout paged [--kv-page-size 16] [--kv-pool-blocks N] \
        [--no-prefix-cache] [--preempt] [--preempt-max-retries 8] \
        [--retry-backoff-s 0] [--swap-bytes B] [--retry-errors] \
-       [--watchdog-step-timeout-s S]] [--num-layers N] [--no-moe]
+       [--watchdog-step-timeout-s S]] [--num-layers N] [--no-moe] \
+      [--power-cap-watts W] [--tenant-quota J] [--signal-ttl-s S] \
+      [--governor-fail-mode {closed,open}] [--pool-reserve-frac F] \
+      [--telemetry-port P] [--supervise]
+
+  # hold the run under 300 W and watch it live:
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --power-cap-watts 300 --telemetry-port 8321
+  curl -N http://127.0.0.1:8321/stream        # live SSE record feed
+  curl http://127.0.0.1:8321/timeline         # power series
 
 Runs on the card unless ``--device cpu`` is given.  Prompts are random
 token ids with lengths spread over [1, max_len / 2], made from
@@ -36,6 +45,15 @@ pool:`` line), and, with ``--preempt`` or where a step was quarantined or
 flagged hung, the preemption plane's counters (the ``preemption:``
 line; ``--swap-bytes`` adds the swap store's).
 
+The energy control plane, as in the JAX launcher: a ``PowerRecorder``
+attached to the session (records and watts timelines) and the engine
+(its stats and preemption-plane events); with ``--power-cap-watts`` or
+``--tenant-quota`` (continuous mode) a ``PowerGovernor`` reading the
+recorder's window, whose decisions close the stall line; with
+``--telemetry-port`` a ``TelemetryServer`` on 127.0.0.1 (0: an
+ephemeral port, printed).  ``--supervise`` wraps each backend in a
+``SensorSupervisor`` with a 0 W dummy behind it.
+
 ``--num-layers`` and ``--no-moe`` override the config: ``--arch
 deepseek-v3-671b --num-layers 3 --no-moe`` is the published model's
 three leading dense MLA layers at full width (its MoE layers come with a
@@ -52,10 +70,14 @@ import torch
 
 import repro_torch.core as pmt
 from repro_torch import configs
+from repro_torch.core.backends.dummy import DummySensor
+from repro_torch.core.supervisor import SensorSupervisor
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Request, ServeEngine, stall_p95
+from repro_torch.serve.governor import PowerGovernor
 from repro_torch.serve.swap import PageSwapStore
+from repro_torch.telemetry import PowerRecorder, TelemetryServer
 
 
 def request_energy(records) -> dict:
@@ -134,6 +156,19 @@ def preemption_line(pre: dict) -> str:
                  f"{sw['swapped_in_pages']} in, "
                  f"{sw['bytes_used']} B held, "
                  f"{sw['rejected_puts']} rejected")
+    return line
+
+
+def governor_report(st: dict, window_watts) -> str:
+    """The JAX launcher's governor clause from ``stats()["governor"]``
+    and the recorder's window watts."""
+    watts = window_watts if window_watts is None \
+        else round(window_watts, 1)
+    line = (f"governor: {st['throttle_decisions']} throttle decisions "
+            f"{st['throttle_actions']}, {st['pause_total_s'] * 1e3:.1f} ms "
+            f"paused, window {watts} W vs cap {st['cap_watts']} W")
+    if st["tenant_joules"]:
+        line += f", tenant J {st['tenant_joules']}"
     return line
 
 
@@ -219,6 +254,42 @@ def main(argv=None):
                     help="engine watchdog (paged layout): a fenced device "
                          "step slower than this counts a hung step and "
                          "emits an event")
+    ap.add_argument("--pool-reserve-frac", type=float, default=0.0,
+                    help="governor admission veto when the page pool's "
+                         "free fraction drops below this reserve; acts "
+                         "only with --kv-layout paged and a governor "
+                         "(--power-cap-watts or --tenant-quota): the "
+                         "contiguous layout reports no pool (0 disables)")
+    ap.add_argument("--power-cap-watts", type=float, default=None,
+                    help="hold measured window power under this budget "
+                         "via the PowerGovernor (admission gating, "
+                         "prefill-chunk pacing, decode duty-cycling); "
+                         "continuous mode only")
+    ap.add_argument("--tenant-quota", type=float, default=None,
+                    help="per-tenant joules quota: requests round-robin "
+                         "over two synthetic tenants, and an over-quota "
+                         "tenant yields admission priority to in-quota "
+                         "ones (soft: never starved)")
+    ap.add_argument("--signal-ttl-s", type=float, default=None,
+                    help="governor power-signal freshness budget: when "
+                         "the newest watts sample is older than this the "
+                         "signal is stale and the governor degrades per "
+                         "--governor-fail-mode")
+    ap.add_argument("--governor-fail-mode", default="closed",
+                    choices=["closed", "open"],
+                    help="stale-signal policy: closed = stop admitting and "
+                         "zero the prefill budget until the signal "
+                         "recovers (protects the power budget); open = "
+                         "run unthrottled (protects availability)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="wrap each backend in a SensorSupervisor with a "
+                         "0 W dummy fallback: reads get deadline, retry "
+                         "and circuit-breaker protection and fail over "
+                         "instead of killing the sampler thread")
+    ap.add_argument("--telemetry-port", type=int, default=None,
+                    help="serve live telemetry on this HTTP port of "
+                         "127.0.0.1 (/timeline /requests /stats /health "
+                         "/stream SSE); 0 = ephemeral (printed)")
     ap.add_argument("--num-layers", type=int, default=None,
                     help="override the config's layer count")
     ap.add_argument("--no-moe", action="store_true",
@@ -242,42 +313,78 @@ def main(argv=None):
                             args.max_len + 1 - args.max_new))
     deadline = args.request_deadline_s if args.mode == "continuous" \
         else None
+    tenants = args.tenant_quota is not None
     requests = [Request(prompt=rng.integers(
         0, cfg.vocab_size, int(rng.integers(1, max_prompt + 1))).tolist(),
-        max_new_tokens=args.max_new, deadline_s=deadline)
-        for _ in range(args.requests)]
+        max_new_tokens=args.max_new, deadline_s=deadline,
+        tenant=f"tenant{i % 2}" if tenants else None)
+        for i in range(args.requests)]
     backends = ["cpuutil", "nvml"] if device.type == "cuda" \
         else ["cpuutil"]
+    sensors = backends
+    if args.supervise:
+        # a fail-safe chain a backend: the real sensor first, a 0 W dummy
+        # last, so that a dead backend degrades the measurements instead
+        # of the run
+        sensors = [SensorSupervisor([pmt.create(name),
+                                     DummySensor(watts=0.0)],
+                                    deadline_s=0.25)
+                   for name in backends]
     swap_store = None
     if args.swap_bytes is not None:
         swap_store = PageSwapStore(capacity_bytes=args.swap_bytes)
-    with pmt.Session(backends) as session:
+    governor = server = health = None
+    with pmt.Session(sensors) as session:
         energy = session.add_exporter(pmt.MemoryExporter())
-        engine = ServeEngine(cfg, params, batch_size=args.batch,
-                             max_len=args.max_len, mode=args.mode,
-                             decode_attn_impl=args.decode_attn_impl,
-                             prefill_chunk=args.prefill_chunk,
-                             kv_layout=args.kv_layout,
-                             kv_page_size=args.kv_page_size,
-                             kv_pool_pages=args.kv_pool_blocks,
-                             prefix_cache=args.prefix_cache,
-                             cache_dtype=args.cache_dtype,
-                             preempt=args.preempt,
-                             preempt_max_retries=args.preempt_max_retries,
-                             retry_backoff_s=args.retry_backoff_s,
-                             retry_errors=args.retry_errors,
-                             swap_store=swap_store,
-                             watchdog_step_timeout_s=(
-                                 args.watchdog_step_timeout_s),
-                             greedy=args.temperature <= 0.0,
-                             temperature=args.temperature or 1.0,
-                             seed=args.seed, device=device, session=session)
-        t0 = time.perf_counter()
-        done = engine.generate(requests)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        session.flush()          # settle any spans still in flight
+        # the control plane: the recorder gathers records and watts
+        # timelines, the governor (capped or with quotas) reads its window,
+        # the HTTP server (if asked for) serves both live
+        recorder = PowerRecorder().attach(session, exporter=energy)
+        try:
+            if (args.power_cap_watts is not None or tenants) \
+                    and args.mode == "continuous":
+                governor = PowerGovernor(
+                    recorder, cap_watts=args.power_cap_watts,
+                    tenant_quota_j=args.tenant_quota,
+                    signal_ttl_s=args.signal_ttl_s,
+                    fail_mode=args.governor_fail_mode,
+                    pool_reserve_frac=args.pool_reserve_frac)
+            if args.telemetry_port is not None:
+                server = TelemetryServer(recorder,
+                                         port=args.telemetry_port).start()
+                print(f"telemetry: {server.url} "
+                      f"(/timeline /requests /stats /health /stream)")
+            engine = ServeEngine(
+                cfg, params, batch_size=args.batch, max_len=args.max_len,
+                mode=args.mode, decode_attn_impl=args.decode_attn_impl,
+                prefill_chunk=args.prefill_chunk, governor=governor,
+                kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
+                kv_pool_pages=args.kv_pool_blocks,
+                prefix_cache=args.prefix_cache,
+                cache_dtype=args.cache_dtype, preempt=args.preempt,
+                preempt_max_retries=args.preempt_max_retries,
+                retry_backoff_s=args.retry_backoff_s,
+                retry_errors=args.retry_errors, swap_store=swap_store,
+                watchdog_step_timeout_s=args.watchdog_step_timeout_s,
+                greedy=args.temperature <= 0.0,
+                temperature=args.temperature or 1.0,
+                seed=args.seed, device=device, session=session)
+            recorder.attach_engine(engine)
+            t0 = time.perf_counter()
+            done = engine.generate(requests)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            session.flush()          # settle any spans still in flight
+            recorder.poll_once()     # the last watts into the timeline
+            if args.supervise:
+                health = recorder.health()
+        finally:
+            if server is not None:
+                server.close()
+            if governor is not None:
+                governor.close()
+            recorder.close()
     n = sum(len(r.out) for r in done)
     where = torch.cuda.get_device_name(0) if device.type == "cuda" \
         else "cpu"
@@ -291,6 +398,9 @@ def main(argv=None):
             f"{len(engine.stall_events)} {what}")
     if args.request_deadline_s is not None:
         line += f", {st['requests_timed_out']} timed out"
+    if governor is not None:
+        line += "; " + governor_report(
+            st["governor"], recorder.mean_watts(governor.window_s))
     print(line)
     for line in energy_report(energy.records, n, backends):
         print(line)
@@ -302,6 +412,9 @@ def main(argv=None):
         pre = st["preemption"]
         if pre["enabled"] or pre["quarantined"] or pre["hung_steps"]:
             print(preemption_line(pre))
+    if health is not None:
+        print(f"measurement plane: {health['state']} "
+              f"({health['health_events']} health transitions)")
     for i, r in enumerate(done):
         print(f"  req{i}: prompt {len(r.prompt)} -> {len(r.out)} tokens "
               f"({r.finish_reason})")

@@ -78,8 +78,16 @@ counts fenced steps slower than ``watchdog_step_timeout_s``; ``drain()``
 checkpoints everything in flight and returns.  Deadlines and backoff
 read the module's ``_clock``.
 
-Still to come, with its slice (see ROADMAP.md), and refused here: the
-power governor.
+``governor=`` (a ``serve.governor.PowerGovernor``) is consulted by both
+continuous loops, as in the JAX engine: at admission (its gate, with a
+forced admit when the engine is idle, and a pick of a tenant within its
+quota; the paged loop feeds it the pool's free fraction), for the
+prefill chunks a loop runs (a forced chunk when nothing decodes), and
+before decode (a bounded pause); under a power cap decode runs one step
+a loop, so every step passes those checkpoints.  The paged loop also
+preempts a live request when the governor asks to shed one, reports
+pool waits, and tells it of every preemption, resume and quarantine.
+Waves take no governor.
 """
 from __future__ import annotations
 
@@ -276,6 +284,8 @@ class _Slots:
         r = self.waiting.pop(k)
         if not resume:
             r = self.eng._admit(r)
+            if self.eng.governor is not None:
+                self.eng.governor.note_admitted(r)
         self._open(self.req_ctxs, j, r.id, r.max_new_tokens - len(r.out))
         self._open(self.pf_ctxs, j, r.id, prefill_tokens, phase="prefill")
         self.prefills.append(st)
@@ -376,10 +386,13 @@ class _Slots:
         request), so with no admission work pending the burst runs until
         the next slot retires: one host sync per retirement, not per
         token.  While prefill chunks are pending, decode advances one
-        step per chunk.  Rows not in ``live`` decode garbage that only
-        their own dead cache rows (contiguous) or the scratch page
-        (paged) receive."""
-        steps = 1 if self.prefills \
+        step per chunk, and under a governor's power cap one step per
+        loop, so that every step passes its checkpoints.  Rows not in
+        ``live`` decode garbage that only their own dead cache rows
+        (contiguous) or the scratch page (paged) receive."""
+        gov = self.eng.governor
+        governed = gov is not None and gov.cap_watts is not None
+        steps = 1 if (self.prefills or governed) \
             else min(self.remaining[j] for j in live)
         if steps > 1 and self.deadlines \
                 and any(id(self.active[j]) in self.deadlines for j in live):
@@ -500,8 +513,12 @@ class ServeEngine:
         samples every token (the first of each prefill too) at
         ``temperature`` from one ``torch.Generator`` seeded with ``seed``,
         kept across ``generate()`` calls.
-      governor: accepted at None only; the governor comes with a later
-        slice and raises.
+      governor: a ``serve.governor.PowerGovernor`` consulted by both
+        continuous loops (admission gate and tenant pick, prefill chunk
+        budget, decode pause; the paged loop also sheds, reports pool
+        waits and the preemption plane's events); under its watts cap
+        decode runs one step a loop.  ``stats()["governor"]`` is its
+        ``stats()``.  Wave mode does not consult it.
 
     ``event_sink``, when set, receives one dict per preempt, resume,
     retry_exhausted, quarantine, hung_step, drain_checkpoint and drain
@@ -540,13 +557,6 @@ class ServeEngine:
             if not chunk:
                 raise ValueError("paged KV requires chunked prefill "
                                  "(prefill_chunk > 0)")
-        later = {
-            "governor": governor is not None,
-        }
-        for what, hit in later.items():
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (see ROADMAP.md)")
         if kv_layout != "paged":
             if preempt:
                 raise ValueError("preempt=True requires kv_layout='paged'")
@@ -577,6 +587,7 @@ class ServeEngine:
         self.monitor = monitor
         self.session = session
         self.mode = mode
+        self.governor = governor
         self.kv_layout = kv_layout
         self.cache_dtype = cache_dtype
         self.prefill_chunk = chunk
@@ -746,6 +757,8 @@ class ServeEngine:
                         f"request needs {need} cache slots (bucketed prompt "
                         f"+ max_new_tokens) but max_len is {self.max_len}")
         self.stall_events = []
+        if self.governor is not None and self.mode == "continuous":
+            self.governor.begin(self)
         if self.mode == "wave":
             done: List[Request] = []
             for i in range(0, len(requests), self.batch):
@@ -762,7 +775,7 @@ class ServeEngine:
 
     def stats(self) -> Dict[str, Any]:
         """Scheduler counters snapshot, with the JAX engine's keys."""
-        return {
+        s = {
             "mode": self.mode,
             "kv_layout": self.kv_layout,
             "batch_slots": self.batch,
@@ -777,6 +790,9 @@ class ServeEngine:
             "kv_cache": self._kv_cache_stats(),
             "preemption": self._preemption_stats(),
         }
+        if self.governor is not None:
+            s["governor"] = self.governor.stats()
+        return s
 
     def _preemption_stats(self) -> Dict[str, Any]:
         pre: Dict[str, Any] = {
@@ -1015,6 +1031,19 @@ class ServeEngine:
             self.stall_events.append(time.perf_counter() - t0)
         return tok if final else None
 
+    def _chunk_budget(self, decode_live: bool) -> int:
+        """Prefill chunks to run before this decode step: 1, or the
+        governor's budget, forced to 1 when nothing decodes (a paused
+        chunk queue would idle the engine, not save power)."""
+        gov = self.governor
+        if gov is None:
+            return 1
+        budget = gov.prefill_chunk_budget(decode_live)
+        if budget < 1 and not decode_live:
+            budget = 1
+            gov.note_forced_chunk()
+        return budget
+
     def _serve(self, requests: List[Request], slots: _Slots,
                iterate, drain=None) -> List[Request]:
         """The loop both layouts share: sweep deadlines, then one
@@ -1057,21 +1086,35 @@ class ServeEngine:
                 live_leaf[:, j].copy_(leaf[:, 0])
 
         def iterate():
+            gov = self.governor
             # slot-granular admission: every free slot refills now
             # (blocking) or enters the chunk queue (chunked) instead of
-            # waiting for the batch to drain.
+            # waiting for the batch to drain.  A governor gates the rate
+            # and picks which waiting request (in-quota tenants first);
+            # when it blocks while the engine is idle, the engine admits
+            # anyway: power can only be idle draw then, and liveness
+            # beats an unholdable cap.
             for j in range(b):
                 if not (slots.waiting and slots.free(j)):
                     continue
+                k = 0
+                if gov is not None:
+                    if not gov.admission_allowed():
+                        if slots.live() or slots.prefills:
+                            break
+                        gov.note_forced_admit()
+                    else:
+                        k = next((i for i, w in enumerate(slots.waiting)
+                                  if gov.tenant_allowed(w.tenant)), 0)
+                r = slots.waiting[k]
                 if self.prefill_chunk:
-                    st = self._start_chunked_prefill(slots.waiting[0], j)
-                    slots.admit(j, st, st.plen)
+                    st = self._start_chunked_prefill(r, j)
+                    slots.admit(j, st, st.plen, k=k)
                     continue
                 # blocking bucketed baseline: the whole prompt now
-                r = slots.waiting[0]
                 st = _Prefill(req=r, slot=j, caches=None, toks=None,
                               plen=len(r.prompt))
-                slots.admit(j, st, st.plen)
+                slots.admit(j, st, st.plen, k=k)
                 t0 = time.perf_counter()
                 first, row, bucket = self._prefill_request(r)
                 if slots.live():
@@ -1079,17 +1122,27 @@ class ServeEngine:
                 insert(j, row)
                 slots.go_live(st, first, bucket)
             slots.update_gauges()
-            # one prefill chunk per decode step; with no live decode rows
-            # the chunk queue drains back to back.
+            # one prefill chunk per decode step (a governor's budget: 0
+            # while it sheds load, forced back to 1 when nothing decodes,
+            # more with ample headroom); with no live decode rows the
+            # chunk queue drains back to back.
             if slots.prefills:
-                st = slots.prefills[0]
-                first = self._step_chunked_prefill(st, bool(slots.live()))
-                if first is not None:
-                    insert(st.slot, st.caches)
-                    slots.go_live(st, first, st.plen)
+                decode_live = bool(slots.live())
+                for _ in range(self._chunk_budget(decode_live)):
+                    if not slots.prefills:
+                        break
+                    st = slots.prefills[0]
+                    first = self._step_chunked_prefill(st, decode_live)
+                    if first is not None:
+                        insert(st.slot, st.caches)
+                        slots.go_live(st, first, st.plen)
                 slots.update_gauges()
             live = slots.live()
             if live:                    # else everything retired at prefill
+                if gov is not None:
+                    # the last-resort lever: duty-cycle decode while power
+                    # exceeds the hard-over threshold
+                    gov.maybe_pause_decode()
                 slots.decode(live, step)
 
         return self._serve(requests, slots, iterate)
@@ -1175,6 +1228,8 @@ class ServeEngine:
                 "preempt_resume", r.id, rerun_tokens=waste,
                 recovered_tokens=rec, wasted_joules=waste * jpt,
                 recovered_joules=rec * jpt)
+            if self.governor is not None:
+                self.governor.note_preempt_resume(r.id, rec, waste)
         else:
             self.prefix_hit_tokens += mt
             if mt and self._prefill_jpt is not None:
@@ -1197,14 +1252,15 @@ class ServeEngine:
             self._emit_event("hung_step", None, phase=phase, elapsed_s=dt,
                              steps=steps)
 
-    def _step_paged_prefills(self, slots: _Slots) -> None:
+    def _step_paged_prefills(self, slots: _Slots, decode_live: bool
+                             ) -> None:
         """Batched chunk admissions: ONE (B, chunk) dispatch advances
         EVERY pending prefill by one chunk, each row at its own offset;
         passenger rows ride with ``last_idx == -1`` and write nothing.
-        Fenced (the token read waits for the device).  A row that
-        finishes its prefill on non-finite logits is quarantined."""
+        Fenced (the token read waits for the device); a stall sample
+        when ``decode_live``.  A row that finishes its prefill on
+        non-finite logits is quarantined."""
         b, chunk, dev = self.batch, self.prefill_chunk, self.device
-        decode_live = bool(slots.live())
         t0 = time.perf_counter()
         ctoks = np.zeros((b, chunk), np.int64)
         offs = np.zeros((b,), np.int32)
@@ -1296,6 +1352,8 @@ class ServeEngine:
             "pages_held": pages_held, "progress_tokens": r._progress})
         self._emit_event("preempt", r.id, dest=dest, pages=pages_held,
                          progress=r._progress)
+        if self.governor is not None:
+            self.governor.note_preempt(r.id, pages_held, dest)
 
     @staticmethod
     def _pick_victim(slots: _Slots, cand: Optional[Request]) -> Optional[int]:
@@ -1322,6 +1380,8 @@ class ServeEngine:
         self.quarantined += 1
         self._emit_event("quarantine", r.id, phase=phase,
                          tokens_kept=len(r.out))
+        if self.governor is not None:
+            self.governor.note_quarantine(r.id)
         self._release_slot_pages(j)
         slots.vacate(j)
         self._drop_resume_state(r)
@@ -1376,7 +1436,7 @@ class ServeEngine:
         radix prefix tree before releasing its references.
         """
         b, dev = self.batch, self.device
-        radix, ps = self._radix, self.kv_page_size
+        pool, radix, ps = self._pool, self._radix, self.kv_page_size
         caches = self._paged_caches     # pools persist across generate()s
         self._pool_short = False
 
@@ -1401,6 +1461,15 @@ class ServeEngine:
         slots = _Slots(self, requests, release)
 
         def iterate():
+            gov = self.governor
+            # A governor's shed request preempts (not drops) the
+            # lowest-priority live request; it requeues and resumes once
+            # pressure clears.
+            if self.preempt_enabled and gov is not None \
+                    and gov.consume_shed_request():
+                victim = self._pick_victim(slots, None)
+                if victim is not None:
+                    self._preempt_slot(slots, victim)
             # Everything waiting may be backing off with nothing in
             # flight: sleep the shortest backoff off (in slices) rather
             # than spin on admission.
@@ -1409,8 +1478,9 @@ class ServeEngine:
                 now = _clock()
                 if nxt > now:
                     _sleep(min(nxt - now, 0.05))
-            # Admission: page reservation for each free slot, in queue
-            # order among the requests not backing off.  A pool too
+            # Admission: the governor's gate (fed the pool's free fraction)
+            # and tenant pick, then page reservation for each free slot,
+            # in queue order among the requests not backing off.  A pool too
             # drained to cover the next request defers it (or, with
             # preempt, a fresh one preempts a victim once; a resumed one
             # never does: evicting live work to readmit evicted work
@@ -1426,6 +1496,15 @@ class ServeEngine:
                 if not elig:
                     break
                 k = elig[0]
+                if gov is not None:
+                    free_frac = pool.free_pages / max(1, pool.total_pages)
+                    if not gov.admission_allowed(pool_free_frac=free_frac):
+                        if slots.live() or slots.prefills:
+                            break
+                        gov.note_forced_admit()
+                    else:
+                        k = next((i for i in elig if gov.tenant_allowed(
+                            slots.waiting[i].tenant)), elig[0])
                 cand = slots.waiting[k]
                 st = self._admit_paged(cand, j)
                 if st is None and self.preempt_enabled and cand.id is None:
@@ -1434,12 +1513,20 @@ class ServeEngine:
                         self._preempt_slot(slots, victim)
                         st = self._admit_paged(cand, j)
                 if st is None:
-                    # count each episode of waiting on pages once
+                    # count each episode of waiting on pages once, and
+                    # tell the governor of it
                     if not self._pool_short:
                         self._pool_short = True
                         self.pool_wait_events += 1
+                        if gov is not None:
+                            gov.note_pool_wait(pool.free_pages, math.ceil(
+                                (len(cand.prompt) + cand.max_new_tokens
+                                 - 1) / ps))
                     break
-                self._pool_short = False
+                if self._pool_short:
+                    self._pool_short = False
+                    if gov is not None:
+                        gov.note_pool_ready()
                 # the phase span counts the tokens actually prefilled: a
                 # prefix hit or a restore shrinks the work
                 slots.admit(j, st, st.plen - st.matched_tokens, k=k,
@@ -1452,11 +1539,17 @@ class ServeEngine:
                     self._swap_in(self._slot_pages[j][:npg], data)
             slots.update_gauges()
             if slots.prefills:
-                self._step_paged_prefills(slots)
+                decode_live = bool(slots.live())
+                for _ in range(self._chunk_budget(decode_live)):
+                    if not slots.prefills:
+                        break
+                    self._step_paged_prefills(slots, decode_live)
                 slots.update_gauges()
             live = slots.live()
             if not live:
                 return                  # everything retired at prefill
+            if gov is not None:
+                gov.maybe_pause_decode()
             # Decode sees a MASKED page table: only decoding rows expose
             # their pages — mid-prefill and dead rows read and write the
             # scratch page only, so their garbage tokens cannot touch

@@ -36,6 +36,18 @@ from repro_torch.kernels import split_kv  # noqa: E402
 from repro_torch.kernels.decode_attention import kernel as da_kernel  # noqa: E402
 from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions here run many small torch ops: torch's intra-op
+    threads only contend, with JAX's and with the other workers of a
+    parallel run.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -6 + 2e-5}
 NEG = -2.0 ** 30
 LOG2E = 1.4426950408889634

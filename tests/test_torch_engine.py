@@ -219,8 +219,11 @@ def test_request_validation_and_later_slices_raise(setup):
                dict(prefill_chunk=0)):
         done = port_engine(setup, 1, **kw).generate(mk([([1, 2], 3)]))
         assert [len(r.out) for r in done] == [3]
-    with pytest.raises(NotImplementedError):
-        port_engine(setup, 1, governor=object())
+    # the governor is accepted and reports through stats()
+    from repro_torch.serve.governor import PowerGovernor
+    gov = PowerGovernor(recorder=None)
+    assert port_engine(setup, 1, governor=gov).stats()["governor"] \
+        == gov.stats()
     # the preemption plane is the paged layout's, as in the JAX engine
     for kw in (dict(preempt=True), dict(swap_store=object())):
         with pytest.raises(ValueError, match="kv_layout='paged'"):

@@ -276,8 +276,12 @@ def test_paged_validation(setup):
         ServeEngine(cfg, params, kv_layout="paged", prefill_chunk=0, **kw)
     with pytest.raises(ValueError, match="kv_page_size"):
         ServeEngine(cfg, params, kv_layout="paged", kv_page_size=0, **kw)
-    with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, params, kv_layout="paged", governor=object(), **kw)
+    from repro_torch.serve.governor import PowerGovernor
+    gov = PowerGovernor(recorder=None, pool_reserve_frac=0.25)
+    st = ServeEngine(cfg, params, kv_layout="paged", governor=gov,
+                     **kw).stats()
+    assert st["governor"] == gov.stats()
+    assert st["governor"]["pool_reserve_frac"] == 0.25
     # the preemption plane builds on the paged layout
     eng = ServeEngine(cfg, params, kv_layout="paged", preempt=True,
                       swap_store=PageSwapStore(), **kw)

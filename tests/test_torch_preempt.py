@@ -13,8 +13,9 @@ store.  The counterparts of tests/test_serve_preempt.py follow:
 accounting, priority, retry exhaustion, timeout outranking retry (on a
 clock the test drives), quarantine (poisoned through the port's serve
 steps) with and without retry, the watchdog and its events, drain and
-resume, exception cleanup and validation.  The recorder test is left
-out: ``PowerRecorder`` comes with the governor's slice.
+resume, exception cleanup and validation.  The recorder's twin
+(``PowerRecorder.attach_engine`` ingesting the plane's events) is in
+tests/test_torch_telemetry.py.
 """
 import dataclasses
 
@@ -564,9 +565,11 @@ def test_preempt_validation(smollm):
     with pytest.raises(ValueError, match="watchdog"):
         ServeEngine(cfg, params, kv_layout="paged",
                     watchdog_step_timeout_s=0.0, **kw)
-    with pytest.raises(NotImplementedError, match="governor"):
-        ServeEngine(cfg, params, kv_layout="paged", preempt=True,
-                    governor=object(), **kw)
+    from repro_torch.serve.governor import PowerGovernor
+    gov = PowerGovernor(recorder=None)
+    st = ServeEngine(cfg, params, kv_layout="paged", preempt=True,
+                     governor=gov, **kw).stats()
+    assert st["governor"] == gov.stats() and st["preemption"]["enabled"]
     with pytest.raises(ValueError, match="capacity_bytes"):
         PageSwapStore(-1)
     pre = ServeEngine(cfg, params, **kw).stats()["preemption"]

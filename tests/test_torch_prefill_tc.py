@@ -36,6 +36,18 @@ from repro_torch.kernels import split_kv  # noqa: E402
 from repro_torch.kernels.prefill_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.prefill_attention import ref as pa_ref  # noqa: E402
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The plain versions here run many small torch ops: torch's intra-op
+    threads only contend, with JAX's and with the other workers of a
+    parallel run.  Restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL_BF16 = 2.0 ** -6 + 1e-5
 KT = 32                      # keys per tile, as in the kernel
 NEG = -2.0 ** 30
